@@ -38,10 +38,19 @@ def ref_entry_from_numpy(bank, cpad, device=None):
     return t(bank), t(cpad)
 
 
-def encoder_refs_from_numpy(enc, refs) -> None:
+def encoder_refs_from_numpy(enc, refs, src=None) -> None:
     """Fill ``enc._rd_refs`` from JAX-made entries, newest first:
     refs = [(poc, bank, cpad, (intra, ref, mvx, mvy)), ...] with numpy
-    arrays; the colocated tuple is (4H, 4W) bool, int32, int32, int32."""
+    arrays; the colocated tuple is (4H, 4W) bool, int32, int32, int32.
+    ``src`` = (src_dc, src_sd, src_ds), a JAX encoder's per-POC source
+    statistics (its ``_src_*`` dicts), which the explicit WP estimate of
+    the next P picture reads; they replace the encoder's."""
+    if src is not None:
+        dc, sd, ds = src
+        enc._src_dc = {int(k): float(v) for k, v in dc.items()}
+        enc._src_sd = {int(k): float(v) for k, v in sd.items()}
+        enc._src_ds = {int(k): np.asarray(v, np.float64)
+                       for k, v in ds.items()}
     dev = enc.device
     out = []
     for poc, bank, cpad, col in refs[: enc.sps.num_ref_frames]:

@@ -13,7 +13,9 @@
 // 16r..16r+16, cols 16c..16c+20 of the bordered plane) and the 5x5 mode
 // window into shared memory, then
 //   1. I16: 64 threads = 4 modes x 16 4x4 blocks price the Hadamard cost,
-//      16 threads transform/quantize/reconstruct the chosen mode;
+//      16 threads transform/quantize/reconstruct the chosen mode (the
+//      `i16_code` of common.cuh, which the P picture's I16 candidate in
+//      inter_tq.cu shares);
 //   2. I4x4: the 16 blocks in z-order, one after the other; for each, 9
 //      threads (one per mode) run predict -> forward -> quant -> dequant ->
 //      inverse -> recon -> SSD + rate with the block's 16 samples in
@@ -46,22 +48,16 @@
 // (12 at CIF, 41 at 720p) on 132 SMs.  Bytes and operations per picture
 // are small by comparison (PERF.md).  A persistent wavefront kernel or a
 // CUDA graph over the T launches is later work.
+//
+// ptxas (sm_90a, nvcc -O3): 85 registers, a 96-byte stack frame (the
+// shared I16 code is a call), 13,260 B shared memory, no spills.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 64;
-constexpr int kBig = 1 << 29;
 
-// encoder MF (quant) and normAdjust4x4 (dequant) per qp%6 and position
-// class (0: both coords even, 1: both odd, 2: mixed)
-__constant__ int kM4[6][3] = {
-    {13107, 5243, 8066}, {11916, 4660, 7490}, {10082, 4194, 6554},
-    {9362, 3647, 5825},  {8192, 3355, 5243},  {7282, 2893, 4559}};
-__constant__ int kV4[6][3] = {
-    {10, 16, 13}, {11, 18, 14}, {13, 20, 16},
-    {14, 23, 18}, {16, 25, 20}, {18, 29, 23}};
 // 4x4 z-order -> (bx, by), and the up-right availability of blocks
 // inside the MB (rd.py `_I4_AUR_INT`)
 __constant__ int kBlkX[16] = {0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3};
@@ -69,105 +65,6 @@ __constant__ int kBlkY[16] = {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3};
 __constant__ int kAurInt[16] = {0, 0, 1, 0, 0, 0, 1, 0, 1, 1, 1, 0, 1, 0, 1, 0};
 // intra_chroma_pred_mode bins for DC, HOR, VERT, PLANE
 __constant__ int kChromaModeBits[4] = {1, 2, 3, 3};
-
-__device__ __forceinline__ int mul(int a, int b) {
-  return (int)((unsigned)a * (unsigned)b);
-}
-__device__ __forceinline__ int shl(int a, int n) {
-  return (int)((unsigned)a << n);
-}
-__device__ __forceinline__ int clip255(int v) { return min(max(v, 0), 255); }
-__device__ __forceinline__ int bitlen(int a) { return 32 - __clz(a); }
-__device__ __forceinline__ int cls4(int k) {
-  int y = k >> 2, x = k & 3;
-  return ((y | x) & 1) == 0 ? 0 : ((y & x) & 1) ? 1 : 2;
-}
-
-// lambda * bits, lambda in <<16 fixed point (rd.py `_lam_cost`)
-__device__ __forceinline__ int lam_cost(int lam, int bits) {
-  return mul(lam >> 16, bits) + (mul(lam & 0xFFFF, bits) >> 16);
-}
-
-// approximate CAVLC bits of 16 levels (rd.py `_coef_bits`)
-__device__ int coef_bits16(const int* lev) {
-  int lb = 0, n = 0;
-  for (int k = 0; k < 16; ++k) {
-    int a = abs(lev[k]);
-    if (a > 0) {
-      lb += 2 * bitlen(a) + 1;
-      ++n;
-    }
-  }
-  return n > 0 ? lb + n + 2 : 0;
-}
-
-// 4x4 transforms on a raster block b[4*y + x]: a pass along x for every
-// row, then along y for every column (ops/transforms.py order)
-__device__ void forward4x4(int* b) {
-  for (int p = 0; p < 2; ++p) {
-    for (int u = 0; u < 4; ++u) {
-      int s = p == 0 ? 4 * u : u, d = p == 0 ? 1 : 4;
-      int p0 = b[s], p1 = b[s + d], p2 = b[s + 2 * d], p3 = b[s + 3 * d];
-      int t0 = p0 + p3, t1 = p1 + p2, t2 = p1 - p2, t3 = p0 - p3;
-      b[s] = t0 + t1;
-      b[s + d] = shl(t3, 1) + t2;
-      b[s + 2 * d] = t0 - t1;
-      b[s + 3 * d] = t3 - shl(t2, 1);
-    }
-  }
-}
-
-__device__ void inverse4x4(int* b) {
-  for (int p = 0; p < 2; ++p) {
-    for (int u = 0; u < 4; ++u) {
-      int s = p == 0 ? 4 * u : u, d = p == 0 ? 1 : 4;
-      int w0 = b[s], w1 = b[s + d], w2 = b[s + 2 * d], w3 = b[s + 3 * d];
-      int e0 = w0 + w2, e1 = w0 - w2, e2 = (w1 >> 1) - w3, e3 = w1 + (w3 >> 1);
-      b[s] = e0 + e3;
-      b[s + d] = e1 + e2;
-      b[s + 2 * d] = e1 - e2;
-      b[s + 3 * d] = e0 - e3;
-    }
-  }
-}
-
-__device__ void hadamard4x4(int* b) {
-  for (int p = 0; p < 2; ++p) {
-    for (int u = 0; u < 4; ++u) {
-      int s = p == 0 ? 4 * u : u, d = p == 0 ? 1 : 4;
-      int w0 = b[s], w1 = b[s + d], w2 = b[s + 2 * d], w3 = b[s + 3 * d];
-      int e0 = w0 + w2, e1 = w0 - w2, e2 = w1 - w3, e3 = w1 + w3;
-      b[s] = e0 + e3;
-      b[s + d] = e1 + e2;
-      b[s + 2 * d] = e1 - e2;
-      b[s + 3 * d] = e0 - e3;
-    }
-  }
-}
-
-__device__ __forceinline__ int quant(int c, int mf, int off, int qbits) {
-  int lev = (mul(abs(c), mf) + off) >> qbits;
-  return c < 0 ? -lev : lev;
-}
-
-// level -> dequantized coefficient, position k of a 4x4 block
-__device__ __forceinline__ int dequant(int lev, int k, int per, int rem) {
-  return (shl(mul(lev, kV4[rem][cls4(k)] * 16), per) + 8) >> 4;
-}
-
-// quantize the AC of a 4x4 block of coefficients into levels (the DC is
-// coded separately: level 0 here), return their bits, and replace c[] by
-// the inverse transform of the dequantized block with `dc_deq` as its DC
-__device__ int tq_ac(int* c, int* lev, int dc_deq, int per, int rem,
-                     int off) {
-  for (int k = 0; k < 16; ++k)
-    lev[k] = k == 0 ? 0 : quant(c[k], kM4[rem][cls4(k)], off, 15 + per);
-  int cb = coef_bits16(lev);
-  for (int k = 0; k < 16; ++k)
-    c[k] = k == 0 ? dc_deq : dequant(lev[k], k, per, rem);
-  inverse4x4(c);
-  return cb;
-}
 
 // the nine 4x4 intra predictions (rd.py `_i4_pred9`): p[0..3] up (A..D),
 // p[4..7] up-right (E..H), p[8..11] left (I..L), p[12] corner X, all
@@ -278,13 +175,9 @@ struct Shared {
   int orig[256];       // luma source of the MB, raster
   int work[17][21];    // bordered luma workspace (I4 recon goes here)
   int mw[5][5];        // 4x4 mode window (1-block border)
-  int up[16], left[16], ul;
   int corig[2][64];    // chroma source
   int cup[2][8], cleft[2][8], cul[2];
-  // I16
-  int ac[4][16], h00[4][16], sad[4];
-  int dc[16], dclev[16], dcdeq[16], cbdc;
-  int rec16[256], lev16[256], d16[16], cb16[16];
+  I16Smem i16;         // I16 neighbours, costs and recon (common.cuh)
   // I4
   int cost[9], ssd[9], rate[9], lev9[9][16], rec9[9][16];
   int lev4[256], d4, bits4;
@@ -292,41 +185,6 @@ struct Shared {
   int cdc[4][2][4], cdclev[4][2][4], cdcdeq[4][2][4];
   int crec[4][2][64], clev[4][2][4][16], cssd[4][2][4], ccb[4][2][4];
 };
-
-// I16 DC value and plane parameters (rd.py `_i16_pred_all`)
-struct I16Par {
-  int dc, a, b, c;
-};
-
-__device__ I16Par i16_par(const Shared& s, int au, int al) {
-  int su = 0, sl = 0, hg = 0, vg = 0;
-  for (int k = 0; k < 16; ++k) {
-    su += s.up[k];
-    sl += s.left[k];
-  }
-  for (int i = 0; i < 8; ++i) {
-    hg += (i + 1) * (s.up[8 + i] - (i < 7 ? s.up[6 - i] : s.ul));
-    vg += (i + 1) * (s.left[8 + i] - (i < 7 ? s.left[6 - i] : s.ul));
-  }
-  I16Par q;
-  q.dc = au && al ? (su + sl + 16) >> 5
-         : au     ? (su + 8) >> 4
-         : al     ? (sl + 8) >> 4
-                  : 128;
-  q.a = 16 * (s.left[15] + s.up[15]);
-  q.b = (5 * hg + 32) >> 6;
-  q.c = (5 * vg + 32) >> 6;
-  return q;
-}
-
-// I16 prediction sample (y, x) of mode m [VERT, HOR, DC, PLANE]
-__device__ __forceinline__ int pred16(const Shared& s, const I16Par& q, int m,
-                                      int y, int x) {
-  if (m == 0) return s.up[x];
-  if (m == 1) return s.left[y];
-  if (m == 2) return q.dc;
-  return clip255((q.a + q.b * (x - 7) + q.c * (y - 7) + 16) >> 5);
-}
 
 // chroma DC quadrants [TL, TR, BL, BR] and plane parameters of one plane
 // (rd.py `_chroma_pred4`)
@@ -421,8 +279,8 @@ intra_commit_kernel(const int* __restrict__ cur_y, const int* __restrict__ cur_u
   }
   if (tid < 25) s.mw[tid / 5][tid % 5] = ipm[(4 * r + tid / 5) * ms + 4 * c + tid % 5];
   if (tid < 16) {
-    s.up[tid] = Yp[16 * r * ys + 16 * c + 1 + tid];
-    s.left[tid] = Yp[(16 * r + 1 + tid) * ys + 16 * c];
+    s.i16.up[tid] = Yp[16 * r * ys + 16 * c + 1 + tid];
+    s.i16.left[tid] = Yp[(16 * r + 1 + tid) * ys + 16 * c];
   }
   if (tid >= 32 && tid < 48) {
     int q = tid - 32, pl = q >> 3, k = q & 7;
@@ -430,91 +288,13 @@ intra_commit_kernel(const int* __restrict__ cur_y, const int* __restrict__ cur_u
     s.cup[pl][k] = P[8 * r * cs + 8 * c + 1 + k];
     s.cleft[pl][k] = P[(8 * r + 1 + k) * cs + 8 * c];
   }
-  if (tid == 48) s.ul = Yp[16 * r * ys + 16 * c];
+  if (tid == 48) s.i16.ul = Yp[16 * r * ys + 16 * c];
   if (tid == 49) s.cul[0] = Up[8 * r * cs + 8 * c];
   if (tid == 50) s.cul[1] = Vp[8 * r * cs + 8 * c];
   __syncthreads();
 
-  // ---- I16: Hadamard cost of the 4 modes ----------------------------------
-  const int valid16[4] = {au, al, 1, au && al};
-  const I16Par q16 = i16_par(s, au, al);
-  {
-    int m = tid >> 4, blk = tid & 15, by = blk >> 2, bx = blk & 3;
-    if (valid16[m]) {
-      int h[16];
-      for (int k = 0; k < 16; ++k) {
-        int y = 4 * by + (k >> 2), x = 4 * bx + (k & 3);
-        h[k] = s.orig[16 * y + x] - pred16(s, q16, m, y, x);
-      }
-      hadamard4x4(h);
-      int sa = 0;
-      for (int k = 0; k < 16; ++k) sa += abs(h[k]);
-      s.ac[m][blk] = sa - abs(h[0]);
-      s.h00[m][blk] = h[0];
-    }
-  }
-  __syncthreads();
-  if (tid < 4) {
-    int m = tid;
-    if (valid16[m]) {
-      int h[16], sa = 0;
-      for (int k = 0; k < 16; ++k) {
-        h[k] = s.h00[m][k];
-        sa += s.ac[m][k];
-      }
-      hadamard4x4(h);
-      for (int k = 0; k < 16; ++k) sa += abs(h[k]);
-      s.sad[m] = sa >> 1;
-    } else {
-      s.sad[m] = kBig;
-    }
-  }
-  __syncthreads();
-  int mode16 = 0;
-  for (int m = 1; m < 4; ++m)
-    if (s.sad[m] < s.sad[mode16]) mode16 = m;
-
-  // ---- I16: transform / quant / recon of the chosen mode ------------------
-  int co[16], pr[16];
-  if (tid < 16) {
-    int by = tid >> 2, bx = tid & 3;
-    for (int k = 0; k < 16; ++k) {
-      int y = 4 * by + (k >> 2), x = 4 * bx + (k & 3);
-      pr[k] = pred16(s, q16, mode16, y, x);
-      co[k] = s.orig[16 * y + x] - pr[k];
-    }
-    forward4x4(co);
-    s.dc[tid] = co[0];
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int d[16];
-    for (int k = 0; k < 16; ++k) d[k] = s.dc[k];
-    hadamard4x4(d);
-    for (int k = 0; k < 16; ++k) {
-      s.dclev[k] = quant(d[k] >> 1, kM4[rem][0], 2 * off, 16 + per);
-      d[k] = s.dclev[k];
-    }
-    s.cbdc = coef_bits16(s.dclev);
-    hadamard4x4(d);  // dequant_luma_dc: rshift_rnd((x * ILS00) << per, 6)
-    for (int k = 0; k < 16; ++k)
-      s.dcdeq[k] = (shl(mul(d[k], kV4[rem][0] * 16), per) + 32) >> 6;
-  }
-  __syncthreads();
-  if (tid < 16) {
-    int by = tid >> 2, bx = tid & 3, lev[16];
-    s.cb16[tid] = tq_ac(co, lev, s.dcdeq[tid], per, rem, off);
-    int ssd = 0;
-    for (int k = 0; k < 16; ++k) {
-      int y = 4 * by + (k >> 2), x = 4 * bx + (k & 3);
-      int rec = clip255((co[k] + shl(pr[k], 6) + 32) >> 6);
-      int dd = s.orig[16 * y + x] - rec;
-      ssd += dd * dd;
-      s.rec16[16 * y + x] = rec;
-      s.lev16[16 * tid + k] = lev[k];
-    }
-    s.d16[tid] = ssd;
-  }
+  // ---- I16: Hadamard mode pick, transform / quant / recon (common.cuh) --
+  const int mode16 = i16_code(s.i16, s.orig, au, al, per, rem, off, tid);
 
   // ---- I4x4: 16 dependent blocks, 9 modes each -----------------------------
   int d4 = 0, bits4 = 0;  // kept by thread 0
@@ -585,6 +365,7 @@ intra_commit_kernel(const int* __restrict__ cur_y, const int* __restrict__ cur_u
   }
 
   // ---- chroma: 4 modes x 2 planes x 4 blocks -------------------------------
+  int co[16], pr[16];
   const int validc[4] = {1, al, au, au && al};
   int cm = tid >> 3, cpl = (tid >> 2) & 1, cb = tid & 3;
   int cby = cb >> 1, cbx = cb & 1;
@@ -653,10 +434,10 @@ intra_commit_kernel(const int* __restrict__ cur_y, const int* __restrict__ cur_u
       cmode = m;
     }
   }
-  int D16 = 0, cb16 = s.cbdc;
+  int D16 = 0, cb16 = s.i16.cbdc;
   for (int k = 0; k < 16; ++k) {
-    D16 += s.d16[k];
-    cb16 += s.cb16[k];
+    D16 += s.i16.d16[k];
+    cb16 += s.i16.cb16[k];
   }
   const int J16 = D16 + lam_cost(lam, (cb16 * 3) / 4 + 8);
   const int J4 = s.d4 + lam_cost(lam, s.bits4 + 9);
@@ -666,8 +447,8 @@ intra_commit_kernel(const int* __restrict__ cur_y, const int* __restrict__ cur_u
   for (int k = tid; k < 256; k += kThreads) {
     int y = k >> 4, x = k & 15;
     Yp[(16 * r + 1 + y) * ys + 16 * c + 1 + x] =
-        use4 ? s.work[1 + y][1 + x] : s.rec16[k];
-    w_lev[i * 256 + k] = use4 ? s.lev4[k] : s.lev16[k];
+        use4 ? s.work[1 + y][1 + x] : s.i16.rec16[k];
+    w_lev[i * 256 + k] = use4 ? s.lev4[k] : s.i16.lev16[k];
   }
   for (int k = tid; k < 128; k += kThreads) {
     int pl = k >> 6, q = k & 63;
@@ -678,7 +459,7 @@ intra_commit_kernel(const int* __restrict__ cur_y, const int* __restrict__ cur_u
   if (tid < 16) {
     int y = tid >> 2, x = tid & 3;
     ipm[(4 * r + 1 + y) * ms + 4 * c + 1 + x] = use4 ? s.mw[1 + y][1 + x] : 2;
-    lum_dc[i * 16 + tid] = use4 ? 0 : s.dclev[tid];
+    lum_dc[i * 16 + tid] = use4 ? 0 : s.i16.dclev[tid];
   }
   if (tid < 8) dcc[i * 8 + tid] = s.cdclev[cmode][tid >> 2][tid & 3];
   if (tid == 0) {

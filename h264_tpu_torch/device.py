@@ -59,18 +59,24 @@ def _stale(so: pathlib.Path, srcs) -> bool:
         so.stat().st_mtime < pathlib.Path(s).stat().st_mtime for s in srcs)
 
 
+def _cuda_so(stem: str) -> pathlib.Path:
+    # "_sm90a" keeps kernel libraries apart from the host C ones
+    # (csrc/deblock.cu and native/deblock.c share a stem)
+    return BUILD_DIR / f"lib{stem}_sm90a.so"
+
+
 def build_cuda(stems) -> None:
     """Compile every stale ``csrc/<stem>.cu`` into
-    ``build/h264_tpu_torch/lib<stem>.so``: one nvcc per source, all
+    ``build/h264_tpu_torch/lib<stem>_sm90a.so``: one nvcc per source, all
     started together.  Raises with nvcc's output on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for stem in stems:
         src = CSRC / f"{stem}.cu"
-        so = BUILD_DIR / f"lib{stem}.so"
-        if not _stale(so, [src]):
+        so = _cuda_so(stem)
+        if not _stale(so, [src, *CSRC.glob("*.cuh")]):
             continue
-        tmp = BUILD_DIR / f"lib{stem}.so.tmp{os.getpid()}"
+        tmp = so.with_name(f"{so.name}.tmp{os.getpid()}")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs.append((stem, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -87,12 +93,12 @@ def build_cuda(stems) -> None:
 
 
 def load_cuda(stem: str) -> ctypes.CDLL:
-    """The loaded kernel library ``lib<stem>.so``, built if stale."""
+    """The loaded kernel library of ``csrc/<stem>.cu``, built if stale."""
     with _lock:
         lib = _cuda_libs.get(stem)
         if lib is None:
             build_cuda([stem])
-            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{stem}.so"))
+            lib = ctypes.CDLL(str(_cuda_so(stem)))
             _cuda_libs[stem] = lib
         return lib
 
@@ -112,6 +118,37 @@ def build_host_c(stem: str, src_dir: pathlib.Path) -> pathlib.Path:
             subprocess.run(base, check=True, capture_output=True)
         os.replace(tmp, so)
     return so
+
+
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+
+
+def kernel_fn(stem: str, name: str, sig: str):
+    """The C entry `name` of ``lib<stem>.so`` with its argument types
+    (`sig`: one letter per argument, p pointer, i int) and an int result
+    (the CUDA error code)."""
+    fn = getattr(load_cuda(stem), name)
+    if fn.argtypes is None:
+        fn.argtypes = [_CTYPES[c] for c in sig]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_tensor(fn: str, name: str, x, shape, dtype, device) -> None:
+    """Raise unless x is a contiguous `dtype` tensor of `shape` on
+    `device`."""
+    if (not isinstance(x, torch.Tensor) or x.device != device
+            or x.dtype != dtype or tuple(x.shape) != tuple(shape)
+            or not x.is_contiguous()):
+        got = (f"{x.dtype} {tuple(x.shape)} on {x.device}"
+               if isinstance(x, torch.Tensor) else type(x).__name__)
+        raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor "
+                         f"of shape {tuple(shape)} on {device}, got {got}")
+
+
+def stream_of(x) -> int:
+    """The current CUDA stream of x's device, as an int for ctypes."""
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -1,21 +1,27 @@
-"""H.264 encoder on a CUDA card: the all-intra CABAC configuration.
+"""H.264 encoder on a CUDA card: IPPP and all-intra CABAC streams.
 
 The PyTorch counterpart of the reference package's encoder/encoder.py.
-Each picture is an IDR coded by the device intra pipeline
+An IDR picture is coded by the device intra pipeline
 (``rd.rd_i_pipeline``: full-RD I16 vs I4x4 on the card), deblocked by the
-native host filter, entropy-coded by the native CABAC writer; each
-reference picture then gets its next-reference bank entry on the card
-(``rd.ref_entry_from_planes``), as the P pictures of later slices will
-read it.
+native host filter and entropy-coded by the native CABAC writer; it then
+gets its reference bank entry on the card (``rd.ref_entry_from_planes``).
+A P picture runs whole on the card (``rd_p.rd_p_pipeline``: motion search,
+partition and mode decisions, residual coding, intra commit, deblocking
+and its own next reference entry), up to ``pipeline_depth`` pictures
+ahead of the host, which fetches each group's flat outputs in one copy,
+fills the parse state and CABAC-codes the slices.  Explicit weighted
+prediction is estimated on the host (float64 numpy, as the reference).
 
 Every other configuration raises NotImplementedError naming its ROADMAP
-item: P and B pictures, CAVLC, multi-slice / FMO, FRExt tools, rate
-control, SEI and the host-path encoder (``fast=False``, ``rd=False``,
-``enable_i4=False``).  No half-ported path runs.
+item: B pictures, CAVLC, the FRExt 8x8 transform, intra refresh,
+loss-aware RDO, tile-row slices, rate control, multi-slice / FMO, SEI and
+the host-path encoder (``fast=False``, ``rd=False``, ``enable_i4=False``).
+No half-ported path runs.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,8 +38,11 @@ from ..kernels.ref_bank import ref_bank
 from ..ops.deblock import deblock_picture
 from ..ops.exact import chroma_qp
 from ..syntax.parsets import PPS, SPS, write_pps, write_sps
-from ..syntax.slice_header import SliceHeader, SliceType, write_slice_header
+from ..syntax.slice_header import (PredWeight, SliceHeader, SliceType,
+                                   write_slice_header)
+from . import fills as FL
 from . import rd as RD
+from . import rd_p as RDP
 from .syntax_cabac import CabacSliceWriter
 
 
@@ -102,36 +111,36 @@ _NOT_PORTED = (
     (lambda c: not c.rd, "rd=False (legacy P16x16 path)", "Legacy P16x16 path"),
     (lambda c: not c.enable_i4, "enable_i4=False (host-path intra)",
      "Host-path ME"),
-    (lambda c: c.entropy != "cabac", "CAVLC entropy coding",
-     "P orchestration"),
     (lambda c: c.b_frames > 0, "B pictures",
      "rd_b_pipeline and B orchestration"),
-    (lambda c: c.idr_period != 1 and c.idr_period != 0,
-     "idr_period > 1 (P pictures)", "rd_p_pipeline"),
+    (lambda c: c.entropy != "cabac", "CAVLC entropy coding", "CAVLC"),
+    (lambda c: c.transform8x8 or c.scaling_lists is not None,
+     "FRExt 8x8 transform / scaling matrices", "T8 stage"),
+    (lambda c: c.intra_refresh > 0, "intra refresh", "Intra refresh"),
+    (lambda c: c.loss_aware_k > 0, "loss-aware RDO", "Loss-aware RDO"),
     (lambda c: c.row_slices > 1, "tile-row slices", "Tile-row slices"),
+    (lambda c: c.rc_bitrate > 0, "rate control", "Rate control"),
     (lambda c: c.slice_mode != 0 or c.num_slice_groups > 1,
      "multi-slice / FMO", "Host-path ME"),
-    (lambda c: c.transform8x8 or c.scaling_lists is not None,
-     "FRExt 8x8 transform / scaling matrices", "rd_p_pipeline"),
-    (lambda c: c.rc_bitrate > 0, "rate control", "Host-path ME"),
     (lambda c: bool(c.sei_text) or c.sei_tone_mapping is not None
      or c.sei_recovery_point, "SEI messages", "Config and CLIs"),
-    (lambda c: c.weighted_pred, "weighted prediction", "P orchestration"),
     (lambda c: c.redundant_pics or c.partition_mode == 1,
      "redundant pictures / data partitioning", "Host-path ME"),
-    (lambda c: c.loss_aware_k > 0, "loss-aware RDO", "Loss-aware RDO"),
-    (lambda c: c.intra_refresh > 0, "intra refresh", "P orchestration"),
 )
 
 
 class H264Encoder:
-    """All-intra CABAC encoder; ``device`` is where the intra decisions
-    and the reference banks run (CUDA unless told otherwise)."""
+    """IPPP / all-intra CABAC encoder; ``device`` is where the picture
+    decisions, the P pipeline and the reference banks run (CUDA unless
+    told otherwise)."""
 
     # the kernel wrappers the pictures go through (a subclass may name
-    # their plain versions to run the plain path on the card)
+    # their plain versions to run the plain path on the card): the I
+    # picture's commit step and reference entry, and every entry of the
+    # P pipeline (rd_p.PKernels; None means rd_p.default_kernels())
     _intra_step = staticmethod(intra_commit_step)
     _ref_bank = staticmethod(ref_bank)
+    _p_kernels = None
 
     def __init__(self, cfg: EncoderConfig, device=None):
         if cfg.width % 16 or cfg.height % 16:
@@ -157,10 +166,26 @@ class H264Encoder:
             log2_max_frame_num_minus4=4,
         )
         self.pps = PPS(entropy_coding_mode_flag=True)
+        if cfg.search_range > 28:
+            warnings.warn(
+                f"device pipelines clamp SearchRange {cfg.search_range} "
+                "-> 28 (dense-grid memory shape); the coarse-to-fine "
+                "pre-search still reaches +-48 full-pel beyond it",
+                stacklevel=2)
+        if cfg.weighted_pred:
+            self.pps.weighted_pred_flag = True
+        self._src_dc: dict = {}  # poc -> source-luma mean (WP estimation)
+        self._src_sd: dict = {}  # poc -> source-luma std (WP gain)
+        self._src_ds: dict = {}  # poc -> 8x-decimated source luma (WP test)
         self.frame_num = 0
         self.idr_count = 0
+        self._prev_poc = 0
         self.all_recons: list = []  # (poc, planes) of every picture
         self._rd_refs: list = []  # [(poc, bank, cpad, col)] newest-first
+        # JM lambda (lencod/src/slice.c:1261, rdopt on): base 0.85 x0.95
+        # for the non-SATD ME metric, in <<16 fixed point
+        lam = 0.85 * 0.95 * 2.0 ** ((cfg.qp - 12) / 3.0)
+        self.lambda_mode_fx = int(lam * 65536 + 0.5)
 
     # ------------------------------------------------------------------
     def headers(self) -> list[NalUnit]:
@@ -176,22 +201,40 @@ class H264Encoder:
             nalus.extend(out)
         return write_annexb(nalus)
 
-    def encode_stream(self, frames):
-        """Yields a list of NalUnits per frame.  Every picture of this
-        configuration is an IDR coded on its own, so unlike the
-        reference's P path there is nothing to pipeline."""
+    def encode_stream(self, frames, depth: int | None = None):
+        """Pipelined encode: yields a list of NalUnits per frame.  P
+        pictures are dispatched to the card up to `depth` frames ahead of
+        the host tail (the reference chain stays on the card); each group
+        is fetched in one copy and then entropy-coded in order."""
+        if depth is None:
+            depth = self.cfg.pipeline_depth
+        pend: list = []
         for idx, yuv in enumerate(frames):
             is_idr = idx == 0 or (
                 self.cfg.idr_period and idx % self.cfg.idr_period == 0
             )
-            yield self.encode_frame(yuv, is_idr)
+            if is_idr:
+                yield from self._drain(pend)
+                pend = []
+                yield self.encode_frame(yuv, True)
+            else:
+                pend.append(self._start_p_rd(yuv))
+                if len(pend) >= depth:
+                    yield from self._drain(pend)
+                    pend = []
+        yield from self._drain(pend)
+
+    def _drain(self, group):
+        if group:
+            rows = fetch_group([p[0] for p in group])
+            for row, p in zip(rows, group):
+                yield self._finish_p_rd(p, row)
 
     # ------------------------------------------------------------------
     def encode_frame(self, yuv, is_idr: bool) -> list[NalUnit]:
         if not is_idr:
-            raise NotImplementedError(
-                "P pictures are not ported yet (ROADMAP Queue 1: "
-                "rd_p_pipeline)")
+            p = self._start_p_rd(yuv)
+            return self._finish_p_rd(p, fetch_group([p[0]])[0])
         return self._encode_picture(yuv, SliceType.I, True, 0)
 
     def _encode_picture(self, yuv, stype: SliceType, is_idr: bool,
@@ -200,6 +243,9 @@ class H264Encoder:
         Y = np.asarray(yuv[0], np.int32)
         U = np.asarray(yuv[1], np.int32)
         V = np.asarray(yuv[2], np.int32)
+        self._src_dc[poc] = float(Y.mean())
+        self._src_sd[poc] = float(Y.std())
+        self._src_ds[poc] = np.asarray(Y, np.float64)[::8, ::8]
         sps, pps = self.sps, self.pps
         W, H = sps.pic_width_in_mbs, sps.frame_height_in_mbs
         st = PictureParseState(W, H)
@@ -247,10 +293,234 @@ class H264Encoder:
                z, z.clone(), z.clone())
         self._rd_refs = ([(poc, bank, cpad, col)] + self._rd_refs)[
             : sps.num_ref_frames]
+        self._prev_poc = poc
         self.frame_num += 1
         if is_idr:
             self.idr_count += 1
         return nals
+
+    # ------------------------------------------------------------------
+    def _start_p_rd(self, yuv):
+        """Dispatch the device RD pipeline for a P picture (partitions,
+        multi-ref, skip-RD, intra-in-P; rd_p.rd_p_pipeline).  Returns
+        the pending state ``_finish_p_rd`` completes; nothing here waits
+        for the card."""
+        cfg, sps, pps = self.cfg, self.sps, self.pps
+        H, W = sps.height, sps.width
+        qp = cfg.qp
+        lam_fx = self.lambda_mode_fx
+        cb_off, _ = pps.chroma_qp_offset
+        qp_c = chroma_qp(qp, cb_off)
+        dev = self.device
+        cur = tuple(RD._to_i32(np.ascontiguousarray(p, np.uint8), dev)
+                    for p in yuv)
+        refs = self._rd_refs[: max(1, cfg.num_ref_frames)]
+        # pad the bank stack to a fixed depth (masked via nref), as the
+        # reference does to reuse one executable while the DPB warms up
+        nr_max = max(1, cfg.num_ref_frames)
+        pad = [refs[-1]] * (nr_max - len(refs))
+        banks = torch.stack([e[1] for e in refs + pad])
+        cpads = torch.stack([e[2] for e in refs + pad])
+        ref_pocs = [e[0] for e in refs]
+        wp_weights = None
+        wp_w = wp_o = None
+        if cfg.weighted_pred:
+            # luma (weight, offset) per reference, logWD = 5.  Three
+            # candidates per ref — DC-ratio gain (the JM default,
+            # weighted_prediction.c:30), identity+DC offset (JM
+            # select_offset), and std-ratio gain + offset — scored by
+            # actual prediction SAD on 8x-decimated source planes (the
+            # measurement replaces JM's multi-pass WP RD test,
+            # weighted_prediction.c:373 test_wp_P_slice).  Host float64
+            # numpy, exactly as the reference package computes it.
+            ysrc = np.asarray(yuv[0], np.float64)
+            cur_ds = ysrc[::8, ::8]
+            dc_cur = float(ysrc.mean())
+            sd_cur = float(ysrc.std())
+            wp_weights = []
+            for rp in ref_pocs:
+                dc_ref = self._src_dc.get(rp, 0.0)
+                sd_ref = self._src_sd.get(rp, 0.0)
+                ref_ds = self._src_ds.get(rp)
+                cands = [(32, 0)]
+                if dc_ref > 0:
+                    cands.append(
+                        (max(-128, min(127, int(32 * dc_cur / dc_ref + 0.5))),
+                         0))
+                cands.append((32, max(-128, min(127,
+                                                int(dc_cur - dc_ref + 0.5)))))
+                if sd_ref > 1e-3:
+                    w = max(-128, min(127, int(32 * sd_cur / sd_ref + 0.5)))
+                    o = max(-128, min(127,
+                                      int(dc_cur - w * dc_ref / 32.0 + 0.5)))
+                    cands.append((w, o))
+                if ref_ds is not None and ref_ds.shape == cur_ds.shape:
+                    sads = [np.abs(cur_ds - (np.floor(
+                        (ref_ds * w + 16) / 32) + o)).mean()
+                        for (w, o) in cands]
+                    wp_weights.append(cands[int(np.argmin(sads))])
+                else:
+                    wp_weights.append(cands[1] if len(cands) > 1 else (32, 0))
+            wpad = wp_weights + [wp_weights[-1]] * (nr_max - len(wp_weights))
+            wp_w = np.asarray([p[0] for p in wpad], np.int32)
+            wp_o = np.asarray([p[1] for p in wpad], np.int32)
+        host_out, recon, new_entry = RDP.rd_p_pipeline(
+            *cur, banks, cpads, H=H, W=W, R=min(cfg.search_range, 28),
+            qp=qp, qp_c=qp_c, lam=lam_fx, lam_me=2 * lam_fx,
+            nref=len(refs), wp_w=wp_w, wp_o=wp_o, device=dev,
+            k=self._p_kernels)
+        frame_num = self.frame_num
+        self.frame_num += 1
+        poc = self._prev_poc + 2
+        self._prev_poc = poc
+        self._rd_refs = ([(poc,) + tuple(new_entry)] + self._rd_refs)[
+            : sps.num_ref_frames]
+        self._src_dc[poc] = float(np.asarray(yuv[0], np.float64).mean())
+        self._src_sd[poc] = float(np.asarray(yuv[0], np.float64).std())
+        self._src_ds[poc] = np.asarray(yuv[0], np.float64)[::8, ::8]
+        return (host_out, recon, frame_num, poc, ref_pocs, qp, wp_weights)
+
+    def _finish_p_rd(self, pending, fetched) -> list[NalUnit]:
+        """Host tail of a dispatched P picture: split its fetched flat
+        outputs (`fetched`, numpy), fill the parse state and CABAC-code
+        the slice."""
+        (_, recon, frame_num, poc, ref_pocs, qp, wp_weights) = pending
+        sps, pps = self.sps, self.pps
+        W, H = sps.pic_width_in_mbs, sps.frame_height_in_mbs
+        n_mb = W * H
+        st = PictureParseState(W, H)
+        planes = Planes(sps)
+        st.slice_id[:] = 0
+        cb_off, cr_off = pps.chroma_qp_offset
+        st.qp[:] = qp
+        st.qpc[:, 0] = chroma_qp(qp, cb_off)
+        st.qpc[:, 1] = chroma_qp(qp, cr_off)
+        sizes = [n_mb, 4 * n_mb, 4 * n_mb, n_mb, 16 * n_mb, 16 * n_mb,
+                 n_mb, n_mb, 256 * n_mb, 256 * n_mb, 16 * n_mb,
+                 128 * n_mb, 8 * n_mb, 16 * n_mb]
+        parts = np.split(fetched[: sum(sizes)], np.cumsum(sizes)[:-1])
+        win = parts[0]
+        ref8 = parts[1].reshape(n_mb, 4)
+        b8sub = parts[2].reshape(n_mb, 4)
+        # parts[3] and parts[9]: transform_size_8x8 flags and 8x8 levels,
+        # zero until the T8 stage is ported
+        mv4x = parts[4].reshape(n_mb, 4, 4)
+        mv4y = parts[5].reshape(n_mb, 4, 4)
+        i16mode = parts[6]
+        cip = parts[7]
+        lev = parts[8].reshape(n_mb, 4, 4, 4, 4)
+        dc = parts[10].reshape(n_mb, 4, 4)
+        levc = parts[11].reshape(n_mb, 2, 2, 2, 4, 4)
+        dcc = parts[12].reshape(n_mb, 2, 2, 2)
+        ipm_plane = parts[13].reshape(4 * H, 4 * W)
+        planes.Y, planes.U, planes.V = (x.cpu().numpy() for x in recon)
+        self._fill_p_state_rd(st, win, ref8, b8sub, mv4x, mv4y, i16mode,
+                              cip, lev, dc, levc, dcc, ref_pocs, ipm_plane)
+        nr = len(ref_pocs)
+        sh = SliceHeader(
+            first_mb_in_slice=0,
+            slice_type_code=SliceType.P.value,
+            frame_num=frame_num % sps.max_frame_num,
+            is_idr=False,
+            nal_ref_idc=3,
+            pic_order_cnt_lsb=0,
+            num_ref_idx_active_override_flag=nr - 1
+            != pps.num_ref_idx_l0_default_active_minus1,
+            num_ref_idx_l0_active_minus1=nr - 1,
+            disable_deblocking_filter_idc=0,
+            slice_qp_delta=qp - (26 + pps.pic_init_qp_minus26),
+        )
+        if wp_weights is not None:
+            # chroma is never weighted: weight 32, offset 0 (logWD 5)
+            sh.luma_log2_weight_denom = 5
+            sh.chroma_log2_weight_denom = 5
+            sh.pred_weights[0] = [PredWeight(wv, ov, [32, 32], [0, 0])
+                                  for (wv, ov) in wp_weights]
+        w = write_slice_header(sh, sps, pps)
+        CabacSliceWriter(st, sps, pps, sh).write_slice_data(
+            w, list(range(n_mb)))
+        self.all_recons.append((poc, planes))
+        return [NalUnit(1, 3, w.get_bytes())]
+
+    def _fill_p_state_rd(self, st, win, ref8, b8sub, mv4x, mv4y, i16mode,
+                         cip, lev, dc, levc, dcc, ref_pocs, ipm_plane):
+        """Decode-state fill for the RD pipeline interchange buffer.
+
+        mv4x/mv4y: (n_mb, 4 units, 4 subpos) per-4x4 motion; b8sub:
+        (n_mb, 4) device sub-mode code per unit (0 8x8 / 1 8x4 / 2 4x8
+        / 3 4x4), meaningful for P8x8 winners."""
+        n_mb = st.n_mbs
+        n_my, n_mx = st.H, st.W
+        i4 = win == RDP.C_I4
+        i16 = win == RDP.C_I16
+        intra = i16 | i4
+        st.ipredmode[:] = ipm_plane.reshape(4 * n_my, 4 * n_mx)
+        st.is_intra[:] = intra
+        st.i16mode[:] = np.where(i16, i16mode, -1)
+        st.c_ipred_mode[:] = np.where(intra, cip, 0)
+        # mb types / partition modes
+        type_map = {RDP.C_P16x16: M.P16x16, RDP.C_P16x8: M.P16x8,
+                    RDP.C_P8x16: M.P8x16, RDP.C_P8x8: M.P8x8,
+                    RDP.C_SKIP: M.P16x16, RDP.C_P16PMV: M.P16x16,
+                    RDP.C_I16: M.I16MB, RDP.C_I4: M.I4MB}
+        b8_map = {RDP.C_P16x16: 1, RDP.C_P16x8: 2, RDP.C_P8x16: 3,
+                  RDP.C_P8x8: M.B8_8x8, RDP.C_SKIP: 1, RDP.C_P16PMV: 1,
+                  RDP.C_I16: 0, RDP.C_I4: M.IBLOCK}
+        st.mb_type[:] = np.vectorize(type_map.get)(win)
+        st.b8mode[:] = np.vectorize(b8_map.get)(win)[:, None]
+        # P8x8 winners carry the device sub-mode per unit
+        _SUBMAP = np.asarray(
+            [M.B8_8x8, M.B8_8x4, M.B8_4x8, M.B8_4x4], np.int32)
+        p88 = win == RDP.C_P8x8
+        st.b8mode[p88] = _SUBMAP[b8sub[p88]]
+        st.b8pdir[:] = np.where(intra, -1, 0)[:, None]
+
+        # per-4x4 picture-plane fields from the (unit, subpos) layout
+        def to_pic4(a):  # (n_mb, 4, 4) -> (4*n_my, 4*n_mx)
+            return (a.reshape(n_my, n_mx, 2, 2, 2, 2)
+                    .transpose(0, 2, 4, 1, 3, 5)
+                    .reshape(4 * n_my, 4 * n_mx))
+
+        def to_pic4_u(a8):  # (n_mb, 4) per-unit -> (4*n_my, 4*n_mx)
+            p = (a8.reshape(n_my, n_mx, 2, 2).transpose(0, 2, 1, 3)
+                 .reshape(2 * n_my, 2 * n_mx))
+            return np.repeat(np.repeat(p, 2, 0), 2, 1)
+
+        mv4x, mv4y, ref4 = to_pic4(mv4x), to_pic4(mv4y), to_pic4_u(ref8)
+        intra4 = np.repeat(np.repeat(intra.reshape(n_my, n_mx), 4, 0), 4, 1)
+        st.mv[0, ..., 0] = np.where(intra4, 0, mv4x)
+        st.mv[0, ..., 1] = np.where(intra4, 0, mv4y)
+        st.ref_idx[0] = np.where(intra4, -1, ref4)
+        poc_of = np.asarray(ref_pocs, np.int64)
+        st.ref_pic_id[0] = np.where(
+            intra4, -(10 ** 9), poc_of[np.clip(ref4, 0, len(ref_pocs) - 1)]
+        )
+        # residual levels (device (br, bc) -> coded Z-order blocks)
+        zperm = np.empty(16, np.int64)
+        for br in range(4):
+            for bc in range(4):
+                zperm[int(M.XY_TO_BLK4[br, bc])] = br * 4 + bc
+        st.luma_levels[:] = lev.reshape(n_mb, 16, 4, 4)[:, zperm]
+        st.luma_dc[:] = np.where(i16[:, None, None], dc, 0)
+        st.chroma_levels[:] = levc.reshape(n_mb, 2, 4, 4, 4)
+        st.chroma_dc[:] = dcc
+        # cbp: I16 -> all-or-nothing luma; I4/inter -> per-8x8 bits
+        nz4 = lev.any(axis=(3, 4))  # (n_mb, br, bc)
+        q8 = nz4.reshape(n_mb, 2, 2, 2, 2).any(axis=(2, 4))
+        cbp_inter = (q8[:, 0, 0] * 1 + q8[:, 0, 1] * 2 + q8[:, 1, 0] * 4
+                     + q8[:, 1, 1] * 8)
+        cbp_l = np.where(i16, np.where(nz4.any((1, 2)), 15, 0), cbp_inter)
+        has_ac = levc.any(axis=(2, 3, 4, 5)).any(axis=1)
+        has_dc = dcc.any(axis=(2, 3)).any(axis=1)
+        cbp_c = np.where(has_ac, 2, np.where(has_dc, 1, 0))
+        st.cbp[:] = cbp_l + 16 * cbp_c
+        weights = (1 << np.arange(16, dtype=np.int64)).reshape(4, 4)
+        cbp_blk = (nz4 * weights).sum(axis=(1, 2))
+        dc_any = dc.any(axis=(1, 2)) & i16
+        st.cbp_blk = (cbp_blk | dc_any).tolist()
+        # exact PMV/MVD + skip detection (whole-frame vectorized; legal
+        # because every neighbor MV above is final device output)
+        FL.fill_p_mvd_skip(st, win, RDP)
 
     def _device_intra_picture(self, st, planes, Y, U, V, qp):
         """Device RD coding of a whole I picture (rd.rd_i_pipeline):
@@ -302,3 +572,18 @@ class H264Encoder:
         planes.Y[:] = ry
         planes.U[:] = ru
         planes.V[:] = rv
+
+
+def fetch_group(flats) -> np.ndarray:
+    """Flat int32 device outputs of a group of pictures -> one
+    (len(flats), max_len) numpy array, zero-padded: one copy into one
+    (pinned, on a card) host buffer, so the copy latency is paid once per
+    group (the reference's rd.py:1895 `fetch_group`)."""
+    n = max(int(f.shape[0]) for f in flats)
+    on_card = flats[0].is_cuda
+    out = torch.zeros((len(flats), n), dtype=torch.int32, pin_memory=on_card)
+    for row, f in zip(out, flats):
+        row[: f.shape[0]].copy_(f, non_blocking=on_card)
+    if on_card:
+        torch.cuda.current_stream(flats[0].device).synchronize()
+    return out.numpy()

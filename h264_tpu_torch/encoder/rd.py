@@ -1,10 +1,12 @@
-"""Device RD coding of intra pictures, and the reference-bank entry.
+"""Device RD coding of intra pictures, the reference-bank entry, and the
+helpers the P pipeline shares.
 
 The PyTorch counterpart of the reference package's encoder/rd.py for the
 all-intra path: the wavefront intra commit scan (full-RD I16 vs I4x4 with
 9-mode 4x4 decisions against final neighbour recon, lencod/src/rdopt.c:597
 Mode_Decision_for_4x4IntraBlocks) and the next-reference entry (edge-padded
-recon plus its 6-tap half-pel planes).
+recon plus its 6-tap half-pel planes); and the rate, SATD, RDOQ-lite,
+thresholding, WP and chroma-MC helpers of ``rd_p.py``, the P pipeline.
 
 Every function here is the plain PyTorch version: int32 tensors, the same
 arithmetic in the same order as the reference, vectorised over the
@@ -15,8 +17,8 @@ live in ``kernels/`` and are checked against these functions:
 - ``kernels.intra_commit``: one wavefront step (``_intra_step``);
 - ``kernels.ref_bank``: the whole reference entry (``ref_entry_plain``).
 
-The P/B pipelines of the reference module are still to be ported
-(ROADMAP Queue 1).
+The B pipeline of the reference module is still to be ported (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -66,6 +68,183 @@ def _lam_cost(lam, bits):
     integer and fractional parts of lambda multiply separately, so both
     partial products stay far below 2^31 at every QP."""
     return (lam >> 16) * bits + (((lam & 0xFFFF) * bits) >> 16)
+
+
+def _mv_bits(d):
+    """se(v) code length of d.  On the P path |d| stays below about 1300
+    (tests/test_torch_p_ops.py checks the bound), far inside the range
+    where the integer `_bitlen` equals the reference's float32 one."""
+    k = 2 * d.abs() - (d > 0).to(d.dtype)
+    return 2 * _bitlen(k + 1) - 1
+
+
+def _med3(a, b, c):
+    return a + b + c - torch.minimum(a, torch.minimum(b, c)) - torch.maximum(
+        a, torch.maximum(b, c))
+
+
+def _satd(d):
+    """Hadamard SATD of (..., h, w) residuals: per 4x4 block
+    (sum |hadamard4x4| + 1) >> 1, summed (lencod/src/me_distortion.c:182
+    HadamardSAD4x4)."""
+    b = d.reshape(*d.shape[:-2], d.shape[-2] // 4, 4,
+                  d.shape[-1] // 4, 4).transpose(-3, -2)
+    h = TR.hadamard4x4(b)
+    return ((h.abs().sum((-1, -2), dtype=I32) + 1) >> 1).sum((-1, -2),
+                                                             dtype=I32)
+
+
+def _wp_affine(x, w, o):
+    """Explicit weighted-prediction luma sample transform, logWD = 5
+    (spec §8.4.2.3.3)."""
+    return (((x * w + 16) >> 5) + o).clamp(0, 255)
+
+
+def lam_satd_of(lam_me: int) -> int:
+    """The refinement's SATD lambda, int32(sqrt(float32(lam_me) * 65536)),
+    in float32 and in that order as the reference computes it (rd.py:548):
+    float64 would differ at some QPs."""
+    return int(np.sqrt(np.float32(lam_me) * np.float32(65536.0)))
+
+
+# quarter-pel sample = avg of two bank samples (G=0, b=1, h=2, j=3);
+# _QTAB[frac] = (plane0, oy0, ox0, plane1, oy1, ox1), frac = (mvy&3)*4+(mvx&3)
+# (spec §8.4.2.2.1; the precomputed-plane scheme of lencod/src/img_luma.c)
+_QTAB = np.zeros((16, 6), np.int32)
+for _dy in range(4):
+    for _dx in range(4):
+        if (_dx, _dy) == (0, 0):
+            _e = (0, 0, 0, 0, 0, 0)
+        elif _dy == 0:
+            _e = {1: (0, 0, 0, 1, 0, 0), 2: (1, 0, 0, 1, 0, 0),
+                  3: (1, 0, 0, 0, 0, 1)}[_dx]
+        elif _dx == 0:
+            _e = {1: (0, 0, 0, 2, 0, 0), 2: (2, 0, 0, 2, 0, 0),
+                  3: (2, 0, 0, 0, 1, 0)}[_dy]
+        elif (_dx, _dy) == (2, 2):
+            _e = (3, 0, 0, 3, 0, 0)
+        elif _dx == 2:
+            _e = (1, 0, 0, 3, 0, 0) if _dy == 1 else (3, 0, 0, 1, 1, 0)
+        elif _dy == 2:
+            _e = (2, 0, 0, 3, 0, 0) if _dx == 1 else (3, 0, 0, 2, 0, 1)
+        else:
+            _e = (1, (0 if _dy == 1 else 1), 0, 2, 0, (0 if _dx == 1 else 1))
+        _QTAB[_dy * 4 + _dx] = _e
+
+# the 49 refinement offsets (dx, dy), dy outer: the tie order of the search
+_REFINE = np.asarray(
+    [(dx, dy) for dy in range(-3, 4) for dx in range(-3, 4)], np.int32)
+
+# RDOQ-lite constants: inverse 4x4 basis row norms^2 scaled by 4, and the
+# diagonal scale tying forward4x4 to the inverse-basis correlation
+_RDOQ_N2 = np.outer([16, 10, 16, 10], [16, 10, 16, 10]).astype(np.float32)
+_RDOQ_SS = np.outer([2, 1, 2, 1], [2, 1, 2, 1]).astype(np.float32)
+
+
+def _rdoq4(blk, lev, qp, lam):
+    """Per-coefficient soft quantization of (..., 4, 4) level blocks:
+    |level| drops by one where Delta-J = Delta-D + lambda * Delta-R < 0.
+
+    float32 in the reference's order, one rounding per operation:
+    dD = ((delta * delta) * n2) - (((8 * delta) * F64) * ss), then
+    dJ = dD + float32(lam) * float32(bits_m - bits).  blk: pixel
+    residuals."""
+    deq = Q.dequant4x4(lev, qp)
+    levm = torch.where(lev > 0, lev - 1, torch.where(lev < 0, lev + 1, 0))
+    deqm = Q.dequant4x4(levm, qp)
+    f32 = torch.float32
+    delta = (deqm - deq).to(f32)
+    err64 = (blk << 6) - TR.inverse4x4(deq)
+    F64 = TR.forward4x4(err64).to(f32)
+    n2 = torch.as_tensor(_RDOQ_N2, device=lev.device)
+    ss = torch.as_tensor(_RDOQ_SS, device=lev.device)
+    dD = delta * delta * n2 - 8.0 * delta * F64 * ss
+    a = lev.abs()
+    bits = torch.where(a > 0, 2 * _bitlen(a.clamp(min=1)) + 2, 0)
+    am = levm.abs()
+    bits_m = torch.where(am > 0, 2 * _bitlen(am.clamp(min=1)) + 2, 0)
+    lam32 = torch.tensor(int(lam), dtype=torch.int32).to(f32).to(lev.device)
+    dJ = dD + lam32 * (bits_m - bits).to(f32)
+    return torch.where((a > 0) & (dJ < 0), levm, lev)
+
+
+# JM single-coefficient cost by run length (lencod/inc/block.h:45
+# COEFF_COST4x4[0]); |level| > 1 counts as 9
+_COEFF_COST_RUN = [3, 2, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+_ZZ4_RASTER = [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15]
+
+
+def _block4_coeff_cost(lev, first: int = 0):
+    """JM coeff_cost of (..., 4, 4) level blocks (lencod/src/block.c:899);
+    `first` is the first zig-zag position coded (1 for AC blocks)."""
+    dev = lev.device
+    flat = lev.reshape(*lev.shape[:-2], 16)
+    L = flat[..., torch.as_tensor(_ZZ4_RASTER, device=dev)][..., first:]
+    nz = L != 0
+    n = 16 - first
+    idx = torch.arange(n, dtype=I32, device=dev)
+    marked = torch.where(nz, idx, -1)
+    prev_incl = torch.cummax(marked, dim=-1).values
+    prev_excl = torch.cat([torch.full((*L.shape[:-1], 1), -1, dtype=I32,
+                                      device=dev), prev_incl[..., :-1]], -1)
+    run = idx - prev_excl - 1
+    costs = torch.as_tensor(_COEFF_COST_RUN, dtype=I32, device=dev)
+    cost = torch.where(L.abs() > 1, 9, costs[run.long()])
+    return torch.where(nz, cost, 0).sum(-1, dtype=I32)
+
+
+def _threshold_inter_luma(lev, rec, pred, orig):
+    """JM inter-luma coefficient thresholding (macroblock.c:1236/:1386):
+    per 8x8, drop all four 4x4 blocks when their summed coeff_cost is <= 4;
+    then drop the MB's luma when the surviving total is <= 5.  Dropped
+    blocks reconstruct as the clipped prediction.
+
+    lev: (..., 4, 4, 4, 4) [brow, bcol, y, x]; rec/pred/orig (..., 16, 16).
+    Returns (lev, rec, D8 (..., 4), cb8 (..., 4)): SSD and coefficient bits
+    per 8x8 (b8 = 2 * by + bx); the MB's are their sums."""
+    cost4 = _block4_coeff_cost(lev)                        # (..., 4, 4)
+    c8 = cost4.reshape(*cost4.shape[:-2], 2, 2, 2, 2).sum((-3, -1),
+                                                           dtype=I32)
+    drop8 = c8 <= 4
+    kept8 = torch.where(drop8, 0, c8)
+    drop_mb = kept8.sum((-1, -2), dtype=I32) <= 5
+    drop4 = (drop8.repeat_interleave(2, -1).repeat_interleave(2, -2)
+             | drop_mb[..., None, None])
+    lev = torch.where(drop4[..., None, None], 0, lev)
+    pb = pred.reshape(*pred.shape[:-2], 4, 4, 4, 4).transpose(-3, -2)
+    rb = rec.reshape(*rec.shape[:-2], 4, 4, 4, 4).transpose(-3, -2)
+    rb = torch.where(drop4[..., None, None], pb.clamp(0, 255), rb)
+    rec = rb.transpose(-3, -2).reshape(pred.shape)
+    d = orig - rec
+    q = (d * d).reshape(*d.shape[:-2], 2, 8, 2, 8)
+    D8 = q.sum((-3, -1), dtype=I32).reshape(*d.shape[:-2], 4)
+    cb8 = (_coef_bits(lev).reshape(*lev.shape[:-4], 2, 2, 2, 2)
+           .sum((-3, -1), dtype=I32).reshape(*lev.shape[:-4], 4))
+    return lev, rec, D8, cb8
+
+
+def _mc_chroma_unit(cpads, r, mvx, mvy, yc, xc, h: int, w: int,
+                    pad: int = PAD):
+    """1/8-pel bilinear chroma MC of n (h, w) units for both planes.
+    cpads (NR, 2, Hcp, Wcp); r, mvx, mvy, yc, xc: (n,) int tensors, the
+    unit origins in chroma picture coordinates.  Samples outside the
+    padded planes repeat their edge (the reference's further edge-padded
+    planes).  Returns (n, 2, h, w)."""
+    dev = cpads.device
+    Hcp, Wcp = cpads.shape[-2:]
+    yi = yc + (mvy >> 3) + pad
+    xi = xc + (mvx >> 3) + pad
+    fx = (mvx & 7)[:, None, None, None]
+    fy = (mvy & 7)[:, None, None, None]
+    ay = (yi[:, None] + torch.arange(h + 1, device=dev)).clamp(0, Hcp - 1)
+    ax = (xi[:, None] + torch.arange(w + 1, device=dev)).clamp(0, Wcp - 1)
+    ch = torch.arange(2, device=dev)
+    A = cpads[r.long()[:, None, None, None], ch[None, :, None, None],
+              ay.long()[:, None, :, None], ax.long()[:, None, None, :]]
+    return ((8 - fx) * (8 - fy) * A[..., :h, :w]
+            + fx * (8 - fy) * A[..., :h, 1:]
+            + (8 - fx) * fy * A[..., 1:, :w]
+            + fx * fy * A[..., 1:, 1:] + 32) >> 6
 
 
 # ---------------------------------------------------------------------------
@@ -141,17 +320,24 @@ def _i16_tq(pred, orig, qp):
     return lev, dc_lev, rec, D_, cb
 
 
-def _chroma_tq(pred, orig, qp_c):
-    """Intra chroma residual path per MB: pred/orig (..., 2, 8, 8).
+def _chroma_tq(pred, orig, qp_c, intra: bool = True, lam=None):
+    """Chroma residual path per MB: pred/orig (..., 2, 8, 8).
     Returns levels (..., 2, 2, 2, 4, 4), dc (..., 2, 2, 2), recon
-    (..., 2, 8, 8).  The reference's inter options (RDOQ-lite, JM chroma
-    AC thresholding) come with the P slice."""
+    (..., 2, 8, 8).  Inter (``intra=False``) rounds with the inter offset
+    and drops a component's AC when its JM coeff_cost is below 4
+    (block.c:1384); ``lam`` adds RDOQ-lite on the AC."""
     res = orig - pred
     blk = res.reshape(*res.shape[:-2], 2, 4, 2, 4).transpose(-3, -2)
     co = TR.forward4x4(blk)
-    dc_lev = Q.quant_chroma_dc(TR.hadamard2x2(co[..., 0, 0]), qp_c, True)
-    lev = Q.quant4x4(co, qp_c, Q.default_offset4(qp_c, True))
+    dc_lev = Q.quant_chroma_dc(TR.hadamard2x2(co[..., 0, 0]), qp_c, intra)
+    lev = Q.quant4x4(co, qp_c, Q.default_offset4(qp_c, intra))
     lev[..., 0, 0] = 0
+    if lam is not None:
+        lev = _rdoq4(blk, lev, qp_c, lam)
+        lev[..., 0, 0] = 0
+    if not intra:
+        ac_cost = _block4_coeff_cost(lev, first=1).sum((-1, -2), dtype=I32)
+        lev = torch.where((ac_cost < 4)[..., None, None, None, None], 0, lev)
     deq = Q.dequant4x4(lev, qp_c)
     deq[..., 0, 0] = Q.dequant_chroma_dc(TR.hadamard2x2(dc_lev), qp_c)
     rr = TR.inverse4x4(deq)

@@ -8,28 +8,15 @@ a state on a CUDA device launches the kernel, or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..device import check_launch, load_cuda
+from ..device import check_launch, check_tensor, kernel_fn, stream_of
 from ..encoder import rd
 from ..encoder.rd import IntraScan
 
 intra_commit_step_plain = rd._intra_step
 
 _I32 = torch.int32
-_VP = ctypes.c_void_p
-_INT = ctypes.c_int
-
-
-def _lib():
-    lib = load_cuda("intra_commit")
-    fn = lib.intra_commit_step
-    if fn.argtypes is None:
-        fn.argtypes = [_VP] * 17 + [_INT] * 7 + [_VP]
-        fn.restype = _INT
-    return fn
 
 
 def _check(s: IntraScan) -> None:
@@ -49,14 +36,8 @@ def _check(s: IntraScan) -> None:
         "cip": (n_mb,), "i4flag": (n_mb,),
     }
     for name, shape in shapes.items():
-        x = getattr(s, name)
-        want = torch.bool if name == "is_intra" else _I32
-        if (x.device != dev or x.dtype != want or tuple(x.shape) != shape
-                or not x.is_contiguous()):
-            raise ValueError(
-                f"intra_commit_step: {name} must be a contiguous {want} "
-                f"tensor of shape {shape} on {dev}, got {x.dtype} "
-                f"{tuple(x.shape)} on {x.device}")
+        check_tensor("intra_commit_step", name, getattr(s, name), shape,
+                     torch.bool if name == "is_intra" else _I32, dev)
     if not 0 <= s.qp <= 51 or not 0 <= s.qp_c <= 51:
         raise ValueError(f"intra_commit_step: qp {s.qp}/{s.qp_c} outside 0..51")
 
@@ -70,13 +51,13 @@ def intra_commit_step(s: IntraScan, t: int) -> None:
     r0, n = s.lanes(t)
     if n == 0:  # the reference's last step (and odd t when n_mx == 1)
         return
-    fn = _lib()
-    stream = torch.cuda.current_stream(s.Yp.device).cuda_stream
+    fn = kernel_fn("intra_commit", "intra_commit_step",
+                   "p" * 17 + "i" * 7 + "p")
     rc = fn(*(x.data_ptr() for x in (
         s.cur_y, s.cur_u, s.cur_v, s.w_rec, s.recc, s.is_intra, s.Yp, s.Up,
         s.Vp, s.ipm, s.w_lev, s.levc, s.dcc, s.lum_dc, s.i16mode, s.cip,
         s.i4flag)),
-        s.n_mx, t, r0, n, s.qp, s.qp_c, s.lam, stream)
+        s.n_mx, t, r0, n, s.qp, s.qp_c, s.lam, stream_of(s.Yp))
     check_launch(rc, "intra_commit_step")
     intra_commit_step.launches += 1
 

@@ -8,25 +8,12 @@ version; CUDA tensors launch the kernel, or raise.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..device import check_launch, load_cuda
+from ..device import check_launch, check_tensor, kernel_fn, stream_of
 from ..encoder import rd
 
 ref_bank_plain = rd.ref_entry_plain
-
-_VP = ctypes.c_void_p
-_INT = ctypes.c_int
-
-
-def _lib():
-    fn = load_cuda("ref_bank").ref_bank
-    if fn.argtypes is None:
-        fn.argtypes = [_VP] * 5 + [_INT, _INT, _VP]
-        fn.restype = _INT
-    return fn
 
 
 def ref_bank(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor):
@@ -37,12 +24,7 @@ def ref_bank(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor):
     H, W = Y.shape
     for name, x, shape in (("Y", Y, (H, W)), ("U", U, (H // 2, W // 2)),
                            ("V", V, (H // 2, W // 2))):
-        if (x.device != Y.device or x.dtype != torch.int32
-                or tuple(x.shape) != shape or not x.is_contiguous()):
-            raise ValueError(
-                f"ref_bank: {name} must be a contiguous int32 tensor of shape "
-                f"{shape} on {Y.device}, got {x.dtype} {tuple(x.shape)} on "
-                f"{x.device}")
+        check_tensor("ref_bank", name, x, shape, torch.int32, Y.device)
     if H % 2 or W % 2:
         raise ValueError(f"ref_bank: odd picture size {H}x{W}")
     P = rd.PAD
@@ -50,9 +32,9 @@ def ref_bank(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor):
                        device=Y.device)
     cpad = torch.empty((2, H // 2 + 2 * P, W // 2 + 2 * P), dtype=torch.int32,
                        device=Y.device)
-    stream = torch.cuda.current_stream(Y.device).cuda_stream
-    rc = _lib()(Y.data_ptr(), U.data_ptr(), V.data_ptr(), bank.data_ptr(),
-                cpad.data_ptr(), H, W, stream)
+    rc = kernel_fn("ref_bank", "ref_bank", "pppppiip")(
+        Y.data_ptr(), U.data_ptr(), V.data_ptr(), bank.data_ptr(),
+        cpad.data_ptr(), H, W, stream_of(Y))
     check_launch(rc, "ref_bank")
     ref_bank.launches += 1
     return bank, cpad

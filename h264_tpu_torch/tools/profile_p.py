@@ -1,0 +1,147 @@
+"""Where a P picture's time goes on the CUDA card.
+
+    python -m h264_tpu_torch.tools.profile_p [--frames N] [--out DIR]
+
+Encodes 1 I + N P pictures of moving, fading content (``synthseq.
+moving_frames``) at CIF and 1280x720 in the P half of the bench
+configuration (CABAC, QP 28, 5 reference frames, search range 28, explicit
+WP) through ``H264Encoder(..., device="cuda").encode_stream`` with
+pipeline depth 1, and reports per P picture:
+
+- host-clock phases, each bracketed by ``torch.cuda.synchronize``: the
+  stages of ``rd_p.rd_p_pipeline`` (search, partitions, refine, sub8,
+  decide, winner, commit, deblock, outputs), the fetch of ``host_out``,
+  the parse-state fill, the CABAC writer and the rest of the picture;
+- from ``torch.profiler`` over one further P picture (no synchronize
+  inside): the device-busy time, the kernels with the most device time,
+  and the device's idle share of the picture's wall time.
+
+Prints the card's name and power limit and one JSON line per size; with
+``--out DIR`` also writes ``DIR/profile_p.json``.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+from ..encoder import encoder as E
+from ..encoder import rd_p as RDP
+from ..encoder.syntax_cabac import CabacSliceWriter
+from .synthseq import moving_frames
+
+SIZES = ((352, 288), (1280, 720))
+
+
+def _cfg(W: int, H: int):
+    return E.EncoderConfig(width=W, height=H, qp=28, fast=True, rd=True,
+                           entropy="cabac", b_frames=0, num_ref_frames=5,
+                           search_range=28, weighted_pred=True)
+
+
+def _phases(size, n: int) -> dict:
+    acc = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    saved = (RDP.P_STAGES, RDP.p_outputs, E.fetch_group,
+             E.H264Encoder._fill_p_state_rd, CabacSliceWriter.write_slice_data)
+    W, H = size
+    frames = moving_frames(n + 2, W, H, seed=5)
+    enc = E.H264Encoder(_cfg(W, H), device="cuda")
+    gen = enc.encode_stream(frames, depth=1)
+    next(gen)  # the I picture
+    next(gen)  # a warm P picture: build, first launches
+    try:
+        RDP.P_STAGES = tuple(timed(s.__name__[2:], s) for s in saved[0])
+        RDP.p_outputs = timed("outputs", saved[1])
+        E.fetch_group = timed("fetch", saved[2])
+        E.H264Encoder._fill_p_state_rd = timed("fill", saved[3])
+        CabacSliceWriter.write_slice_data = timed("cabac", saved[4])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            next(gen)
+        torch.cuda.synchronize()
+        acc["total"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        (RDP.P_STAGES, RDP.p_outputs, E.fetch_group,
+         E.H264Encoder._fill_p_state_rd,
+         CabacSliceWriter.write_slice_data) = saved
+    per = {k: v / n for k, v in acc.items()}
+    per["other"] = per["total"] - sum(v for k, v in per.items()
+                                      if k != "total")
+    return {k: round(v, 3) for k, v in per.items()}
+
+
+def _device_profile(size) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    W, H = size
+    enc = E.H264Encoder(_cfg(W, H), device="cuda")
+    gen = enc.encode_stream(moving_frames(4, W, H, seed=6), depth=1)
+    for _ in range(3):
+        next(gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        next(gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kern[e.name][0] += e.time_range.elapsed_us() / 1e3
+            kern[e.name][1] += 1
+    busy = sum(v[0] for v in kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "wall_ms": round(wall, 3),
+        "device_busy_ms": round(busy, 3) if kern else "not measured",
+        "idle_share": round(1 - busy / wall, 4) if kern else "not measured",
+        "kernels": {name[:60]: {"ms": round(ms, 4), "count": c}
+                    for name, (ms, c) in top},
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--out", help="directory for profile_p.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_p: needs a CUDA card")
+    report = {"device": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]}
+    print(report["device"])
+    for size in SIZES:
+        key = f"{size[0]}x{size[1]}"
+        report[key] = {"phases_ms_per_p_picture": _phases(size, args.frames),
+                       "one_p_picture": _device_profile(size)}
+        print(json.dumps({key: report[key]}))
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "profile_p.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

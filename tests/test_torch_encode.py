@@ -1,6 +1,8 @@
 """Port all-intra CABAC encode (h264_tpu_torch.encoder.encoder) vs the JAX
 package, on the CPU: byte-identical Annex-B stream, equal recon planes and
-reference bank, for 3 seeded 176x144 frames at QP 0, 28 and 51."""
+reference bank, for 3 seeded 176x144 frames at QP 0, 28 and 51; the
+configurations still unported; the carried tables.  The IPPP streams are
+in test_torch_p_encode.py."""
 
 import os
 import subprocess
@@ -85,6 +87,11 @@ def test_port_encode_imports_no_jax():
         "s = H264Encoder(cfg, device='cpu').encode_sequence("
         "synthetic_frames(2, 48, 32))\n"
         "assert len(s) > 50\n"
+        "cfg = EncoderConfig(width=48, height=32, fast=True, entropy='cabac',"
+        " num_ref_frames=2, search_range=8, weighted_pred=True)\n"
+        "s = H264Encoder(cfg, device='cpu').encode_sequence("
+        "synthetic_frames(2, 48, 32))\n"
+        "assert len(s) > 50\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "(m.split('.')[0].startswith('h264_tpu') and "
@@ -105,9 +112,10 @@ def test_default_device_raises_without_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"idr_period": 4}, {"b_frames": 1}, {"entropy": "cavlc"},
+    {"intra_refresh": 2}, {"b_frames": 1}, {"entropy": "cavlc"},
     {"fast": False}, {"rd": False}, {"slice_mode": 1, "slice_argument": 11},
     {"transform8x8": True}, {"rc_bitrate": 1e5}, {"sei_text": "x"},
+    {"row_slices": 2}, {"loss_aware_k": 2},
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_configuration_raises(kw):
     base = dict(width=W, height=H, fast=True, rd=True, entropy="cabac",
@@ -118,13 +126,16 @@ def test_unported_configuration_raises(kw):
 
 
 def test_p_picture_raises(frames):
+    """P pictures are ported: the second picture of an IPPP stream now
+    encodes on the CPU (this test's name dates from when it raised)."""
     enc = H264Encoder(EncoderConfig(width=W, height=H, fast=True,
                                     entropy="cabac", idr_period=0),
                       device="cpu")
-    gen = enc.encode_stream(frames)
+    gen = enc.encode_stream(frames[:2])
     next(gen)
-    with pytest.raises(NotImplementedError, match="rd_p_pipeline"):
-        next(gen)
+    nals = next(gen)
+    assert len(nals) == 1 and nals[0].nal_unit_type == 1
+    assert enc.all_recons[1][0] == 2  # the P picture's POC
 
 
 @pytest.mark.parametrize("name", sorted(carried_tables()))

@@ -8,18 +8,23 @@ port is installed:
         -m gpu tests/test_torch_kernels.py
 
 (the CPU side of each kernel is held against the JAX package by
-test_torch_intra.py, test_torch_bank.py and test_torch_encode.py)."""
+test_torch_intra.py, test_torch_bank.py, test_torch_encode.py and the
+test_torch_p_*.py files)."""
 
 import numpy as np
 import pytest
 import torch
 
-from h264_tpu_torch.encoder import rd
+from h264_tpu_torch.encoder import rd, rd_p
 from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
+from h264_tpu_torch.kernels import deblock as K6
+from h264_tpu_torch.kernels import inter_tq as K5
 from h264_tpu_torch.kernels import intra_commit as K1
+from h264_tpu_torch.kernels import qpel as K4
 from h264_tpu_torch.kernels import ref_bank as K2
+from h264_tpu_torch.kernels import search_grid as K3
 from h264_tpu_torch.ops.exact import chroma_qp
-from h264_tpu_torch.tools.synthseq import synthetic_frames
+from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
 
 pytestmark = pytest.mark.gpu
 
@@ -122,3 +127,92 @@ def test_encoder_on_card_matches_cpu(cuda):
     on_card = H264Encoder(cfg).encode_sequence(frames)
     on_cpu = H264Encoder(cfg, device="cpu").encode_sequence(frames)
     assert on_card == on_cpu
+
+
+# ---------------------------------------------------------------------------
+# P picture kernels (K3-K6) on the real intermediate tensors of P pictures
+# ---------------------------------------------------------------------------
+
+def _ippp_cfg(W, H, qp, wp, nref=2, sr=8):
+    return EncoderConfig(width=W, height=H, qp=qp, fast=True, rd=True,
+                         entropy="cabac", num_ref_frames=nref,
+                         search_range=sr, weighted_pred=wp)
+
+
+_CALLS: dict = {}
+
+
+def _p_calls(dev, W, H, qp, wp):
+    """Every P-entry call of a 1 I + 2 P encode through the plain path on
+    the card, as (name, args)."""
+    key = (W, H, qp, wp)
+    if key not in _CALLS:
+        enc = H264Encoder(_ippp_cfg(W, H, qp, wp), device=dev)
+        enc._p_kernels, calls = rd_p.recording(rd_p.PLAIN)
+        list(enc.encode_stream(moving_frames(3, W, H, seed=W + qp)))
+        _CALLS[key] = calls
+    return _CALLS[key]
+
+
+@pytest.mark.parametrize("wp", [True, False], ids=["wp", "nowp"])
+@pytest.mark.parametrize("qp", [28, 51])
+@pytest.mark.parametrize("W,H", [(176, 144), (352, 288)], ids=lambda v: str(v))
+def test_p_kernels_match_plain(cuda, W, H, qp, wp):
+    kern = rd_p.default_kernels()
+    calls = _p_calls(cuda, W, H, qp, wp)
+    seen = set()
+    for name, args in calls:
+        before = getattr(kern, name).launches
+        got = getattr(kern, name)(*args)
+        assert getattr(kern, name).launches == before + 1, name
+        want = getattr(rd_p.PLAIN, name)(*args)
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and torch.equal(g, w), f"{name} out {i}"
+        seen.add(name)
+    assert seen == set(rd_p.P_ENTRIES)
+
+
+def test_p_wrappers_reject_bad_input(cuda):
+    calls = dict(_p_calls(cuda, 176, 144, 28, True))
+    banks, cur_y, wp, lam_me = calls["coarse_search"]
+    with pytest.raises(ValueError):
+        K3.coarse_search(banks.float(), cur_y, wp, lam_me)
+    with pytest.raises(ValueError):
+        K3.coarse_search(banks, cur_y[:, :160], wp, lam_me)
+    with pytest.raises(ValueError):
+        K3.ssd_grid8(banks, cur_y, *calls["ssd_grid8"][2:5], 40)
+    a = calls["qpel_refine"]
+    with pytest.raises(ValueError):
+        K4.qpel_refine(*a[:2], a[2][::2], *a[3:])
+    with pytest.raises(ValueError):
+        K4.mc_chroma(*calls["mc_chroma"][:1], calls["mc_chroma"][1].t(),
+                     *calls["mc_chroma"][2:])
+    pred, orig, qp, lam = calls["inter_luma_tq"]
+    with pytest.raises(ValueError):
+        K5.inter_luma_tq(pred, orig[:-1], qp, lam)
+    with pytest.raises(ValueError):
+        K5.inter_chroma_tq(*calls["inter_chroma_tq"][:2], 60, lam)
+    nz4, *rest = calls["strengths"]
+    with pytest.raises(ValueError):
+        K6.strengths(nz4.to(torch.int32), *rest)
+    y, u, v, bsv, bsh, qp, qpc = calls["deblock"]
+    with pytest.raises(ValueError):
+        K6.deblock(y, u, v.cpu(), bsv, bsh, qp, qpc)
+
+
+@pytest.mark.parametrize("wp", [True, False], ids=["wp", "nowp"])
+def test_ippp_encoder_on_card_matches_cpu(cuda, wp):
+    frames = moving_frames(5, 176, 144, seed=8)
+    cfg = _ippp_cfg(176, 144, 30, wp)
+    card = H264Encoder(cfg)
+    cpu = H264Encoder(cfg, device="cpu")
+    assert card.encode_sequence(frames) == cpu.encode_sequence(frames)
+    for (_, a), (_, b) in zip(card.all_recons, cpu.all_recons):
+        for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
+            np.testing.assert_array_equal(x, y)
+    for ea, eb in zip(card._rd_refs, cpu._rd_refs):
+        assert ea[0] == eb[0]
+        for x, y in zip((*ea[1:3], *ea[3]), (*eb[1:3], *eb[3])):
+            assert torch.equal(x.cpu(), y)
