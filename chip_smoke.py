@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-1. builds the CUDA kernels K1-K6 (nvcc, sm_90a, one process per source,
+1. builds the CUDA kernels K1-K7 (nvcc, sm_90a, one process per source,
    all at once) and the host C runtime (gcc);
 2. holds K1 (intra commit) and K2 (reference bank) against their plain
    PyTorch versions on the card, bit for bit, at CIF and 1280x720, QP 28
@@ -14,17 +14,31 @@
    CIF and 1280x720, QP 28 and 51, weighted prediction on and off, with 5
    reference frames and search range 28; times kernel and plain version
    per P picture at both sizes (QP 28, WP on);
-4. drives the all-intra main path (4 CIF + 2 1280x720 pictures) and the
-   IPPP main path (CABAC, 5 reference frames, search range 28, explicit
-   WP: 8 CIF and 4 1280x720 frames, the DPB warming from 1 to 5) through
-   ``H264Encoder(..., device="cuda").encode_stream``, each with the
-   kernels' launch counters set to 0 just before and read just after;
-5. encodes the same frames through the kernels' plain versions on the
+4. holds every entry of the B pipeline (its own K7 ``b_direct``,
+   ``mc_luma_win``, ``mc_chroma_b``, ``strengths_b``, and the K3-K6
+   entries it shares) against its plain version on the card, bit for bit,
+   on the real inputs of B pictures (an IPB stream of 5 frames) at CIF
+   and 1280x720, B pictures at QP 30 and 51, and b_direct, mc_luma_win
+   and mc_chroma_b also on inputs built so that their windows start
+   outside the padded banks (the reference's ``dynamic_slice``
+   placement), and strengths_b also on inputs built so that every branch
+   of its pairing rule decides some edges (tools/strengths_cases.py);
+   times kernel and plain version per B picture at both sizes (QP 28);
+5. drives the all-intra path (4 CIF + 2 1280x720 pictures), the IPPP
+   path (CABAC, 5 reference frames, search range 28, explicit WP: 6 CIF
+   and 3 1280x720 frames), the main path, the bench configuration (IPB:
+   one B picture between anchors, 5 reference frames, search range 28,
+   explicit WP, QP 28; 9 CIF and 5 1280x720 frames) and the hierarchical
+   IPB path (``b_hierarchy``, 9 CIF frames) through ``H264Encoder(...,
+   device="cuda").encode_stream``, each with the kernels' launch counters
+   set to 0 just before and read just after;
+6. encodes the same frames through the kernels' plain versions on the
    card and requires the identical streams, recons and reference entries;
-6. prints per-picture times for I and P pictures (CUDA events and host
-   clock), PSNR-Y, bytes and each P picture's mode mix, a ``kernels`` JSON
-   line, the card's name and power limit, and as its last line the
-   result object.
+7. prints per-picture times for I, P and B pictures (CUDA events and host
+   clock around each ``encode_stream`` step, pipeline depth 1), their
+   means per type with sample counts, PSNR-Y, bytes and the mode mixes, a
+   ``kernels`` JSON line (launches from the main path), the card's name
+   and power limit, and as its last line the result object.
 
 Inputs are seeded synthetic frames (h264_tpu_torch/tools/synthseq.py).
 Exits non-zero, printing no result, when no CUDA card is present or the
@@ -45,8 +59,10 @@ import numpy as np
 
 CIF = (352, 288)
 HD = (1280, 720)
-N_INTRA = {CIF: 4, HD: 2}  # all-intra main path
-N_IPPP = {CIF: 8, HD: 4}  # IPPP main path: 1 I + 7 / 3 P
+N_INTRA = {CIF: 4, HD: 2}  # all-intra path
+N_IPPP = {CIF: 6, HD: 3}  # IPPP path: 1 I + 5 / 2 P
+N_IPB = {CIF: 9, HD: 5}  # the main path: I P B P B ... (4 / 2 B)
+N_HIER = 9  # hierarchical IPB at CIF: I, 2 x (P, stored B, 2 B)
 SEED = 2026
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and the
 # non-tensor float32 rate, used as the int32 rate (the card has half as
@@ -67,6 +83,12 @@ OPS_INTER_TQ = OPS_TQ + 40
 OPS_QPEL, OPS_WP = 8, 5
 # per filtered line of csrc/deblock.cu (8 loads, the tests, the filter)
 OPS_LINE = 40
+# per sample of csrc/b_direct.cu (the unit's derivation shared by its 64
+# samples, two window samples per list, their means) and of the chroma
+# samplers (four taps and weights per list, the select)
+OPS_DIRECT, OPS_CHROMA_B = 12, 30
+# per 4x4 block edge of strengths_b (the pairing rule, four mv pairs)
+OPS_BS_B = 40
 SOURCES = {
     "intra_commit": ("h264_tpu_torch/csrc/intra_commit.cu",
                      "h264_tpu/encoder/rd.py:1415"),
@@ -93,11 +115,71 @@ SOURCES = {
                   "h264_tpu/encoder/rd.py:1713"),
     "deblock": ("h264_tpu_torch/csrc/deblock.cu",
                 "h264_tpu/encoder/rd.py:1800"),
+    "b_direct": ("h264_tpu_torch/csrc/b_direct.cu",
+                 "h264_tpu/encoder/rd.py:2226"),
+    "mc_luma_win": ("h264_tpu_torch/csrc/qpel.cu",
+                    "h264_tpu/encoder/rd.py:1911"),
+    "mc_chroma_b": ("h264_tpu_torch/csrc/qpel.cu",
+                    "h264_tpu/encoder/rd.py:2453"),
+    "strengths_b": ("h264_tpu_torch/csrc/deblock.cu",
+                    "h264_tpu/encoder/rd.py:1928"),
 }
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def luma_planes(mvx, mvy) -> int:
+    """Bank planes the quarter-pel predictions of units with these mvs
+    read, summed over the units: one at full- and half-pel positions
+    (where both taps are one sample), else two."""
+    import torch
+    from h264_tpu_torch.encoder.rd import _QTAB
+
+    q = torch.as_tensor(_QTAB)
+    one = (q[:, :3] == q[:, 3:]).all(1).to(mvx.device)
+    frac = ((mvy & 3) * 4 + (mvx & 3)).long()
+    return int((2 - one[frac].long()).sum())
+
+
+def b_work(name: str, args):
+    """(bytes, int32 ops) of one call of a B picture's own kernel entry:
+    the samples its windows need read once (per unit and list, its 8x8 or
+    h x w samples from each bank plane its mv's fraction reads; for
+    chroma the 5x5 window per 4x4 unit, plane and list the unit's output
+    depends on), the colocated and per-unit fields, each output written
+    once."""
+    if name == "b_direct":
+        from h264_tpu_torch.encoder.rd_b import direct_mvs
+
+        n_mb = args[3].numel() // 16
+        _, l0x, l0y, l1x, l1y = direct_mvs(*args[2:])
+        need = (luma_planes(l0x, l0y) + luma_planes(l1x, l1y)) * 64 * 4
+        fields = n_mb * 4 * (1 + 3 * 4)  # corner intra (1 B) + 3 int32
+        out = n_mb * (256 + 20) * 4
+        return need + fields + out, n_mb * 256 * OPS_DIRECT
+    if name == "mc_luma_win":
+        n, h, w = args[1].numel(), args[6], args[7]
+        return ((luma_planes(args[2], args[3]) * h * w + n * (5 + h * w)) * 4,
+                n * h * w * 3)
+    if name == "mc_chroma_b":
+        n_mb = args[2].shape[0]
+        u0, u1 = args[7], args[8]
+        lists = int(u0.sum()) + int((u1 | ~u0).sum())  # list 1 if not u0
+        return (lists * 2 * 25 * 4 + n_mb * 4 * (5 * 4 + 2)
+                + n_mb * 128 * 4, n_mb * 128 * OPS_CHROMA_B)
+    if name == "strengths_b":
+        n = args[0].numel()
+        return n * (4 * 1 + 6 * 4) + 2 * n * 4, 2 * n * OPS_BS_B
+    raise KeyError(name)
+
+
+def entry_work(name: str, args):
+    """(bytes, int32 ops) of one call of any P or B kernel entry."""
+    from h264_tpu_torch.encoder.rd_b import B_OWN
+
+    return b_work(name, args) if name in B_OWN else p_work(name, args)
 
 
 def lam_fx(qp: int) -> int:
@@ -233,11 +315,13 @@ def main(argv=None) -> int:
     from h264_tpu_torch import device as D
     from h264_tpu_torch import native
     from h264_tpu_torch.bitstream import write_annexb
-    from h264_tpu_torch.encoder import rd, rd_p
+    from h264_tpu_torch.encoder import rd, rd_b, rd_p
     from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
     from h264_tpu_torch.kernels import intra_commit as K1
     from h264_tpu_torch.kernels import ref_bank as K2
     from h264_tpu_torch.ops.exact import chroma_qp
+    from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
+                                                      strengths_b_inputs)
     from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
 
     dev = torch.device("cuda")
@@ -247,7 +331,7 @@ def main(argv=None) -> int:
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     D.build_cuda(["intra_commit", "ref_bank", "search_grid", "qpel",
-                  "inter_tq", "deblock"])
+                  "inter_tq", "deblock", "b_direct"])
     t_nvcc = time.perf_counter() - t0
     for stem in ("cabac_engine", "cabac_writer", "deblock"):
         if native._load(stem) is None:
@@ -260,6 +344,8 @@ def main(argv=None) -> int:
 
     frames = {s: synthetic_frames(N_INTRA[s], *s, seed=SEED) for s in N_INTRA}
     pframes = {s: moving_frames(N_IPPP[s], *s, seed=SEED) for s in N_IPPP}
+    bframes = {s: moving_frames(N_IPB[s], *s, seed=SEED + 1) for s in N_IPB}
+    hframes = moving_frames(N_HIER, *CIF, seed=SEED + 2)
 
     def cuda_ms(fn, reps: int) -> float:
         fn()  # warm
@@ -387,9 +473,119 @@ def main(argv=None) -> int:
                               f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
                               for n in rd_p.P_ENTRIES))
 
-    # ---- 4. the main paths through the kernels -------------------------------
+    # ---- 4. the B entries vs plain versions on the inputs of B pictures ------
+    def b_cfg(size, qp=28, hier=False):
+        return EncoderConfig(width=size[0], height=size[1], qp=qp, fast=True,
+                             rd=True, entropy="cabac",
+                             b_frames=3 if hier else 1, b_hierarchy=hier,
+                             num_ref_frames=5, search_range=28,
+                             weighted_pred=True)
+
+    bkern = rd_b.default_kernels()
+
+    def hold(name, cargs, what):
+        """Run entry `name` through its kernel and its plain version on
+        the same inputs; fail on any difference."""
+        got = getattr(bkern, name)(*cargs)
+        want = getattr(rd_b.PLAIN, name)(*cargs)
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        for i, (g, w) in enumerate(zip(got, want)):
+            d = (g.long() - w.long()).abs()
+            e = int(d.max()) if d.numel() else 0
+            err[name] = max(err[name], e)
+            mismatches[name] += int((d > 0).sum())
+            if e or g.dtype != w.dtype:
+                fail(f"{name} {what}: output {i} differs "
+                     f"({int((d > 0).sum())} elements)")
+
+    rs = np.random.RandomState(SEED)
+
+    def far(t):
+        """mvs of up to +-90 pel, so windows start outside the banks."""
+        return torch.as_tensor(rs.randint(-360, 361, tuple(t.shape)),
+                               dtype=torch.int32, device=t.device)
+
+    def out_of_bank(y0, mvy, shift, L, size):
+        s = y0 + (mvy >> shift) + rd.PAD
+        return int(((s < 0) | (s > L - size)).sum())
+
+    def built_cases(calls, seed):
+        """The first call of each B entry with windows, its mvs replaced
+        by far ones (and the colocated field made all inter); and
+        strengths_b on built inputs of the same shape that take every
+        branch of its pairing rule."""
+        first = {}
+        for name, a in calls:
+            first.setdefault(name, a)
+        b0, b1, ci, cr, cmx, cmy, dsf, eq = first["b_direct"]
+        banks, ref, mvx, mvy, y0, x0, h, w = first["mc_luma_win"]
+        c0, c1, idx0, m0x, m0y, m1x, m1y, u0, u1 = first["mc_chroma_b"]
+        Hp, Hcp, Wcp = banks.shape[2], c0.shape[2], c0.shape[3]
+        far_y, far_c = far(mvy), far(m0y)
+        _, _, uy, _ = rd_b._units(idx0.shape[0], (Wcp - 2 * rd.PAD) // 8,
+                                  idx0.device)
+        n_out = (out_of_bank(y0, far_y, 2, Hp, h + 2),
+                 out_of_bank(uy >> 1, far_c, 3, Hcp, 5))
+        if min(n_out) == 0:
+            fail("clamp cases: no window starts outside the banks")
+        bs_args = strengths_b_inputs(*first["strengths_b"][0].shape, seed,
+                                     dev)
+        branches = strengths_b_branches(bs_args)
+        if min(branches.values()) == 0:
+            fail(f"strengths_b cases: a branch is not taken ({branches})")
+        return [("b_direct", (b0, b1, torch.zeros_like(ci), cr, far(cmx),
+                              far(cmy), dsf, eq)),
+                ("mc_luma_win", (banks, ref, far(mvx), far_y, y0, x0, h, w)),
+                ("mc_chroma_b", (c0, c1, idx0, far(m0x), far_c, far(m1x),
+                                 far(m1y), u0, u1)),
+                ("strengths_b", bs_args)], n_out, branches
+
+    timing_b = {}
+    for size in (CIF, HD):
+        for qp in (28, 49):  # the B pictures at QP 30 and 51
+            enc = H264Encoder(b_cfg(size, qp), device="cuda")
+            enc._b_kernels, calls = rd_b.recording(bkern)
+            list(enc.encode_stream(bframes[size][:5]))
+            torch.cuda.synchronize()
+            for name, cargs in calls:
+                hold(name, cargs, f"{size[0]}x{size[1]} B QP {qp + 2}")
+            if {n for n, _ in calls} != set(rd_b.B_ENTRIES):
+                fail("a B entry was not called")
+            cases, n_out, branches = built_cases(calls, SEED + qp)
+            for name, cargs in cases:
+                hold(name, cargs, f"{size[0]}x{size[1]} B QP {qp + 2} built "
+                     "inputs")
+            print(f"check {size[0]}x{size[1]} B QP {qp + 2}: {len(calls)} "
+                  "calls "
+                  f"of the {len(rd_b.B_ENTRIES)} B entries, b_direct, "
+                  f"mc_luma_win, mc_chroma_b with far mvs ({n_out[0]} luma "
+                  f"and {n_out[1]} chroma windows moved) and strengths_b on "
+                  f"built inputs (edges per branch {branches}), equal to "
+                  "their plain versions (tolerance 0: bit-exact)")
+            if qp == 28:
+                last = calls[len(calls) // 2:]  # the second B picture
+                tm = timing_b.setdefault(size, {})
+                for name in rd_b.B_ENTRIES:
+                    mine = [a for n, a in last if n == name]
+                    fk, fp = getattr(bkern, name), getattr(rd_b.PLAIN, name)
+                    wk = [entry_work(name, a) for a in mine]
+                    tm[name] = {
+                        "ms": sum(cuda_ms(lambda a=a: fk(*a), 5)
+                                  for a in mine),
+                        "plain_ms": sum(cuda_ms(lambda a=a: fp(*a), 1)
+                                        for a in mine),
+                        "launches_per_picture": len(mine),
+                        "work": (sum(x[0] for x in wk), sum(x[1] for x in wk))}
+                print(f"time {size[0]}x{size[1]} per B picture (ms, kernel / "
+                      "plain): " + ", ".join(
+                          f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
+                          for n in rd_b.B_ENTRIES))
+
+    # ---- 5. the paths through the kernels ------------------------------------
     counters = {"intra_commit": K1.intra_commit_step, "ref_bank": K2.ref_bank,
-                **{n: getattr(kern, n) for n in rd_p.P_ENTRIES}}
+                **{n: getattr(kern, n) for n in rd_p.P_ENTRIES},
+                **{n: getattr(bkern, n) for n in rd_b.B_OWN}}
 
     def reset():
         for fn in counters.values():
@@ -398,18 +594,12 @@ def main(argv=None) -> int:
     def read():
         return {n: fn.launches for n, fn in counters.items()}
 
-    def encode(cls, size, cfg, fr):
-        """Encode `fr` picture by picture (pipeline depth 1, so each P
-        picture is timed alone); also keep each P picture's host_out."""
+    def encode(cls, cfg, fr):
+        """Encode `fr` picture by picture (pipeline depth 1, so each step
+        dispatches and finishes one picture, timed alone); the encoder's
+        picture log gives each picture's type and host_out."""
         enc = cls(cfg, device="cuda")
-        rows = []
-        finish = enc._finish_p_rd
-
-        def keep(p, fetched):
-            rows.append(fetched)
-            return finish(p, fetched)
-
-        enc._finish_p_rd = keep
+        enc.picture_log = log = []
         nalus = enc.headers()
         pics = []
         gen = enc.encode_stream(fr, depth=1)
@@ -424,73 +614,94 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - h0) * 1e3
             nalus.extend(out)
-            src = fr[i][0].astype(np.float64)
-            mse = ((enc.all_recons[-1][1].Y - src) ** 2).mean()
-            pics.append({"type": "I" if out[0].nal_unit_type == 5 else "P",
+            if len(log) != i + 1:
+                fail(f"step {i} finished {len(log) - i} pictures, not one")
+            kind, poc, row = log[-1]
+            rec = enc.all_recons[-1][1]
+            src = fr[poc // 2 if cfg.idr_period == 0 else i][0]
+            mse = ((rec.Y - src.astype(np.float64)) ** 2).mean()
+            pics.append({"type": kind, "poc": poc,
                          "event_ms": a.elapsed_time(b), "host_ms": host_ms,
                          "psnr_y": 10 * np.log10(255.0 ** 2 / max(mse, 1e-9)),
-                         "bytes": sum(len(n.rbsp) for n in out)})
-        return enc, write_annexb(nalus), pics, rows
+                         "bytes": sum(len(n.rbsp) for n in out),
+                         "row": row})
+        return enc, write_annexb(nalus), pics
 
     def intra_cfg(size):
         return EncoderConfig(width=size[0], height=size[1], qp=28, fast=True,
                              rd=True, entropy="cabac", idr_period=1)
 
-    reset()
-    runs_i = {s: encode(H264Encoder, s, intra_cfg(s), frames[s])
-              for s in N_INTRA}
-    launches_i = read()
-    print(f"all-intra main path launches: "
-          f"{ {n: launches_i[n] for n in ('intra_commit', 'ref_bank')} }")
-    for name in ("intra_commit", "ref_bank"):
-        if launches_i[name] == 0:
-            fail(f"kernel {name} was not launched on the all-intra path")
-    reset()
-    runs_p = {s: encode(H264Encoder, s, p_cfg(s), pframes[s]) for s in N_IPPP}
-    launches = read()
-    print(f"IPPP main path launches: {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was not launched on the IPPP main path")
+    paths = {
+        "all-intra": ({s: (intra_cfg(s), frames[s]) for s in N_INTRA},
+                      ("intra_commit", "ref_bank")),
+        "IPPP": ({s: (p_cfg(s), pframes[s]) for s in N_IPPP},
+                 ("intra_commit", "ref_bank", *rd_p.P_ENTRIES)),
+        "IPB": ({s: (b_cfg(s), bframes[s]) for s in N_IPB}, tuple(counters)),
+        "IPB-hierarchy": ({CIF: (b_cfg(CIF, hier=True), hframes)},
+                          tuple(counters)),
+    }
+    runs, launches_of = {}, {}
+    for tag, (sizes, needed) in paths.items():
+        reset()
+        runs[tag] = {s: encode(H264Encoder, c, f)
+                     for s, (c, f) in sizes.items()}
+        launches_of[tag] = read()
+        print(f"{tag} path launches: "
+              f"{ {n: launches_of[tag][n] for n in needed} }")
+        for name in needed:
+            if launches_of[tag][name] == 0:
+                fail(f"kernel {name} was not launched on the {tag} path")
+    launches = launches_of["IPB"]  # the main path: the bench configuration
 
-    def mode_mix(row, n_mb):
-        sizes = [n_mb, 4 * n_mb, 4 * n_mb]
-        win, ref8, sub = np.split(row[: sum(sizes)], np.cumsum(sizes)[:-1])
-        ref8, sub = ref8.reshape(n_mb, 4), sub.reshape(n_mb, 4)
-        inter = win < rd_p.C_I16
-        p88 = win == rd_p.C_P8x8
+    def share(m):
+        return round(float(np.mean(m)), 4)
 
-        def share(m):
-            return round(float(np.mean(m)), 4)
+    def mode_mix(kind, row, n_mb):
+        if kind == "P":
+            sizes = [n_mb, 4 * n_mb, 4 * n_mb]
+            win, ref8, sub = np.split(row[: sum(sizes)], np.cumsum(sizes)[:-1])
+            ref8, sub = ref8.reshape(n_mb, 4), sub.reshape(n_mb, 4)
+            inter = win < rd_p.C_I16
+            p88 = win == rd_p.C_P8x8
+            return {"skip": share(win == rd_p.C_SKIP),
+                    "p16x16": share((win == rd_p.C_P16x16)
+                                    | (win == rd_p.C_P16PMV)),
+                    "p16x8": share(win == rd_p.C_P16x8),
+                    "p8x16": share(win == rd_p.C_P8x16), "p8x8": share(p88),
+                    "split_units": share(p88[:, None] & (sub > 0)),
+                    "intra": share(~inter),
+                    "ref_gt0": share(inter & (ref8 > 0).any(1))}
+        win = row[:n_mb]
+        return {"direct": share(win == rd.B_DIRECT),
+                "direct_zero": share(win == rd.B_DIRECT_ZERO),
+                "l0": share(win == rd.B_L0), "l1": share(win == rd.B_L1),
+                "bi": share(win == rd.B_BI),
+                "halves": share((win == rd.B_L0_16x8)
+                                | (win == rd.B_L0_8x16)),
+                "p8x8": share(win == rd.B_P8X8),
+                "intra": share((win == rd.B_I16) | (win == rd.B_I4))}
 
-        return {"skip": share(win == rd_p.C_SKIP),
-                "p16x16": share((win == rd_p.C_P16x16)
-                                | (win == rd_p.C_P16PMV)),
-                "p16x8": share(win == rd_p.C_P16x8),
-                "p8x16": share(win == rd_p.C_P8x16), "p8x8": share(p88),
-                "split_units": share(p88[:, None] & (sub > 0)),
-                "intra": share(~inter),
-                "ref_gt0": share(inter & (ref8 > 0).any(1))}
-
-    for tag, runs in (("all-intra", runs_i), ("IPPP", runs_p)):
-        for size, (enc, stream, pics, rows) in runs.items():
+    for tag, by_size in runs.items():
+        for size, (enc, stream, pics) in by_size.items():
             n_mb = (size[0] // 16) * (size[1] // 16)
-            p_rows = iter(rows)
             for i, p in enumerate(pics):
-                if p["type"] == "P":
-                    p["mode_mix"] = mode_mix(next(p_rows), n_mb)
-                print(f"{tag} {size[0]}x{size[1]} #{i} {p['type']}: "
-                      f"{p['event_ms']:.1f} ms (events) {p['host_ms']:.1f} ms "
-                      f"(host), PSNR-Y {p['psnr_y']:.2f} dB, {p['bytes']} "
-                      f"bytes" + (f", modes {p['mode_mix']}" if "mode_mix"
-                                  in p else ""))
-            for kind in ("I", "P"):
+                row = p.pop("row")
+                if row is not None:
+                    p["mode_mix"] = mode_mix(p["type"], row, n_mb)
+                print(f"{tag} {size[0]}x{size[1]} #{i} {p['type']} POC "
+                      f"{p['poc']}: {p['event_ms']:.1f} ms (events) "
+                      f"{p['host_ms']:.1f} ms (host), PSNR-Y "
+                      f"{p['psnr_y']:.2f} dB, {p['bytes']} bytes"
+                      + (f", modes {p['mode_mix']}" if "mode_mix" in p
+                         else ""))
+            for kind in ("I", "P", "B"):
                 sel = [p for p in pics if p["type"] == kind]
                 if kind == "I" and tag == "all-intra":
                     sel = sel[1:]  # the first picture carries the warm-up
                 if not sel:
                     continue
-                print(f"mean {tag} {size[0]}x{size[1]} {kind} ({len(sel)}): "
+                print(f"mean {tag} {size[0]}x{size[1]} {kind} ({len(sel)} "
+                      f"pictures): "
                       f"{np.mean([p['event_ms'] for p in sel]):.1f} ms "
                       f"(events), {np.mean([p['host_ms'] for p in sel]):.1f}"
                       f" ms (host), PSNR-Y "
@@ -498,22 +709,22 @@ def main(argv=None) -> int:
                       f"{np.mean([p['bytes'] for p in sel]):.0f} bytes")
             for p in pics:
                 if not 25.0 < p["psnr_y"] < 99.0:
-                    fail(f"{size}: PSNR-Y {p['psnr_y']:.2f} dB out of range")
+                    fail(f"{tag} {size}: PSNR-Y {p['psnr_y']:.2f} dB out of "
+                         "range")
             report[f"{tag} {size[0]}x{size[1]}"] = {
                 "pictures": pics, "stream_bytes": len(stream)}
 
-    # ---- 5. the same frames through the plain versions on the card -----------
+    # ---- 6. the same frames through the plain versions on the card -----------
     class PlainEncoder(H264Encoder):
         _intra_step = staticmethod(K1.intra_commit_step_plain)
         _ref_bank = staticmethod(K2.ref_bank_plain)
         _p_kernels = rd_p.PLAIN
+        _b_kernels = rd_b.PLAIN
 
-    for tag, runs, cfg_of, fr_of in (
-            ("all-intra", runs_i, intra_cfg, frames),
-            ("IPPP", runs_p, p_cfg, pframes)):
-        for size, (enc, stream, _, _) in runs.items():
-            penc, pstream, _, _ = encode(PlainEncoder, size, cfg_of(size),
-                                         fr_of[size])
+    for tag, (sizes, _) in paths.items():
+        for size, (enc, stream, _) in runs[tag].items():
+            cfg, fr = sizes[size]
+            penc, pstream, _ = encode(PlainEncoder, cfg, fr)
             if pstream != stream:
                 fail(f"{tag} {size}: stream differs from the plain path's")
             for (_, a), (_, b) in zip(enc.all_recons, penc.all_recons):
@@ -521,7 +732,11 @@ def main(argv=None) -> int:
                     if not np.array_equal(x, y):
                         fail(f"{tag} {size}: recon differs from the plain "
                              "path's")
+            if len(enc._rd_refs) != len(penc._rd_refs):
+                fail(f"{tag} {size}: reference lists differ in length")
             for ea, eb in zip(enc._rd_refs, penc._rd_refs):
+                if ea[0] != eb[0]:
+                    fail(f"{tag} {size}: reference POCs differ")
                 for x, y in zip((*ea[1:3], *ea[3]), (*eb[1:3], *eb[3])):
                     if not torch.equal(x, y):
                         fail(f"{tag} {size}: reference entry differs from "
@@ -529,10 +744,10 @@ def main(argv=None) -> int:
             print(f"plain path {tag} {size[0]}x{size[1]}: stream, recon and "
                   "reference entries identical")
 
-    # ---- 6. report -----------------------------------------------------------
+    # ---- 7. report -----------------------------------------------------------
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        tm = timing[CIF][name]
+        tm = (timing_b if name in rd_b.B_OWN else timing)[CIF][name]
         b_ms, b_by = bound_ms(*tm["work"])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -541,12 +756,12 @@ def main(argv=None) -> int:
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
         })
-    for size, tm in timing.items():
-        report[f"timing_{size[0]}x{size[1]}"] = {
-            n: {**v, "bound_ms": bound_ms(*v["work"])[0]}
-            for n, v in tm.items()}
-    report["launches_all_intra"] = launches_i
-    report["launches_ippp"] = launches
+    for kind, tms in (("", timing), ("b_", timing_b)):
+        for size, tm in tms.items():
+            report[f"timing_{kind}{size[0]}x{size[1]}"] = {
+                n: {**v, "bound_ms": bound_ms(*v["work"])[0]}
+                for n, v in tm.items()}
+    report["launches"] = launches_of
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     smi = subprocess.run(

@@ -8,13 +8,16 @@ package.  It mirrors the reference package's layout:
   decoder/                        the parse-state and picture holders
   ops/                            exact transforms / quant (torch), deblock
   native/                         the host C runtime (CABAC writer, deblock)
-  encoder/                        rd.py (device intra path, plain PyTorch),
-                                  encoder.py (H264Encoder), syntax_cabac.py
+  encoder/                        rd.py, rd_p.py, rd_b.py (the I, P and B
+                                  pipelines, plain PyTorch beside the
+                                  kernels), encoder.py (H264Encoder),
+                                  fills.py, syntax_cabac.py
   kernels/, csrc/                 hand-written CUDA kernels and wrappers
   device.py                       device policy and the kernel build
   convert.py                      reference entries and tables carried in
 
-Ported so far: the all-intra CABAC encode (ROADMAP Queue 1).
+Ported so far: the all-intra, IPPP and IPB CABAC encodes of the fast RD
+path, the bench configuration included (ROADMAP Queue 1).
 """
 
 __version__ = "0.1.0"

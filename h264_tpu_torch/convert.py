@@ -38,19 +38,27 @@ def ref_entry_from_numpy(bank, cpad, device=None):
     return t(bank), t(cpad)
 
 
-def encoder_refs_from_numpy(enc, refs, src=None) -> None:
+def encoder_refs_from_numpy(enc, refs, src=None,
+                            anchor_ref_pocs=None) -> None:
     """Fill ``enc._rd_refs`` from JAX-made entries, newest first:
     refs = [(poc, bank, cpad, (intra, ref, mvx, mvy)), ...] with numpy
-    arrays; the colocated tuple is (4H, 4W) bool, int32, int32, int32.
-    ``src`` = (src_dc, src_sd, src_ds), a JAX encoder's per-POC source
-    statistics (its ``_src_*`` dicts), which the explicit WP estimate of
-    the next P picture reads; they replace the encoder's."""
+    arrays; the colocated tuple is (4H, 4W) bool, int32, int32, int32 (a
+    stored B picture's ref holds its list-0 indices and the sentinel
+    len(list 0) for blocks that use list 1 only).  ``src`` = (src_dc,
+    src_sd, src_ds), a JAX encoder's per-POC source statistics (its
+    ``_src_*`` dicts), which the explicit WP estimate of the next P
+    picture reads; ``anchor_ref_pocs``, its ``_anchor_ref_pocs`` (per
+    reference POC the POCs its colocated ref indices name), which a B
+    picture's temporal direct reads; both replace the encoder's."""
     if src is not None:
         dc, sd, ds = src
         enc._src_dc = {int(k): float(v) for k, v in dc.items()}
         enc._src_sd = {int(k): float(v) for k, v in sd.items()}
         enc._src_ds = {int(k): np.asarray(v, np.float64)
                        for k, v in ds.items()}
+    if anchor_ref_pocs is not None:
+        enc._anchor_ref_pocs = {int(k): [int(p) for p in v]
+                                for k, v in anchor_ref_pocs.items()}
     dev = enc.device
     out = []
     for poc, bank, cpad, col in refs[: enc.sps.num_ref_frames]:

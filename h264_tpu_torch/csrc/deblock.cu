@@ -1,16 +1,24 @@
-// K6: boundary strengths and the in-loop deblocking filter of a P picture,
-// for Hopper (sm_90a).
+// K6: boundary strengths and the in-loop deblocking filter of P and B
+// pictures, for Hopper (sm_90a).
 //
 // Replaces h264_tpu/encoder/rd.py:1713 `strengths_full` and :1800
 // `deblock_device_full` (with `_edge_luma_full` :1741 and
-// `_edge_chroma_full` :1784), as `rd_p_pipeline` calls them (:1124-1160).
+// `_edge_chroma_full` :1784), as `rd_p_pipeline` calls them (:1124-1160)
+// and `rd_b_pipeline` (:2503-2507), and :1928 `strengths_full_b`.
 // Plain versions: h264_tpu_torch/encoder/rd_p.py `strengths_plain`,
-// `deblock_plain`; wrapper kernels/deblock.py.
+// `deblock_plain`, rd_b.py `strengths_b_plain`; wrapper kernels/deblock.py.
 //
 // strengths: one thread per 4x4 block computes the bS 0..4 of its left
 // and its top edge (0 on picture edges): 4/3 when either side is intra
 // (MB edge / inside), else 2 with coefficients, else 1 on a reference or
 // >= 4 quarter-pel mv difference.
+//
+// strengths_b: the same per-thread layout with the B picture's two-list
+// rule (ldecod/src/loopFilter.c): a list's reference id is the POC of its
+// picture where the block uses the list, else -10^9; the pairs match
+// straight (p0 = q0, p1 = q1) or crossed (p0 = q1, p1 = q0), else bS 1;
+// matched blocks compare the mvs of the matching lists (both pairings
+// when the two refs of q are one picture).
 //
 // deblock: the reference filters MBs in raster order, per MB luma
 // vertical edges 0-3, luma horizontal edges 0-3, then U and V, vertical
@@ -66,6 +74,53 @@ __global__ void strengths_kernel(const unsigned char* __restrict__ nz4,
     } else {
       bs = (abs(mvx4[k] - mvx4[p]) >= 4 || abs(mvy4[k] - mvy4[p]) >= 4 ||
             ref4[k] != ref4[p]) ? 1 : 0;
+    }
+    out[k] = bs;
+  }
+}
+
+__global__ void strengths_b_kernel(
+    const unsigned char* __restrict__ nz4,
+    const unsigned char* __restrict__ intra4,
+    const unsigned char* __restrict__ v0, const int* __restrict__ r0,
+    const int* __restrict__ m0x, const int* __restrict__ m0y,
+    const unsigned char* __restrict__ v1, const int* __restrict__ r1,
+    const int* __restrict__ m1x, const int* __restrict__ m1y, int H4, int W4,
+    int* bsv, int* bsh) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= H4 * W4) return;
+  const int kNone = -1000000000;
+  const int y = k / W4, x = k % W4;
+  for (int dir = 0; dir < 2; ++dir) {
+    int* out = dir == 0 ? bsv : bsh;
+    const int pos = dir == 0 ? x : y;
+    if (pos == 0) {
+      out[k] = 0;
+      continue;
+    }
+    const int p = dir == 0 ? k - 1 : k - W4;
+    int bs;
+    if (intra4[k] || intra4[p]) {
+      bs = pos % 4 == 0 ? 4 : 3;
+    } else if (nz4[k] || nz4[p]) {
+      bs = 2;
+    } else {
+      const int rq0 = v0[k] ? r0[k] : kNone, rq1 = v1[k] ? r1[k] : kNone;
+      const int rp0 = v0[p] ? r0[p] : kNone, rp1 = v1[p] ? r1[p] : kNone;
+      if ((rq0 == rp0 && rq1 == rp1) || (rq0 == rp1 && rq1 == rp0)) {
+        const bool d00 = abs(m0x[k] - m0x[p]) >= 4 || abs(m0y[k] - m0y[p]) >= 4;
+        const bool d11 = abs(m1x[k] - m1x[p]) >= 4 || abs(m1y[k] - m1y[p]) >= 4;
+        const bool d01 = abs(m0x[k] - m1x[p]) >= 4 || abs(m0y[k] - m1y[p]) >= 4;
+        const bool d10 = abs(m1x[k] - m0x[p]) >= 4 || abs(m1y[k] - m0y[p]) >= 4;
+        bool mv_d;
+        if (rq0 != rq1)
+          mv_d = rq0 == rp0 ? (d00 || d11) : (d01 || d10);
+        else
+          mv_d = (d00 || d11) && (d01 || d10);
+        bs = mv_d ? 1 : 0;
+      } else {
+        bs = 1;
+      }
     }
     out[k] = bs;
   }
@@ -177,6 +232,19 @@ extern "C" int strengths(const unsigned char* nz4, const int* mvx4,
   const int n = H4 * W4;
   strengths_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       nz4, mvx4, mvy4, ref4, intra4, H4, W4, bsv, bsh);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int strengths_b(const unsigned char* nz4,
+                           const unsigned char* intra4,
+                           const unsigned char* v0, const int* r0,
+                           const int* m0x, const int* m0y,
+                           const unsigned char* v1, const int* r1,
+                           const int* m1x, const int* m1y, int H4, int W4,
+                           int* bsv, int* bsh, void* stream) {
+  const int n = H4 * W4;
+  strengths_b_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      nz4, intra4, v0, r0, m0x, m0y, v1, r1, m1x, m1y, H4, W4, bsv, bsh);
   return (int)cudaGetLastError();
 }
 

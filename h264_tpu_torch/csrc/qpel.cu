@@ -1,5 +1,5 @@
 // K4: quarter-pel luma and 1/8-pel chroma sampling from the reference
-// banks of a P picture, for Hopper (sm_90a).
+// banks of P and B pictures, for Hopper (sm_90a).
 //
 // Replaces, in h264_tpu/encoder/rd.py:
 //   qpel_refine  `refine_unit` / `refine_parts` (rd.py:540-598, and the
@@ -10,19 +10,29 @@
 //                (:848-864), weighted by the unit's reference when WP is on;
 //   mc_chroma    `_mc_chroma_unit` (rd.py:159) as `chroma_pred_mb`
 //                (:1040-1057) uses it: one 2x2 1/8-pel bilinear chroma
-//                block per 4x4 luma block; chroma is never weighted.
+//                block per 4x4 luma block; chroma is never weighted;
+//   mc_luma_win  `_dynfrac_mc` (rd.py:1911) of n h x w units, as the B
+//                picture's L0-at-PMV candidate (:2277) uses it;
+//   mc_chroma_b  the B picture's `chroma_pred_mb` (:2453-2470): per 8x8
+//                luma unit one 4x4 chroma unit from each list
+//                (`_mc_chroma_unit`, pad = PAD), averaged, or one list's.
 // Plain versions: h264_tpu_torch/encoder/rd_p.py `qpel_refine_plain`,
-// `mc_luma_plain`, `mc_chroma_plain`; wrapper kernels/qpel.py.
+// `mc_luma_plain`, `mc_chroma_plain`; rd_b.py `mc_luma_win_plain`,
+// `mc_chroma_b_plain`; wrapper kernels/qpel.py.
 //
 // Design.  One __device__ sampler: a quarter-pel luma sample is the
 // rounded mean of the two bank samples (planes G, b, h, j) that `_QTAB`
 // picks for the mv's fraction; every coordinate is clamped to the bank,
-// which equals the reference's reads from its edge-widened banks.
+// which equals the reference's reads from its edge-widened banks.  The B
+// entries read the unwidened banks as the reference does, through the
+// window samplers of qpel.cuh, which clamp each unit's window START (the
+// unit's samples shift together), as `dynamic_slice` does.
 // qpel_refine gives each unit a block of 256 threads: (candidate, 4x4
 // block) pairs compute 16 predicted samples, the residual's Hadamard and
 // its rounded half-sum; 49 threads add their candidate's blocks and the
 // rate; the first minimum wins and the block writes its prediction.
-// mc_luma and mc_chroma give each output sample a thread.
+// mc_luma, mc_chroma, mc_luma_win and mc_chroma_b give each output sample
+// a thread.
 //
 // Bound.  qpel_refine: operations (49 candidates x 16 samples x ~40 int32
 // operations per sample per 4x4 block, plus the Hadamard), and bank reads
@@ -31,18 +41,9 @@
 // ptxas (sm_90a, nvcc -O3): refine_kernel 74 registers, 4,356 B shared
 // memory; mc_luma_kernel / mc_chroma_kernel 20-24 registers; no spills.
 
-#include "common.cuh"
+#include "qpel.cuh"
 
 namespace {
-
-// (plane0, oy0, ox0, plane1, oy1, ox1) per fraction (mvy & 3) * 4 + (mvx & 3)
-__constant__ int kQtab[16][6] = {
-    {0, 0, 0, 0, 0, 0}, {0, 0, 0, 1, 0, 0}, {1, 0, 0, 1, 0, 0},
-    {1, 0, 0, 0, 0, 1}, {0, 0, 0, 2, 0, 0}, {1, 0, 0, 2, 0, 0},
-    {1, 0, 0, 3, 0, 0}, {1, 0, 0, 2, 0, 1}, {2, 0, 0, 2, 0, 0},
-    {2, 0, 0, 3, 0, 0}, {3, 0, 0, 3, 0, 0}, {3, 0, 0, 2, 0, 1},
-    {2, 0, 0, 0, 1, 0}, {1, 1, 0, 2, 0, 0}, {3, 0, 0, 1, 1, 0},
-    {1, 1, 0, 2, 0, 1}};
 
 // quarter-pel sample at picture position (y, x) with mv (mvx, mvy) from one
 // reference's (4, Hp, Wp) bank
@@ -166,6 +167,47 @@ __global__ void mc_chroma_kernel(const int* __restrict__ cpads,
             fx * fy * P[(size_t)y_1 * Wcp + x_1] + 32) >> 6;
 }
 
+__global__ void mc_luma_win_kernel(const int* __restrict__ banks,
+                                   const int* __restrict__ ref,
+                                   const int* __restrict__ mvx,
+                                   const int* __restrict__ mvy,
+                                   const int* __restrict__ y0s,
+                                   const int* __restrict__ x0s, int NR,
+                                   int Hp, int Wp, int n, int h, int w,
+                                   int* out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n * h * w) return;
+  const int u = k / (h * w), s = k % (h * w);
+  const int r = slice_start(ref[u], NR, 1);
+  out[k] = win_qsample(banks + (size_t)r * 4 * Hp * Wp, Hp, Wp, y0s[u],
+                       x0s[u], h, w, mvx[u], mvy[u], s / w, s % w);
+}
+
+// output (n_mb, 2, 8, 8): chroma sample (yy, xx) of plane ch belongs to the
+// 4x4 chroma unit of 8x8 luma unit b8 = 2 (yy >> 2) + (xx >> 2); list 0
+// reads reference idx0 of cpads0, list 1 the anchor cpads1
+__global__ void mc_chroma_b_kernel(
+    const int* __restrict__ cpads0, const int* __restrict__ cpads1,
+    const int* __restrict__ idx0, const int* __restrict__ m0x,
+    const int* __restrict__ m0y, const int* __restrict__ m1x,
+    const int* __restrict__ m1y, const unsigned char* __restrict__ u0,
+    const unsigned char* __restrict__ u1, int NR0, int n_mb, int n_mx,
+    int Hcp, int Wcp, int* out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n_mb * 128) return;
+  const int mb = k >> 7, ch = (k >> 6) & 1, yy = (k >> 3) & 7, xx = k & 7;
+  const int b8 = 2 * (yy >> 2) + (xx >> 2), u = mb * 4 + b8;
+  const int yc = 8 * (mb / n_mx) + 4 * (b8 >> 1);
+  const int xc = 8 * (mb % n_mx) + 4 * (b8 & 1);
+  const size_t plane = (size_t)Hcp * Wcp;
+  const int r = slice_start(idx0[u], NR0, 1);
+  const int c0 = win_csample(cpads0 + ((size_t)r * 2 + ch) * plane, Hcp, Wcp,
+                             yc, xc, 4, 4, m0x[u], m0y[u], yy & 3, xx & 3);
+  const int c1 = win_csample(cpads1 + ch * plane, Hcp, Wcp, yc, xc, 4, 4,
+                             m1x[u], m1y[u], yy & 3, xx & 3);
+  out[k] = (u0[u] && u1[u]) ? (c0 + c1 + 1) >> 1 : (u0[u] ? c0 : c1);
+}
+
 }  // namespace
 
 extern "C" int qpel_refine(const int* banks, const int* cur_y, const int* ref,
@@ -197,5 +239,28 @@ extern "C" int mc_chroma(const int* cpads, const int* ref8, const int* mv4x,
   const int total = n_mb * 128;
   mc_chroma_kernel<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       cpads, ref8, mv4x, mv4y, n_mb, n_mx, Hcp, Wcp, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mc_luma_win(const int* banks, const int* ref, const int* mvx,
+                           const int* mvy, const int* y0, const int* x0,
+                           int NR, int Hp, int Wp, int n, int h, int w,
+                           int* out, void* stream) {
+  const int total = n * h * w;
+  mc_luma_win_kernel<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      banks, ref, mvx, mvy, y0, x0, NR, Hp, Wp, n, h, w, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mc_chroma_b(const int* cpads0, const int* cpads1,
+                           const int* idx0, const int* m0x, const int* m0y,
+                           const int* m1x, const int* m1y,
+                           const unsigned char* u0, const unsigned char* u1,
+                           int NR0, int n_mb, int n_mx, int Hcp, int Wcp,
+                           int* out, void* stream) {
+  const int total = n_mb * 128;
+  mc_chroma_b_kernel<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      cpads0, cpads1, idx0, m0x, m0y, m1x, m1y, u0, u1, NR0, n_mb, n_mx, Hcp,
+      Wcp, out);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""H.264 encoder on a CUDA card: IPPP and all-intra CABAC streams.
+"""H.264 encoder on a CUDA card: IPB, IPPP and all-intra CABAC streams.
 
 The PyTorch counterpart of the reference package's encoder/encoder.py.
 An IDR picture is coded by the device intra pipeline
@@ -11,9 +11,16 @@ and its own next reference entry), up to ``pipeline_depth`` pictures
 ahead of the host, which fetches each group's flat outputs in one copy,
 fills the parse state and CABAC-codes the slices.  Explicit weighted
 prediction is estimated on the host (float64 numpy, as the reference).
+With ``b_frames`` B pictures between anchors the stream goes out in
+decode order (each anchor before the B pictures that reference it, and
+with ``b_hierarchy`` the stored middle B before the outer ones); a B
+picture also runs whole on the card (``rd_b.rd_b_pipeline``: two-list
+search and refinement, temporal direct, bi-prediction, the same residual,
+commit and filter stages), and its host tail adds the temporal direct
+fill from the anchor's parse state.
 
 Every other configuration raises NotImplementedError naming its ROADMAP
-item: B pictures, CAVLC, the FRExt 8x8 transform, intra refresh,
+item: CAVLC, the FRExt 8x8 transform, intra refresh,
 loss-aware RDO, tile-row slices, rate control, multi-slice / FMO, SEI and
 the host-path encoder (``fast=False``, ``rd=False``, ``enable_i4=False``).
 No half-ported path runs.
@@ -30,6 +37,7 @@ import torch
 from ..bitstream import NalUnit, write_annexb
 from ..config import level_for, profile_check
 from ..decoder import mbtables as M
+from ..decoder.mv import dist_scale_factor
 from ..decoder.recon import Planes
 from ..decoder.state import PictureParseState
 from ..device import resolve_device
@@ -42,6 +50,7 @@ from ..syntax.slice_header import (PredWeight, SliceHeader, SliceType,
                                    write_slice_header)
 from . import fills as FL
 from . import rd as RD
+from . import rd_b as RDB
 from . import rd_p as RDP
 from .syntax_cabac import CabacSliceWriter
 
@@ -111,8 +120,6 @@ _NOT_PORTED = (
     (lambda c: not c.rd, "rd=False (legacy P16x16 path)", "Legacy P16x16 path"),
     (lambda c: not c.enable_i4, "enable_i4=False (host-path intra)",
      "Host-path ME"),
-    (lambda c: c.b_frames > 0, "B pictures",
-     "rd_b_pipeline and B orchestration"),
     (lambda c: c.entropy != "cabac", "CAVLC entropy coding", "CAVLC"),
     (lambda c: c.transform8x8 or c.scaling_lists is not None,
      "FRExt 8x8 transform / scaling matrices", "T8 stage"),
@@ -130,17 +137,19 @@ _NOT_PORTED = (
 
 
 class H264Encoder:
-    """IPPP / all-intra CABAC encoder; ``device`` is where the picture
-    decisions, the P pipeline and the reference banks run (CUDA unless
-    told otherwise)."""
+    """IPB / IPPP / all-intra CABAC encoder; ``device`` is where the
+    picture decisions, the P and B pipelines and the reference banks run
+    (CUDA unless told otherwise)."""
 
     # the kernel wrappers the pictures go through (a subclass may name
     # their plain versions to run the plain path on the card): the I
     # picture's commit step and reference entry, and every entry of the
-    # P pipeline (rd_p.PKernels; None means rd_p.default_kernels())
+    # P and B pipelines (rd_p.PKernels, rd_b.BKernels; None means their
+    # default_kernels())
     _intra_step = staticmethod(intra_commit_step)
     _ref_bank = staticmethod(ref_bank)
     _p_kernels = None
+    _b_kernels = None
 
     def __init__(self, cfg: EncoderConfig, device=None):
         if cfg.width % 16 or cfg.height % 16:
@@ -151,17 +160,29 @@ class H264Encoder:
             if test(cfg):
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP Queue 1: {item})")
+        if cfg.b_hierarchy and cfg.b_frames != 3:
+            raise ValueError("2-layer pyramid needs b_frames == 3")
+        if cfg.b_frames > 0 and not 0 <= cfg.qp + cfg.qp_b_offset <= 51:
+            raise ValueError(f"B picture QP {cfg.qp} + {cfg.qp_b_offset} "
+                             "outside 0..51")
         profile_check(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
+        use_b = cfg.b_frames > 0
         self.sps = SPS(
             profile_idc=77,  # CABAC: Main
             level_idc=max(30, level_for(
-                cfg.width, cfg.height, cfg.rc_fps, cfg.num_ref_frames)),
-            num_ref_frames=cfg.num_ref_frames,
+                cfg.width, cfg.height, cfg.rc_fps,
+                cfg.num_ref_frames + (1 if use_b else 0))),
+            # with B pictures the DPB also keeps the future anchor (and
+            # the stored middle B of a pyramid), so the colocated
+            # references of temporal direct stay in the B slice's list 0
+            num_ref_frames=cfg.num_ref_frames + (
+                (2 if cfg.b_hierarchy else 1) if use_b else 0),
             pic_width_in_mbs_minus1=cfg.width // 16 - 1,
             pic_height_in_map_units_minus1=cfg.height // 16 - 1,
-            pic_order_cnt_type=2,
+            # decode order differs from display order: explicit POC
+            pic_order_cnt_type=0 if use_b else 2,
             log2_max_pic_order_cnt_lsb_minus4=4,
             log2_max_frame_num_minus4=4,
         )
@@ -181,11 +202,31 @@ class H264Encoder:
         self.idr_count = 0
         self._prev_poc = 0
         self.all_recons: list = []  # (poc, planes) of every picture
+        self.recon_pics: list = []  # (poc, planes, parse state, None) refs
         self._rd_refs: list = []  # [(poc, bank, cpad, col)] newest-first
-        # JM lambda (lencod/src/slice.c:1261, rdopt on): base 0.85 x0.95
-        # for the non-SATD ME metric, in <<16 fixed point
-        lam = 0.85 * 0.95 * 2.0 ** ((cfg.qp - 12) / 3.0)
+        self._anchor_ref_pocs: dict = {}  # ref poc -> its col index space
+        # set to a list to have every finished picture appended as (type
+        # "I"/"P"/"B", poc, its fetched host_out or None for I)
+        self.picture_log: list | None = None
+        # JM lambda (lencod/src/slice.c:1261, rdopt on): base 0.68 when B
+        # pictures are in use, else 0.85, x0.95 for the non-SATD ME
+        # metric, in <<16 fixed point (B slices scale it in _start_b_rd)
+        lam = self._lambda_base() * 2.0 ** ((cfg.qp - 12) / 3.0)
         self.lambda_mode_fx = int(lam * 65536 + 0.5)
+
+    def _lambda_base(self) -> float:
+        return (0.68 if self.cfg.b_frames > 0 else 0.85) * 0.95
+
+    def _log_picture(self, kind: str, poc: int, fetched) -> None:
+        if self.picture_log is not None:
+            self.picture_log.append((kind, poc, fetched))
+
+    def _poc_lsb(self, poc: int) -> int:
+        """pic_order_cnt_lsb of a slice header (0 without explicit POC)."""
+        sps = self.sps
+        if sps.pic_order_cnt_type != 0:
+            return 0
+        return poc % (1 << (sps.log2_max_pic_order_cnt_lsb_minus4 + 4))
 
     # ------------------------------------------------------------------
     def headers(self) -> list[NalUnit]:
@@ -205,7 +246,13 @@ class H264Encoder:
         """Pipelined encode: yields a list of NalUnits per frame.  P
         pictures are dispatched to the card up to `depth` frames ahead of
         the host tail (the reference chain stays on the card); each group
-        is fetched in one copy and then entropy-coded in order."""
+        is fetched in one copy and then entropy-coded in order.  With B
+        pictures the pictures come out in decode order, the groups hold
+        at least 2 pictures unless `depth` is given (1 fetches and codes
+        every picture as soon as it is dispatched: the same stream)."""
+        if self.cfg.b_frames > 0:
+            yield from self._encode_stream_b_rd(frames, depth)
+            return
         if depth is None:
             depth = self.cfg.pipeline_depth
         pend: list = []
@@ -232,6 +279,11 @@ class H264Encoder:
 
     # ------------------------------------------------------------------
     def encode_frame(self, yuv, is_idr: bool) -> list[NalUnit]:
+        if not is_idr and self.cfg.b_frames > 0:
+            # the reference codes this P picture on its host path
+            raise NotImplementedError(
+                "a lone P picture of a B configuration is not ported yet "
+                "(ROADMAP Queue 1: Host-path ME)")
         if not is_idr:
             p = self._start_p_rd(yuv)
             return self._finish_p_rd(p, fetch_group([p[0]])[0])
@@ -252,6 +304,7 @@ class H264Encoder:
         planes = Planes(sps)
         if is_idr:
             self._rd_refs.clear()
+            self.recon_pics.clear()
             self.frame_num = 0
         qp = cfg.qp
         addrs = list(range(st.n_mbs))  # one slice
@@ -271,7 +324,7 @@ class H264Encoder:
             is_idr=is_idr,
             nal_ref_idc=3,
             idr_pic_id=self.idr_count % 2 if is_idr else 0,
-            pic_order_cnt_lsb=0,
+            pic_order_cnt_lsb=self._poc_lsb(poc),
             direct_spatial_mv_pred_flag=False,
             slice_qp_delta=qp - (26 + pps.pic_init_qp_minus26),
             slice_group_change_cycle=cfg.slice_group_change_cycle,
@@ -282,6 +335,7 @@ class H264Encoder:
         nals = [NalUnit(5 if is_idr else 1, 3, w.get_bytes())]
 
         self.all_recons.append((poc, planes))
+        self._log_picture(stype.name, poc, None)
         bank, cpad = RD.ref_entry_from_planes(
             planes.Y, planes.U, planes.V, device=self.device,
             impl=self._ref_bank)
@@ -293,6 +347,9 @@ class H264Encoder:
                z, z.clone(), z.clone())
         self._rd_refs = ([(poc, bank, cpad, col)] + self._rd_refs)[
             : sps.num_ref_frames]
+        self._anchor_ref_pocs[poc] = []
+        self.recon_pics = [(poc, planes, st, None)] if is_idr else (
+            self.recon_pics + [(poc, planes, st, None)])[-sps.num_ref_frames:]
         self._prev_poc = poc
         self.frame_num += 1
         if is_idr:
@@ -300,11 +357,12 @@ class H264Encoder:
         return nals
 
     # ------------------------------------------------------------------
-    def _start_p_rd(self, yuv):
+    def _start_p_rd(self, yuv, poc: int | None = None):
         """Dispatch the device RD pipeline for a P picture (partitions,
-        multi-ref, skip-RD, intra-in-P; rd_p.rd_p_pipeline).  Returns
-        the pending state ``_finish_p_rd`` completes; nothing here waits
-        for the card."""
+        multi-ref, skip-RD, intra-in-P; rd_p.rd_p_pipeline); `poc` is
+        given in display order with B pictures, else the next one.
+        Returns the pending state ``_finish_p_rd`` completes; nothing here
+        waits for the card."""
         cfg, sps, pps = self.cfg, self.sps, self.pps
         H, W = sps.height, sps.width
         qp = cfg.qp
@@ -371,8 +429,10 @@ class H264Encoder:
             k=self._p_kernels)
         frame_num = self.frame_num
         self.frame_num += 1
-        poc = self._prev_poc + 2
+        if poc is None:
+            poc = self._prev_poc + 2
         self._prev_poc = poc
+        self._anchor_ref_pocs[poc] = ref_pocs
         self._rd_refs = ([(poc,) + tuple(new_entry)] + self._rd_refs)[
             : sps.num_ref_frames]
         self._src_dc[poc] = float(np.asarray(yuv[0], np.float64).mean())
@@ -423,7 +483,7 @@ class H264Encoder:
             frame_num=frame_num % sps.max_frame_num,
             is_idr=False,
             nal_ref_idc=3,
-            pic_order_cnt_lsb=0,
+            pic_order_cnt_lsb=self._poc_lsb(poc),
             num_ref_idx_active_override_flag=nr - 1
             != pps.num_ref_idx_l0_default_active_minus1,
             num_ref_idx_l0_active_minus1=nr - 1,
@@ -440,6 +500,9 @@ class H264Encoder:
         CabacSliceWriter(st, sps, pps, sh).write_slice_data(
             w, list(range(n_mb)))
         self.all_recons.append((poc, planes))
+        self._log_picture("P", poc, fetched)
+        self.recon_pics = (self.recon_pics + [(poc, planes, st, None)])[
+            -sps.num_ref_frames:]
         return [NalUnit(1, 3, w.get_bytes())]
 
     def _fill_p_state_rd(self, st, win, ref8, b8sub, mv4x, mv4y, i16mode,
@@ -522,13 +585,337 @@ class H264Encoder:
         # because every neighbor MV above is final device output)
         FL.fill_p_mvd_skip(st, win, RDP)
 
+    # ------------------------------------------------------------------
+    # B pictures (temporal direct)
+    # ------------------------------------------------------------------
+    def _encode_stream_b_rd(self, frames, depth: int | None = None):
+        """Decode-order emission I (B^n P)* (lencod NumberBFrames): each
+        anchor P is dispatched before the B pictures that reference it;
+        POC is twice the display index since the last IDR.  Pictures go
+        to the card up to `depth` (default max(2, pipeline_depth)) ahead
+        of the host, and each group comes back in one copy."""
+        nb = self.cfg.b_frames
+        idr_p = self.cfg.idr_period
+        depth = (max(2, self.cfg.pipeline_depth) if depth is None
+                 else max(1, depth))
+        pend_src: list = []  # display frames awaiting their anchor
+        pend_dev: list = []  # dispatched pictures, decode order
+        base = 0
+
+        def drain():
+            if pend_dev:
+                rows = fetch_group([p[0] for _, p in pend_dev])
+                for (tag, p), row in zip(pend_dev, rows):
+                    yield (self._finish_p_rd(p, row) if tag == "p"
+                           else self._finish_b_rd(p, row))
+                pend_dev.clear()
+
+        def dispatch(tag, pending):
+            pend_dev.append((tag, pending))
+            return drain() if len(pend_dev) >= depth else iter(())
+
+        for idx, yuv in enumerate(frames):
+            is_idr = idx == 0 or (idr_p and idx % idr_p == 0)
+            if is_idr:
+                for b_yuv, b_idx in pend_src:  # close the GOP with P
+                    yield from dispatch("p", self._start_p_rd(
+                        b_yuv, poc=2 * (b_idx - base)))
+                pend_src = []
+                base = idx
+                yield from drain()
+                yield self._encode_picture(yuv, SliceType.I, True, 0)
+            elif len(pend_src) < nb:
+                pend_src.append((yuv, idx))
+            else:
+                yield from dispatch("p", self._start_p_rd(
+                    yuv, poc=2 * (idx - base)))
+                if self.cfg.b_hierarchy:
+                    # 2-layer pyramid A0 b1 B2 b3 A1: the stored middle B,
+                    # then the outer ones (explicit_gop.c:32
+                    # create_hierarchy)
+                    (y1, i1), (y2, i2), (y3, i3) = pend_src
+                    order = [(y2, i2, True), (y1, i1, False),
+                             (y3, i3, False)]
+                else:
+                    order = [(y, i, False) for y, i in pend_src]
+                for b_yuv, b_idx, is_ref in order:
+                    yield from dispatch("b", self._start_b_rd(
+                        b_yuv, 2 * (b_idx - base), is_ref=is_ref))
+                pend_src = []
+        for b_yuv, b_idx in pend_src:
+            yield from dispatch("p", self._start_p_rd(
+                b_yuv, poc=2 * (b_idx - base)))
+        yield from drain()
+
+    def _start_b_rd(self, yuv, poc: int, is_ref: bool = False):
+        """Dispatch the device RD pipeline for a B picture
+        (rd_b.rd_b_pipeline): list 0 from the past references, list 1
+        the nearest future anchor, whose colocated snapshot is translated
+        into this list 0.  A stored B (`is_ref`, the pyramid's middle)
+        also makes its reference entry."""
+        cfg, sps, pps = self.cfg, self.sps, self.pps
+        H, W = sps.height, sps.width
+        if is_ref:
+            # stored mid-B of the pyramid: smaller offset than leaf Bs
+            qp = cfg.qp + max(1, cfg.qp_b_offset - 1)
+        else:
+            qp = cfg.qp + cfg.qp_b_offset
+        cb_off, _ = pps.chroma_qp_offset
+        qp_c = chroma_qp(qp, cb_off)
+        dev = self.device
+        cur = tuple(RD._to_i32(np.ascontiguousarray(p, np.uint8), dev)
+                    for p in yuv)
+        past = sorted((e for e in self._rd_refs if e[0] < poc),
+                      key=lambda e: -e[0])
+        fut = sorted((e for e in self._rd_refs if e[0] > poc),
+                     key=lambda e: e[0])
+        if not (past and fut):
+            raise RuntimeError(f"B picture {poc} needs anchors on both sides")
+        fut_e = fut[0]
+        if cfg.b_hierarchy and is_ref:
+            # stored mid-B: the longest prefix of the default (POC-desc)
+            # past list still inside the sliding window when the leaf Bs
+            # decode (then this B + the newest num_ref_frames + 1 of
+            # today's refs), so its motion stays mappable for the leaves'
+            # temporal direct
+            alive = {e[0] for e in
+                     self._rd_refs[: max(1, cfg.num_ref_frames) + 1]}
+            lst0 = []
+            for e in past:
+                if e[0] not in alive:
+                    break
+                lst0.append(e)
+            lst0 = lst0 or past[:1]
+            nr_max = sps.num_ref_frames
+        elif cfg.b_hierarchy:
+            # the default B list 0 the decoder builds: every short-term
+            # ref, past (POC desc) then future (POC asc); only the tail
+            # may be cut, so every colocated reference stays mappable
+            lst0 = past + fut
+            nr_max = sps.num_ref_frames
+        else:
+            lst0 = past[: max(1, cfg.num_ref_frames)]
+            nr_max = max(1, cfg.num_ref_frames)
+        lst0 = lst0[:nr_max]
+        pad_n = nr_max - len(lst0)
+        banks0 = torch.stack([e[1] for e in lst0 + [lst0[-1]] * pad_n])
+        cpads0 = torch.stack([e[2] for e in lst0 + [lst0[-1]] * pad_n])
+        banks1 = fut_e[1][None]
+        cpads1 = fut_e[2][None]
+        col_intra4, col_ref4, col_mvx4, col_mvy4 = fut_e[3]
+        pocs0 = [e[0] for e in lst0]
+        poc1 = fut_e[0]
+        # the colocated picture's ref indices map into ITS list 0 (the
+        # anchor's pocs at its encode time): translate into this list 0.
+        # Stored Bs never code direct modes, so they skip the mapping.
+        if not is_ref:
+            anchor_pocs = self._anchor_ref_pocs.get(poc1, pocs0)
+            trans = []
+            for p0 in anchor_pocs:
+                if p0 not in pocs0:
+                    raise RuntimeError(
+                        f"temporal direct: colocated ref poc {p0} not in B "
+                        f"list0 {pocs0}")
+                trans.append(pocs0.index(p0))
+            if trans:
+                tt = torch.tensor(trans, dtype=torch.int32, device=dev)
+                col_ref4 = tt[col_ref4.clamp(0, len(trans) - 1).long()]
+        dsf = [dist_scale_factor(poc, p0, poc1) if p0 != poc1 else 0
+               for p0 in pocs0]
+        eq = [p0 == poc1 for p0 in pocs0]
+        lam = b_lambda_fx(qp, is_ref)  # the search uses it as is
+        out = RDB.rd_b_pipeline(
+            *cur, banks0, cpads0, banks1, cpads1,
+            col_intra4, col_ref4, col_mvx4, col_mvy4,
+            pocs0 + [pocs0[-1]] * pad_n, dsf + [dsf[-1]] * pad_n,
+            eq + [eq[-1]] * pad_n, poc1, H=H, W=W,
+            R=min(cfg.search_range, 28), qp=qp, qp_c=qp_c, lam=lam,
+            lam_me=lam, nref0=len(lst0), make_ref=is_ref, device=dev,
+            k=self._b_kernels)
+        frame_num = self.frame_num
+        if is_ref:
+            self.frame_num += 1
+            self._rd_refs = ([(poc,) + tuple(out[2])] + self._rd_refs)[
+                : sps.num_ref_frames]
+            # colocated snapshot index space: its list 0 + [poc1] (index
+            # len(list 0) is the sentinel of L1-only blocks)
+            self._anchor_ref_pocs[poc] = pocs0 + [poc1]
+        # a non-reference B takes the frame_num of the preceding
+        # reference picture + 1, the current count
+        return (out[0], out[1], poc, pocs0, poc1, qp, frame_num, is_ref)
+
+    def _finish_b_rd(self, pending, fetched) -> list[NalUnit]:
+        """Host tail of a dispatched B picture: split its fetched flat
+        outputs (the 14 parts of rd_b's host_out), fill the parse state
+        and CABAC-code the slice."""
+        (_, recon, poc, pocs0, poc1, qp, frame_num, is_ref) = pending
+        sps, pps = self.sps, self.pps
+        W, H = sps.pic_width_in_mbs, sps.frame_height_in_mbs
+        n_mb = W * H
+        st = PictureParseState(W, H)
+        planes = Planes(sps)
+        st.slice_id[:] = 0
+        st.qp[:] = qp
+        cb_off, cr_off = pps.chroma_qp_offset
+        st.qpc[:, 0] = chroma_qp(qp, cb_off)
+        st.qpc[:, 1] = chroma_qp(qp, cr_off)
+        sizes = [n_mb, 4 * n_mb, 4 * n_mb, 4 * n_mb, 4 * n_mb, 4 * n_mb,
+                 4 * n_mb, n_mb, n_mb, 256 * n_mb, 16 * n_mb, 128 * n_mb,
+                 8 * n_mb, 16 * n_mb]
+        parts = np.split(fetched[: sum(sizes)], np.cumsum(sizes)[:-1])
+        win = parts[0]
+        pdir8, idx0, m0x, m0y, m1x, m1y = (parts[k].reshape(n_mb, 4)
+                                           for k in range(1, 7))
+        i16mode = parts[7]
+        cip = parts[8]
+        lev = parts[9].reshape(n_mb, 4, 4, 4, 4)
+        dc = parts[10].reshape(n_mb, 4, 4)
+        levc = parts[11].reshape(n_mb, 2, 2, 2, 4, 4)
+        dcc = parts[12].reshape(n_mb, 2, 2, 2)
+        ipm_plane = parts[13].reshape(4 * H, 4 * W)
+        planes.Y, planes.U, planes.V = (x.cpu().numpy() for x in recon)
+        self._fill_b_state_rd(st, win, pdir8, idx0, m0x, m0y, m1x, m1y,
+                              i16mode, cip, lev, dc, levc, dcc, poc,
+                              pocs0, poc1, ipm_plane)
+        sh = SliceHeader(
+            slice_type_code=SliceType.B.value,
+            frame_num=frame_num % sps.max_frame_num,
+            is_idr=False,
+            nal_ref_idc=3 if is_ref else 0,
+            pic_order_cnt_lsb=self._poc_lsb(poc),
+            direct_spatial_mv_pred_flag=False,
+            num_ref_idx_active_override_flag=True,
+            num_ref_idx_l0_active_minus1=len(pocs0) - 1,
+            num_ref_idx_l1_active_minus1=0,
+            slice_qp_delta=qp - (26 + pps.pic_init_qp_minus26),
+        )
+        w = write_slice_header(sh, sps, pps)
+        CabacSliceWriter(st, sps, pps, sh).write_slice_data(
+            w, list(range(n_mb)))
+        if is_ref:
+            # stored B: later Bs read its parse state as colocated
+            self.recon_pics = (self.recon_pics + [(poc, planes, st, None)])[
+                -sps.num_ref_frames:]
+        self.all_recons.append((poc, planes))
+        self._log_picture("B", poc, fetched)
+        return [NalUnit(1, 3 if is_ref else 0, w.get_bytes())]
+
+    def _fill_b_state_rd(self, st, win, pdir8, idx0, m0x, m0y, m1x, m1y,
+                         i16mode, cip, lev, dc, levc, dcc, poc, pocs0,
+                         poc1, ipm_plane):
+        """Decode-state fill of a B picture from its interchange buffer:
+        mb types and per-unit prediction directions, residuals and cbp,
+        both lists' motion, temporal direct from the anchor's parse state
+        (decoder semantics) and the mvds of explicit partitions."""
+        n_mb = st.n_mbs
+        n_my, n_mx = st.H, st.W
+        NONE = -(10 ** 9)
+        i4 = win == RD.B_I4
+        i16 = win == RD.B_I16
+        intra = i16 | i4
+        direct = (win == RD.B_DIRECT) | (win == RD.B_DIRECT_ZERO)
+        h168 = win == RD.B_L0_16x8
+        h816 = win == RD.B_L0_8x16
+        p8 = win == RD.B_P8X8
+        st.ipredmode[:] = ipm_plane.reshape(4 * n_my, 4 * n_mx)
+        st.is_intra[:] = intra
+        st.i16mode[:] = np.where(i16, i16mode, -1)
+        st.c_ipred_mode[:] = np.where(intra, cip, 0)
+        st.mb_type[:] = np.where(
+            direct, M.BSKIP_DIRECT,
+            np.where(i4, M.I4MB, np.where(i16, M.I16MB,
+                     np.where(h168, M.P16x8,
+                              np.where(h816, M.P8x16,
+                                       np.where(p8, M.P8x8, M.P16x16))))))
+        st.b8mode[:] = np.where(
+            direct, M.B8_DIRECT,
+            np.where(i4, M.IBLOCK, np.where(
+                i16, 0, np.where(h168, 2, np.where(h816, 3, 1)))))[:, None]
+        pd = np.where(win == RD.B_L0, M.PD_L0,
+                      np.where(win == RD.B_L1, M.PD_L1, M.PD_BI))
+        st.b8pdir[:] = np.where(intra, M.PD_INTRA, pd)[:, None]
+        halves = h168 | h816
+        st.b8pdir[halves] = pdir8[halves]
+        # P8x8: per-unit sub-mode (pdir8 3 = direct 8x8)
+        if p8.any():
+            udir = pdir8[p8] == 3
+            st.b8mode[p8] = np.where(udir, M.B8_DIRECT, M.B8_8x8)
+            st.b8pdir[p8] = np.where(udir, M.PD_BI, pdir8[p8])
+        # residuals (the P fill's layout)
+        zperm = np.empty(16, np.int64)
+        for br in range(4):
+            for bc in range(4):
+                zperm[int(M.XY_TO_BLK4[br, bc])] = br * 4 + bc
+        st.luma_levels[:] = lev.reshape(n_mb, 16, 4, 4)[:, zperm]
+        st.luma_dc[:] = np.where(i16[:, None, None], dc, 0)
+        st.chroma_levels[:] = levc.reshape(n_mb, 2, 4, 4, 4)
+        st.chroma_dc[:] = dcc
+        nz4 = lev.any(axis=(3, 4))
+        q8 = nz4.reshape(n_mb, 2, 2, 2, 2).any(axis=(2, 4))
+        cbp_inter = (q8[:, 0, 0] * 1 + q8[:, 0, 1] * 2 + q8[:, 1, 0] * 4
+                     + q8[:, 1, 1] * 8)
+        cbp_l = np.where(i16, np.where(nz4.any((1, 2)), 15, 0), cbp_inter)
+        has_ac = levc.any(axis=(2, 3, 4, 5)).any(axis=1)
+        has_dc = dcc.any(axis=(2, 3)).any(axis=1)
+        cbp_c = np.where(has_ac, 2, np.where(has_dc, 1, 0))
+        st.cbp[:] = cbp_l + 16 * cbp_c
+        weights = (1 << np.arange(16, dtype=np.int64)).reshape(4, 4)
+        st.cbp_blk = ((nz4 * weights).sum(axis=(1, 2))
+                      | (dc.any(axis=(1, 2)) & i16)).tolist()
+
+        # motion state: explicit first, direct derived after
+        def to_pic4(a8):  # (n_mb, 4) per unit -> (4 n_my, 4 n_mx)
+            p = (a8.reshape(n_my, n_mx, 2, 2).transpose(0, 2, 1, 3)
+                 .reshape(2 * n_my, 2 * n_mx))
+            return np.repeat(np.repeat(p, 2, 0), 2, 1)
+
+        use0 = np.isin(win, (RD.B_L0, RD.B_BI))
+        use1 = np.isin(win, (RD.B_L1, RD.B_BI))
+        # halves and P8x8 carry a per-unit pdir; a direct unit uses both
+        hp = halves | p8
+        u0_4 = to_pic4(np.where(hp[:, None], (pdir8 == 0) | (pdir8 >= 2),
+                                use0[:, None]))
+        u1_4 = to_pic4(np.where(hp[:, None], pdir8 >= 1, use1[:, None]))
+        poc_of0 = np.asarray(pocs0, np.int64)
+        r4 = to_pic4(idx0)
+        st.mv[0, ..., 0] = np.where(u0_4, to_pic4(m0x), 0)
+        st.mv[0, ..., 1] = np.where(u0_4, to_pic4(m0y), 0)
+        st.ref_idx[0] = np.where(u0_4, r4, -1)
+        st.ref_pic_id[0] = np.where(
+            u0_4, poc_of0[np.clip(r4, 0, len(pocs0) - 1)], NONE)
+        st.mv[1, ..., 0] = np.where(u1_4, to_pic4(m1x), 0)
+        st.mv[1, ..., 1] = np.where(u1_4, to_pic4(m1y), 0)
+        st.ref_idx[1] = np.where(u1_4, 0, -1)
+        st.ref_pic_id[1] = np.where(u1_4, poc1, NONE)
+
+        # temporal direct of direct MBs (whole picture, decoder semantics)
+        # from the anchor's final parse state, then exact PMV/MVD
+        ast = next(e for e in self.recon_pics if e[0] == poc1)[2]
+        col = {
+            "ref_idx0": ast.ref_idx[0], "ref_idx1": ast.ref_idx[1],
+            "ref_id0": ast.ref_pic_id[0], "ref_id1": ast.ref_pic_id[1],
+            "mv0": ast.mv[0], "mv1": ast.mv[1],
+        }
+        inference = bool(self.sps.direct_8x8_inference_flag)
+        FL.fill_temporal_direct(st, direct, col, poc, list(pocs0), poc1,
+                                inference=inference)
+        # per-unit direct 8x8 inside P8x8 MBs: only the masked units
+        p8dir = p8[:, None] & (pdir8 == 3)
+        if p8dir.any():
+            FL.fill_temporal_direct(st, p8dir.any(1), col, poc, list(pocs0),
+                                    poc1, inference=inference,
+                                    unit_mask=p8dir)
+        st.skip_flag[direct & (st.cbp == 0)] = 1
+        FL.fill_b_explicit_mvd(st, use0, use1)
+        FL.fill_b_half_mvd(st, h168, h816, pdir8)
+        FL.fill_b_p8_mvd(st, p8, pdir8)
+
     def _device_intra_picture(self, st, planes, Y, U, V, qp):
         """Device RD coding of a whole I picture (rd.rd_i_pipeline):
         full-RD I16/I4 mode decisions run on the device; the host keeps
         only the state fill + entropy tail."""
-        cfg = self.cfg
-        base = (0.68 if cfg.b_frames > 0 else 0.85) * 0.95
-        lam_fx = int(base * 2.0 ** ((qp - 12) / 3.0) * 65536 + 0.5)
+        lam_fx = int(self._lambda_base() * 2.0 ** ((qp - 12) / 3.0) * 65536
+                     + 0.5)
         out = RD.rd_i_pipeline(
             np.ascontiguousarray(Y, np.uint8),
             np.ascontiguousarray(U, np.uint8),
@@ -572,6 +959,17 @@ class H264Encoder:
         planes.Y[:] = ry
         planes.U[:] = ru
         planes.V[:] = rv
+
+
+def b_lambda_fx(qp: int, is_ref: bool) -> int:
+    """The B slice's lambda in <<16 fixed point: JM's 0.68 base x
+    clip3(2, 4, (qp - 12) / 6) x 0.95 (lencod/src/slice.c:1261), halved
+    for a stored B picture; float64 on the host, as the reference."""
+    qp_t = qp - 12
+    lam_f = 0.68 * 0.95 * 2.0 ** (qp_t / 3.0) * min(4.0, max(2.0, qp_t / 6.0))
+    if is_ref:
+        lam_f *= 0.5
+    return int(lam_f * 65536 + 0.5)
 
 
 def fetch_group(flats) -> np.ndarray:

@@ -1,10 +1,9 @@
-"""Vectorized decode-state fills for the device RD P pipeline.
+"""Vectorized decode-state fills for the device RD pipelines.
 
 The RD pipelines return whole-frame tensors (winner modes, per-8x8
 motion, levels); the host must derive the exact parse-level state the
 entropy writers consume: PMV/MVD (spec §8.4.1.3), P_Skip detection
-(§8.4.1.1); the B pictures' temporal-direct fills come with the B
-slice.  The reference does
+(§8.4.1.1) and temporal-direct motion (§8.4.1.2.3).  The reference does
 all of this MB-serially inside its coding loop
 (lencod/src/mv-search.c:87 SetMotionVectorPredictor,
 macroblock.c:1189 FindSkipModeMotionVector, mv-search.c:1462
@@ -13,7 +12,7 @@ numpy pass — legal because the predictor reads only *final* neighbor
 motion, which the device pipeline has already committed for every MB.
 
 All routines operate on PictureParseState arrays without per-MB Python
-loops.  A copy of the reference package's encoder/fills.py:1-238.
+loops.  A copy of the reference package's encoder/fills.py.
 """
 
 from __future__ import annotations
@@ -236,3 +235,195 @@ def fill_p_mvd_skip(st, win, C):
                                    x0[idx] + bx + i, 0] = dx[idx]
                             st.mvd[0, y0[idx] + by + j,
                                    x0[idx] + bx + i, 1] = dy[idx]
+
+
+def fill_b_half_mvd(st, h168, h816, pdir8):
+    """MVD for B 16x8 / 8x16 winners: per half, per list where the
+    half's pdir uses that list (spec §8.4.1.3 geometry overrides are in
+    pmv_grid)."""
+    n_mb = st.n_mbs
+    W = st.W
+    y0 = (np.arange(n_mb) // W) * 4
+    x0 = (np.arange(n_mb) % W) * 4
+    for mask_mb, geoms, hunit in (
+        (h168, [(0, 0, 4, 2), (0, 2, 4, 2)], (0, 2)),
+        (h816, [(0, 0, 2, 4), (2, 0, 2, 4)], (0, 1)),
+    ):
+        if not mask_mb.any():
+            continue
+        for h, (bx, by, w4, h4) in enumerate(geoms):
+            pd = pdir8[:, hunit[h]]
+            for lst in (0, 1):
+                use = mask_mb & ((pd == lst) | (pd == 2))
+                if not use.any():
+                    continue
+                ref_q = st.ref_idx[lst, y0 + by, x0 + bx].astype(np.int32)
+                px, py = pmv_grid(st, lst, ref_q, bx, by, w4, h4)
+                dx = st.mv[lst, y0 + by, x0 + bx, 0] - px
+                dy = st.mv[lst, y0 + by, x0 + bx, 1] - py
+                idx = np.where(use)[0]
+                for j in range(h4):
+                    for i in range(w4):
+                        st.mvd[lst, y0[idx] + by + j,
+                               x0[idx] + bx + i, 0] = dx[idx]
+                        st.mvd[lst, y0[idx] + by + j,
+                               x0[idx] + bx + i, 1] = dy[idx]
+
+
+def fill_b_p8_mvd(st, p8, pdir8):
+    """MVD for explicit 8x8 units of B P8x8 MBs (per-unit pdir; direct
+    units carry no mvd)."""
+    n_mb = st.n_mbs
+    W = st.W
+    y0 = (np.arange(n_mb) // W) * 4
+    x0 = (np.arange(n_mb) % W) * 4
+    if not p8.any():
+        return
+    for b8 in range(4):
+        bx, by = (b8 & 1) * 2, (b8 >> 1) * 2
+        pd = pdir8[:, b8]
+        for lst in (0, 1):
+            use = p8 & (pd != 3) & ((pd == lst) | (pd == 2))
+            if not use.any():
+                continue
+            ref_q = st.ref_idx[lst, y0 + by, x0 + bx].astype(np.int32)
+            px, py = pmv_grid(st, lst, ref_q, bx, by, 2, 2)
+            dx = st.mv[lst, y0 + by, x0 + bx, 0] - px
+            dy = st.mv[lst, y0 + by, x0 + bx, 1] - py
+            idx = np.where(use)[0]
+            for j in range(2):
+                for i in range(2):
+                    st.mvd[lst, y0[idx] + by + j, x0[idx] + bx + i, 0] = \
+                        dx[idx]
+                    st.mvd[lst, y0[idx] + by + j, x0[idx] + bx + i, 1] = \
+                        dy[idx]
+
+
+def fill_b_explicit_mvd(st, use0, use1):
+    """Vectorized 16x16 MVD for explicit B MBs (L0/L1/BI)."""
+    n_mb = st.n_mbs
+    W = st.W
+    y0 = (np.arange(n_mb) // W) * 4
+    x0 = (np.arange(n_mb) % W) * 4
+    for lst, use in ((0, use0), (1, use1)):
+        if not use.any():
+            continue
+        ref_q = st.ref_idx[lst, y0, x0].astype(np.int32)
+        px, py = pmv_grid(st, lst, ref_q, 0, 0, 4, 4)
+        dx = st.mv[lst, y0, x0, 0] - px
+        dy = st.mv[lst, y0, x0, 1] - py
+        idx = np.where(use)[0]
+        for j in range(4):
+            for i in range(4):
+                st.mvd[lst, y0[idx] + j, x0[idx] + i, 0] = dx[idx]
+                st.mvd[lst, y0[idx] + j, x0[idx] + i, 1] = dy[idx]
+
+
+# ---------------------------------------------------------------------------
+# temporal direct (whole-frame)
+# ---------------------------------------------------------------------------
+
+def _cdiv_arr(a, b):
+    """C-style truncating division, elementwise."""
+    q = np.abs(a) // np.abs(b)
+    return np.where((a >= 0) == (b >= 0), q, -q)
+
+
+def dist_scale_factors(cur_poc: int, pocs0, poc1: int):
+    """DistScaleFactor per list0 entry (spec 8-202..8-203)."""
+    pocs0 = np.asarray(pocs0, np.int64)
+    tb = np.clip(cur_poc - pocs0, -128, 127)
+    td = np.clip(poc1 - pocs0, -128, 127)
+    td = np.where(td == 0, 1, td)  # guarded by caller (poc0 == poc1 case)
+    tx = _cdiv_arr(16384 + np.abs(_cdiv_arr(td, 2)), td)
+    return np.clip((tb * tx + 32) >> 6, -1024, 1023)
+
+
+def fill_temporal_direct(st, direct_mask, col, cur_poc: int, pocs0,
+                         poc1: int, ref_lt0=None, inference: bool = True,
+                         unit_mask=None):
+    """Whole-frame temporal-direct derivation for all `direct_mask` MBs
+    (spec §8.4.1.2.3; dual of decoder/mv.py:_temporal_direct).
+
+    col: dict with ref_idx0/ref_idx1/ref_id0/ref_id1/mv0/mv1 arrays of
+    the colocated picture (RefPicList1[0]); pocs0: current list0 POCs.
+    unit_mask (n_mb, 4): restrict the write-back to these 8x8 units
+    (per-unit direct inside B P8x8 MBs)."""
+    if not direct_mask.any():
+        return
+    n_mb = st.n_mbs
+    W = st.W
+    idx = np.where(direct_mask)[0]
+    y0 = (idx // W) * 4
+    x0 = (idx % W) * 4
+    # 4x4 offsets + 8x8-inference colocated source offsets
+    bxy = np.arange(4)
+    bx = np.tile(bxy, 4)          # (16,) x offsets
+    by = np.repeat(bxy, 4)
+    if inference:
+        cx = (bx & 2) + ((bx & 2) >> 1)
+        cy = (by & 2) + ((by & 2) >> 1)
+    else:
+        cx, cy = bx, by
+    ry = y0[:, None] + cy[None, :]   # (n_d, 16)
+    rx = x0[:, None] + cx[None, :]
+
+    c_r0 = col["ref_idx0"][ry, rx].astype(np.int32)
+    c_r1 = col["ref_idx1"][ry, rx].astype(np.int32)
+    use0 = c_r0 >= 0
+    use1 = (~use0) & (c_r1 >= 0)
+    col_intra = ~(use0 | use1)
+    ref_id = np.where(use0, col["ref_id0"][ry, rx],
+                      np.where(use1, col["ref_id1"][ry, rx], _NONE_ID))
+    mcx = np.where(use0, col["mv0"][ry, rx, 0],
+                   np.where(use1, col["mv1"][ry, rx, 0], 0))
+    mcy = np.where(use0, col["mv0"][ry, rx, 1],
+                   np.where(use1, col["mv1"][ry, rx, 1], 0))
+
+    pocs0 = list(pocs0)
+    nr = len(pocs0)
+    mapped = np.full(ref_id.shape, -1, np.int32)
+    for k, p0 in enumerate(pocs0):
+        mapped = np.where((ref_id == p0) & (mapped < 0), k, mapped)
+    bad = (~col_intra) & (mapped < 0)
+    if bad.any():
+        raise ValueError("temporal direct: colocated ref id not in list0")
+    mapped = np.where(col_intra, 0, mapped)
+
+    dsf_tab = dist_scale_factors(cur_poc, pocs0, poc1)
+    lt = np.asarray(
+        [bool(ref_lt0[k]) if ref_lt0 is not None else False
+         for k in range(nr)]
+    )
+    same = np.asarray([p0 == poc1 for p0 in pocs0])
+    passthru = (lt | same)[mapped]
+    dsf = dsf_tab[mapped]
+    sx = (dsf * mcx + 128) >> 8
+    sy = (dsf * mcy + 128) >> 8
+    m0x = np.where(col_intra, 0, np.where(passthru, mcx, sx))
+    m0y = np.where(col_intra, 0, np.where(passthru, mcy, sy))
+    m1x = np.where(col_intra, 0, np.where(passthru, 0, m0x - mcx))
+    m1y = np.where(col_intra, 0, np.where(passthru, 0, m0y - mcy))
+    ref_l0 = np.where(col_intra, 0, mapped)
+    poc_arr = np.asarray(pocs0, np.int64)
+
+    ty = y0[:, None] + by[None, :]
+    tx = x0[:, None] + bx[None, :]
+    if unit_mask is not None:
+        # block (bx, by) belongs to unit (by>>1)*2 + (bx>>1)
+        bu = ((by >> 1) * 2 + (bx >> 1))[None, :]  # (1, 16)
+        keep = np.take_along_axis(
+            unit_mask[idx], np.broadcast_to(bu, (len(idx), 16)), axis=1)
+        ty = ty[keep]
+        tx = tx[keep]
+        m0x, m0y = m0x[keep], m0y[keep]
+        m1x, m1y = m1x[keep], m1y[keep]
+        ref_l0 = ref_l0[keep]
+    st.mv[0, ty, tx, 0] = m0x
+    st.mv[0, ty, tx, 1] = m0y
+    st.mv[1, ty, tx, 0] = m1x
+    st.mv[1, ty, tx, 1] = m1y
+    st.ref_idx[0, ty, tx] = ref_l0.astype(np.int8)
+    st.ref_idx[1, ty, tx] = 0
+    st.ref_pic_id[0, ty, tx] = poc_arr[ref_l0]
+    st.ref_pic_id[1, ty, tx] = poc1

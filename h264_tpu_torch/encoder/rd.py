@@ -6,7 +6,8 @@ all-intra path: the wavefront intra commit scan (full-RD I16 vs I4x4 with
 9-mode 4x4 decisions against final neighbour recon, lencod/src/rdopt.c:597
 Mode_Decision_for_4x4IntraBlocks) and the next-reference entry (edge-padded
 recon plus its 6-tap half-pel planes); and the rate, SATD, RDOQ-lite,
-thresholding, WP and chroma-MC helpers of ``rd_p.py``, the P pipeline.
+thresholding, WP and chroma-MC helpers of ``rd_p.py`` (the P pipeline)
+and ``rd_b.py`` (the B pipeline), and the B winner codes.
 
 Every function here is the plain PyTorch version: int32 tensors, the same
 arithmetic in the same order as the reference, vectorised over the
@@ -16,9 +17,6 @@ live in ``kernels/`` and are checked against these functions:
 
 - ``kernels.intra_commit``: one wavefront step (``_intra_step``);
 - ``kernels.ref_bank``: the whole reference entry (``ref_entry_plain``).
-
-The B pipeline of the reference module is still to be ported (ROADMAP
-Queue 1).
 """
 
 from __future__ import annotations
@@ -35,6 +33,12 @@ from ..ops import transforms as TR
 PAD = 32  # reference-plane edge padding (the reference's ops/interp.py PAD)
 BIG = 1 << 29  # cost of an unavailable mode
 I32 = torch.int32
+
+# B-picture winner codes in host_out (the reference's rd.py:60-62, :1908)
+B_DIRECT, B_L0, B_L1, B_BI, B_I16, B_L0_16x8, B_L0_8x16 = 0, 1, 2, 3, 4, 5, 6
+B_DIRECT_ZERO = 7  # direct prediction with forced-zero residual (B skip)
+B_I4 = 8
+B_P8X8 = 9  # per-unit sub-modes (pdir8: 0 L0 / 1 L1 / 2 BI / 3 direct)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """K6 wrappers: boundary strengths and the in-loop deblocking filter.
 
 Kernel: ``csrc/deblock.cu`` (replaces the reference's ``encoder/rd.py:1713
-strengths_full`` and ``:1800 deblock_device_full``).  Plain versions:
-``encoder.rd_p`` ``strengths_plain``, ``deblock_plain``.  CPU tensors run
-the plain version; CUDA tensors launch the kernel, or raise.
+strengths_full``, ``:1928 strengths_full_b`` and ``:1800
+deblock_device_full``).  Plain versions: ``encoder.rd_p``
+``strengths_plain``, ``deblock_plain``; ``encoder.rd_b``
+``strengths_b_plain``.  CPU tensors run the plain version; CUDA tensors
+launch the kernel, or raise.
 """
 
 from __future__ import annotations
@@ -13,9 +15,10 @@ import ctypes
 import torch
 
 from ..device import check_launch, check_tensor, kernel_fn, stream_of
-from ..encoder import rd_p
+from ..encoder import rd_b, rd_p
 
 strengths_plain = rd_p.strengths_plain
+strengths_b_plain = rd_b.strengths_b_plain
 deblock_plain = rd_p.deblock_plain
 
 _I32 = torch.int32
@@ -40,6 +43,30 @@ def strengths(nz4, mvx4, mvy4, ref4, intra4):
         stream_of(nz4))
     check_launch(rc, "strengths")
     strengths.launches += 1
+    return bsv, bsh
+
+
+def strengths_b(nz4, intra4, v0, r0, m0x, m0y, v1, r1, m1x, m1y):
+    """(4 n_my, 4 n_mx) per-4x4 fields of a B picture (nz4/intra4/v0/v1
+    bool, reference POCs r0/r1 and mvs int32) -> (BSV, BSH) int32."""
+    if nz4.device.type == "cpu":
+        return strengths_b_plain(nz4, intra4, v0, r0, m0x, m0y, v1, r1, m1x,
+                                 m1y)
+    dev = nz4.device
+    H4, W4 = nz4.shape
+    args = (("nz4", nz4, torch.bool), ("intra4", intra4, torch.bool),
+            ("v0", v0, torch.bool), ("r0", r0, _I32), ("m0x", m0x, _I32),
+            ("m0y", m0y, _I32), ("v1", v1, torch.bool), ("r1", r1, _I32),
+            ("m1x", m1x, _I32), ("m1y", m1y, _I32))
+    for name, x, dt in args:
+        check_tensor("strengths_b", name, x, (H4, W4), dt, dev)
+    bsv = torch.empty((H4, W4), dtype=_I32, device=dev)
+    bsh = torch.empty_like(bsv)
+    rc = kernel_fn("deblock", "strengths_b", "p" * 10 + "ii" + "ppp")(
+        *(x.data_ptr() for _, x, _ in args), H4, W4, bsv.data_ptr(),
+        bsh.data_ptr(), stream_of(nz4))
+    check_launch(rc, "strengths_b")
+    strengths_b.launches += 1
     return bsv, bsh
 
 
@@ -74,4 +101,5 @@ def deblock(rec_y, rec_u, rec_v, BSV, BSH, qp: int, qp_c: int):
 
 
 strengths.launches = 0
+strengths_b.launches = 0
 deblock.launches = 0

@@ -1,11 +1,14 @@
 """K4 wrappers: quarter-pel refinement and MC from the reference banks.
 
 Kernel: ``csrc/qpel.cu`` (replaces the reference's ``encoder/rd.py:551``
-``refine_unit`` / ``:583 refine_parts`` and the sub-8x8 refinement,
-``:145 _mc_luma_unit`` and the skip prediction, ``:159 _mc_chroma_unit``
-as ``chroma_pred_mb`` uses it).  Plain versions: ``encoder.rd_p``
-``qpel_refine_plain``, ``mc_luma_plain``, ``mc_chroma_plain``.  CPU
-tensors run the plain version; CUDA tensors launch the kernel, or raise.
+``refine_unit`` / ``:583 refine_parts``, the sub-8x8 refinement and the B
+picture's ``:2100 refine_u``, ``:145 _mc_luma_unit`` and the skip
+prediction, ``:159 _mc_chroma_unit`` as the P picture's ``chroma_pred_mb``
+uses it, ``:1911 _dynfrac_mc`` and the B picture's ``:2453
+chroma_pred_mb``).  Plain versions: ``encoder.rd_p`` ``qpel_refine_plain``,
+``mc_luma_plain``, ``mc_chroma_plain``; ``encoder.rd_b``
+``mc_luma_win_plain``, ``mc_chroma_b_plain``.  CPU tensors run the plain
+version; CUDA tensors launch the kernel, or raise.
 """
 
 from __future__ import annotations
@@ -13,12 +16,14 @@ from __future__ import annotations
 import torch
 
 from ..device import check_launch, check_tensor, kernel_fn, stream_of
-from ..encoder import rd_p
+from ..encoder import rd_b, rd_p
 from .search_grid import _check_common
 
 qpel_refine_plain = rd_p.qpel_refine_plain
 mc_luma_plain = rd_p.mc_luma_plain
 mc_chroma_plain = rd_p.mc_chroma_plain
+mc_luma_win_plain = rd_b.mc_luma_win_plain
+mc_chroma_b_plain = rd_b.mc_chroma_b_plain
 
 _I32 = torch.int32
 
@@ -109,6 +114,71 @@ def mc_chroma(cpads, ref8, mv4x, mv4y):
     return out
 
 
+def mc_luma_win(banks, ref, mvx, mvy, y0, x0, h: int, w: int):
+    """`_dynfrac_mc` of n (h, w) units: window starts clamped into the
+    banks.  Returns (n, h, w) int32."""
+    if banks.device.type == "cpu":
+        return mc_luma_win_plain(banks, ref, mvx, mvy, y0, x0, h, w)
+    dev = banks.device
+    if banks.dim() != 4 or banks.shape[1] != 4:
+        raise ValueError(f"mc_luma_win: banks must be (NR, 4, Hp, Wp), got "
+                         f"{tuple(banks.shape)}")
+    NR, _, Hp, Wp = banks.shape
+    check_tensor("mc_luma_win", "banks", banks, (NR, 4, Hp, Wp), _I32, dev)
+    n = ref.shape[0]
+    for name, x in (("ref", ref), ("mvx", mvx), ("mvy", mvy), ("y0", y0),
+                    ("x0", x0)):
+        check_tensor("mc_luma_win", name, x, (n,), _I32, dev)
+    if not (0 < h <= Hp - 2 and 0 < w <= Wp - 2):
+        raise ValueError(f"mc_luma_win: unit {h}x{w} larger than the bank")
+    out = torch.empty((n, h, w), dtype=_I32, device=dev)
+    rc = kernel_fn("qpel", "mc_luma_win", "p" * 6 + "i" * 6 + "pp")(
+        banks.data_ptr(), ref.data_ptr(), mvx.data_ptr(), mvy.data_ptr(),
+        y0.data_ptr(), x0.data_ptr(), NR, Hp, Wp, n, h, w, out.data_ptr(),
+        stream_of(banks))
+    check_launch(rc, "mc_luma_win")
+    mc_luma_win.launches += 1
+    return out
+
+
+def mc_chroma_b(cpads0, cpads1, idx0, m0x, m0y, m1x, m1y, u0, u1):
+    """Two-list chroma prediction of every MB, (n_mb, 2, 8, 8) int32, from
+    list-0 reference indices idx0, mvs m0x/m0y/m1x/m1y (n_mb, 4) int32 and
+    list use u0/u1 (n_mb, 4) bool per 8x8 unit."""
+    if cpads0.device.type == "cpu":
+        return mc_chroma_b_plain(cpads0, cpads1, idx0, m0x, m0y, m1x, m1y, u0,
+                                 u1)
+    dev = cpads0.device
+    if cpads0.dim() != 4 or cpads0.shape[1] != 2:
+        raise ValueError(f"mc_chroma_b: cpads0 must be (NR0, 2, Hcp, Wcp), "
+                         f"got {tuple(cpads0.shape)}")
+    NR0, _, Hcp, Wcp = cpads0.shape
+    check_tensor("mc_chroma_b", "cpads0", cpads0, (NR0, 2, Hcp, Wcp), _I32,
+                 dev)
+    check_tensor("mc_chroma_b", "cpads1", cpads1, (1, 2, Hcp, Wcp), _I32, dev)
+    n_mx = (Wcp - 64) // 8
+    n_mb = idx0.shape[0]
+    if n_mb != n_mx * ((Hcp - 64) // 8) or n_mb == 0:
+        raise ValueError(f"mc_chroma_b: {n_mb} MBs for chroma planes "
+                         f"{Hcp - 64}x{Wcp - 64}")
+    for name, x, dt in (("idx0", idx0, _I32), ("m0x", m0x, _I32),
+                        ("m0y", m0y, _I32), ("m1x", m1x, _I32),
+                        ("m1y", m1y, _I32), ("u0", u0, torch.bool),
+                        ("u1", u1, torch.bool)):
+        check_tensor("mc_chroma_b", name, x, (n_mb, 4), dt, dev)
+    out = torch.empty((n_mb, 2, 8, 8), dtype=_I32, device=dev)
+    rc = kernel_fn("qpel", "mc_chroma_b", "p" * 9 + "i" * 5 + "pp")(
+        cpads0.data_ptr(), cpads1.data_ptr(), idx0.data_ptr(),
+        m0x.data_ptr(), m0y.data_ptr(), m1x.data_ptr(), m1y.data_ptr(),
+        u0.data_ptr(), u1.data_ptr(), NR0, n_mb, n_mx, Hcp, Wcp,
+        out.data_ptr(), stream_of(cpads0))
+    check_launch(rc, "mc_chroma_b")
+    mc_chroma_b.launches += 1
+    return out
+
+
 qpel_refine.launches = 0
 mc_luma.launches = 0
 mc_chroma.launches = 0
+mc_luma_win.launches = 0
+mc_chroma_b.launches = 0

@@ -2,7 +2,8 @@
 package, on the CPU: byte-identical Annex-B stream, equal recon planes and
 reference bank, for 3 seeded 176x144 frames at QP 0, 28 and 51; the
 configurations still unported; the carried tables.  The IPPP streams are
-in test_torch_p_encode.py."""
+in test_torch_p_encode.py, the IPB streams in test_torch_b_encode.py and
+test_torch_b_pipeline.py."""
 
 import os
 import subprocess
@@ -92,6 +93,11 @@ def test_port_encode_imports_no_jax():
         "s = H264Encoder(cfg, device='cpu').encode_sequence("
         "synthetic_frames(2, 48, 32))\n"
         "assert len(s) > 50\n"
+        "cfg = EncoderConfig(width=48, height=32, fast=True, entropy='cabac',"
+        " b_frames=1, num_ref_frames=2, search_range=8, weighted_pred=True)\n"
+        "enc = H264Encoder(cfg, device='cpu')\n"
+        "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
+        "assert len(s) > 50 and [p for p, _ in enc.all_recons] == [0, 4, 2]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "(m.split('.')[0].startswith('h264_tpu') and "
@@ -112,7 +118,8 @@ def test_default_device_raises_without_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"intra_refresh": 2}, {"b_frames": 1}, {"entropy": "cavlc"},
+    {"intra_refresh": 2}, {"b_frames": 1, "rc_bitrate": 1e5},
+    {"entropy": "cavlc"},
     {"fast": False}, {"rd": False}, {"slice_mode": 1, "slice_argument": 11},
     {"transform8x8": True}, {"rc_bitrate": 1e5}, {"sei_text": "x"},
     {"row_slices": 2}, {"loss_aware_k": 2},

@@ -9,14 +9,15 @@ port is installed:
 
 (the CPU side of each kernel is held against the JAX package by
 test_torch_intra.py, test_torch_bank.py, test_torch_encode.py and the
-test_torch_p_*.py files)."""
+test_torch_p_*.py and test_torch_b_*.py files)."""
 
 import numpy as np
 import pytest
 import torch
 
-from h264_tpu_torch.encoder import rd, rd_p
+from h264_tpu_torch.encoder import rd, rd_b, rd_p
 from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
+from h264_tpu_torch.kernels import b_direct as K7
 from h264_tpu_torch.kernels import deblock as K6
 from h264_tpu_torch.kernels import inter_tq as K5
 from h264_tpu_torch.kernels import intra_commit as K1
@@ -24,6 +25,8 @@ from h264_tpu_torch.kernels import qpel as K4
 from h264_tpu_torch.kernels import ref_bank as K2
 from h264_tpu_torch.kernels import search_grid as K3
 from h264_tpu_torch.ops.exact import chroma_qp
+from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
+                                                  strengths_b_inputs)
 from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
 
 pytestmark = pytest.mark.gpu
@@ -206,6 +209,136 @@ def test_p_wrappers_reject_bad_input(cuda):
 def test_ippp_encoder_on_card_matches_cpu(cuda, wp):
     frames = moving_frames(5, 176, 144, seed=8)
     cfg = _ippp_cfg(176, 144, 30, wp)
+    card = H264Encoder(cfg)
+    cpu = H264Encoder(cfg, device="cpu")
+    assert card.encode_sequence(frames) == cpu.encode_sequence(frames)
+    for (_, a), (_, b) in zip(card.all_recons, cpu.all_recons):
+        for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
+            np.testing.assert_array_equal(x, y)
+    for ea, eb in zip(card._rd_refs, cpu._rd_refs):
+        assert ea[0] == eb[0]
+        for x, y in zip((*ea[1:3], *ea[3]), (*eb[1:3], *eb[3])):
+            assert torch.equal(x.cpu(), y)
+
+
+# ---------------------------------------------------------------------------
+# B picture kernels (K7, mc_luma_win, mc_chroma_b, strengths_b, and the
+# K3-K6 entries B pictures share) on the real tensors of B pictures
+# ---------------------------------------------------------------------------
+
+def _ipb_cfg(W, H, qp, hier=False):
+    return EncoderConfig(width=W, height=H, qp=qp, fast=True, rd=True,
+                         entropy="cabac", b_frames=3 if hier else 1,
+                         b_hierarchy=hier, num_ref_frames=2, search_range=8,
+                         weighted_pred=True)
+
+
+_B_CALLS: dict = {}
+
+
+def _b_calls(dev, W, H, qp, hier=False):
+    """Every B-entry call of a short IPB encode through the plain path on
+    the card, as (name, args)."""
+    key = (W, H, qp, hier)
+    if key not in _B_CALLS:
+        enc = H264Encoder(_ipb_cfg(W, H, qp, hier), device=dev)
+        enc._b_kernels, calls = rd_b.recording(rd_b.PLAIN)
+        list(enc.encode_stream(moving_frames(5, W, H, seed=W + qp)))
+        _B_CALLS[key] = calls
+    return _B_CALLS[key]
+
+
+def _hold(kern, name, args):
+    before = getattr(kern, name).launches if name in rd_b.B_OWN else None
+    got = getattr(kern, name)(*args)
+    if before is not None:
+        assert getattr(kern, name).launches == before + 1, name
+    want = getattr(rd_b.PLAIN, name)(*args)
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), f"{name} out {i}"
+
+
+@pytest.mark.parametrize("hier", [False, True], ids=["ipb", "hier"])
+@pytest.mark.parametrize("qp", [28, 49])  # B pictures at QP 30 and 51
+@pytest.mark.parametrize("W,H", [(176, 144), (352, 288)], ids=lambda v: str(v))
+def test_b_kernels_match_plain(cuda, W, H, qp, hier):
+    kern = rd_b.default_kernels()
+    calls = _b_calls(cuda, W, H, qp, hier)
+    for name, args in calls:
+        _hold(kern, name, args)
+    assert {n for n, _ in calls} == set(rd_b.B_ENTRIES)
+
+
+def test_b_kernels_with_far_motion_match_plain(cuda):
+    """Direct, windowed luma and chroma MC with mvs of up to +-90 pel:
+    windows that start outside the banks are placed as the reference's
+    dynamic_slice places them, in the kernel as in the plain version."""
+    kern = rd_b.default_kernels()
+    first = {}
+    for name, a in _b_calls(cuda, 176, 144, 28):
+        first.setdefault(name, a)
+    rng = np.random.RandomState(9)
+
+    def far(t):
+        return torch.as_tensor(rng.randint(-360, 361, tuple(t.shape)),
+                               dtype=torch.int32, device=cuda)
+
+    b0, b1, ci, cr, cmx, cmy, dsf, eq = first["b_direct"]
+    _hold(kern, "b_direct", (b0, b1, torch.zeros_like(ci), cr, far(cmx),
+                             far(cmy), dsf, eq))
+    banks, ref, mvx, mvy, y0, x0, h, w = first["mc_luma_win"]
+    _hold(kern, "mc_luma_win", (banks, ref, far(mvx), far(mvy), y0, x0, h, w))
+    for hh, ww in ((8, 8), (16, 16), (4, 8)):
+        n = 300
+        yy = torch.as_tensor(rng.randint(0, (144 - hh) // 4 + 1, n) * 4,
+                             dtype=torch.int32, device=cuda)
+        xx = torch.as_tensor(rng.randint(0, (176 - ww) // 4 + 1, n) * 4,
+                             dtype=torch.int32, device=cuda)
+        rr = torch.as_tensor(rng.randint(0, banks.shape[0], n),
+                             dtype=torch.int32, device=cuda)
+        _hold(kern, "mc_luma_win", (banks, rr, far(rr), far(rr), yy, xx, hh,
+                                    ww))
+    c0, c1, idx0, m0x, m0y, m1x, m1y, u0, u1 = first["mc_chroma_b"]
+    _hold(kern, "mc_chroma_b", (c0, c1, idx0, far(m0x), far(m0y), far(m1x),
+                                far(m1y), u0, u1))
+
+
+@pytest.mark.parametrize("H4,W4", [(72, 88), (180, 320)])
+def test_strengths_b_every_branch_matches_plain(cuda, H4, W4):
+    """strengths_b on built inputs that take every branch of the pairing
+    rule (crossed and same-ref pairs, which a real IPB stream never
+    has), at CIF and 1280x720."""
+    args = strengths_b_inputs(H4, W4, seed=H4 + W4, device=cuda)
+    assert min(strengths_b_branches(args).values()) > 0
+    _hold(rd_b.default_kernels(), "strengths_b", args)
+
+
+def test_b_wrappers_reject_bad_input(cuda):
+    first = {}
+    for name, a in _b_calls(cuda, 176, 144, 28):
+        first.setdefault(name, a)
+    b0, b1, ci, cr, cmx, cmy, dsf, eq = first["b_direct"]
+    with pytest.raises(ValueError):
+        K7.b_direct(b0, b0, ci, cr, cmx, cmy, dsf, eq)  # list 1 is one bank
+    with pytest.raises(ValueError):
+        K7.b_direct(b0, b1, ci.to(torch.int32), cr, cmx, cmy, dsf, eq)
+    banks, ref, mvx, mvy, y0, x0, h, w = first["mc_luma_win"]
+    with pytest.raises(ValueError):
+        K4.mc_luma_win(banks, ref[:-1], mvx, mvy, y0, x0, h, w)
+    c0, c1, idx0, *rest = first["mc_chroma_b"]
+    with pytest.raises(ValueError):
+        K4.mc_chroma_b(c0, c1, idx0[:-1], *(r[:-1] for r in rest))
+    args = first["strengths_b"]
+    with pytest.raises(ValueError):
+        K6.strengths_b(args[0].to(torch.int32), *args[1:])
+
+
+@pytest.mark.parametrize("hier", [False, True], ids=["ipb", "hier"])
+def test_ipb_encoder_on_card_matches_cpu(cuda, hier):
+    frames = moving_frames(9 if hier else 5, 176, 144, seed=8)
+    cfg = _ipb_cfg(176, 144, 30, hier)
     card = H264Encoder(cfg)
     cpu = H264Encoder(cfg, device="cpu")
     assert card.encode_sequence(frames) == cpu.encode_sequence(frames)
