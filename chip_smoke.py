@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-1. builds the CUDA kernels K1-K7 (nvcc, sm_90a, one process per source,
+1. builds the CUDA kernels K1-K8 (nvcc, sm_90a, one process per source,
    all at once) and the host C runtime (gcc);
 2. holds K1 (intra commit) and K2 (reference bank) against their plain
    PyTorch versions on the card, bit for bit, at CIF and 1280x720, QP 28
@@ -34,11 +34,25 @@
    set to 0 just before and read just after;
 6. encodes the same frames through the kernels' plain versions on the
    card and requires the identical streams, recons and reference entries;
-7. prints per-picture times for I, P and B pictures (CUDA events and host
+7. the decoder: decodes the 17 in-repo streams (QCIF) and every stream
+   of step 5 with ``H264Decoder(device="cuda")``, recording K8's
+   (``decode_inter``) inputs, and requires each decode to be
+   byte-identical to the native host decode (``use_device=False``) and
+   the I and P pictures of the all-intra, IPPP and IPB streams to equal
+   the encoder's recons (B pictures and the hierarchical stream: the
+   count of samples that differ is printed, not checked); K8's launch
+   counter is set to 0 just before the decode of the CIF and 720p IPB
+   streams and read just after; holds K8 against its plain version bit
+   for bit on every recorded input and on built inputs (far mvs, WP, T8,
+   QP 0/51, wrapping dequant; tools/decode_cases.py) at QCIF, CIF and
+   1280x720; times K8 and its plain version per CIF and 720p picture and
+   the decode per picture type, device and host path;
+8. prints per-picture times for I, P and B pictures (CUDA events and host
    clock around each ``encode_stream`` step, pipeline depth 1), their
    means per type with sample counts, PSNR-Y, bytes and the mode mixes, a
-   ``kernels`` JSON line (launches from the main path), the card's name
-   and power limit, and as its last line the result object.
+   ``kernels`` JSON line (launches from the main path; K8's from the
+   decode of step 7), the card's name and power limit, and as its last
+   line the result object.
 
 Inputs are seeded synthetic frames (h264_tpu_torch/tools/synthseq.py).
 Exits non-zero, printing no result, when no CUDA card is present or the
@@ -89,6 +103,11 @@ OPS_LINE = 40
 OPS_DIRECT, OPS_CHROMA_B = 12, 30
 # per 4x4 block edge of strengths_b (the pairing rule, four mv pairs)
 OPS_BS_B = 40
+# per sample of csrc/decode_inter.cu: a luma prediction per list (two
+# reads, their rounded mean), a chroma one per list (four taps, weights,
+# rounding), and per inter sample the weighting and select, dequant,
+# two transform passes and the recon
+OPS_DEC_MC_L, OPS_DEC_MC_C, OPS_DEC_RES = 4, 12, 20
 SOURCES = {
     "intra_commit": ("h264_tpu_torch/csrc/intra_commit.cu",
                      "h264_tpu/encoder/rd.py:1415"),
@@ -123,6 +142,8 @@ SOURCES = {
                     "h264_tpu/encoder/rd.py:2453"),
     "strengths_b": ("h264_tpu_torch/csrc/deblock.cu",
                     "h264_tpu/encoder/rd.py:1928"),
+    "decode_inter": ("h264_tpu_torch/csrc/decode_inter.cu",
+                     "h264_tpu/decoder/device.py:99"),
 }
 
 
@@ -298,6 +319,35 @@ def p_work(name: str, args):
     raise KeyError(name)
 
 
+def decode_work(args, H: int, W: int):
+    """(bytes, int32 ops) of one K8 call: the bank samples the valid
+    lists' predictions of the inter MBs need (16 luma samples from each
+    bank plane the mv's fraction reads; per chroma plane the 2x2 block's
+    window, 2 or 3 samples a side by the fraction), the per-block and
+    per-MB fields and levels of the inter MBs, the tables, and the recon
+    written once."""
+    mv, ref_idx, inter = args[3], args[4], args[21] != 0
+    n_my, n_mx = H // 16, W // 16
+    blk = inter.view(n_my, 1, n_mx, 1).expand(n_my, 4, n_mx, 4).reshape(
+        H // 4, W // 4)
+    need = lists = 0
+    for lst in (0, 1):
+        v = (ref_idx[lst] >= 0) & blk
+        mvx, mvy = mv[lst, ..., 0][v], mv[lst, ..., 1][v]
+        need += luma_planes(mvx, mvy) * 16 * 4
+        taps = (2 + ((mvy & 7) != 0).long()) * (2 + ((mvx & 7) != 0).long())
+        need += int(taps.sum()) * 2 * 4
+        lists += int(v.sum())
+    n_inter = int(inter.sum())
+    fields = int(blk.sum()) * (4 + 2 + 1) * 4  # mv, ref_idx, slice id
+    levels = n_inter * (5 + 256 + 128 + 8) * 4  # qp, qpc, t8 + levels
+    tables = sum(args[i].numel() * 4 for i in (2, *range(6, 14), 22, 23, 24))
+    out = H * W * 3 // 2 * 4
+    ops = lists * (16 * OPS_DEC_MC_L + 8 * OPS_DEC_MC_C) + (
+        n_inter * 384 * OPS_DEC_RES)
+    return need + fields + levels + tables + inter.numel() * 4 + out, ops
+
+
 def bound_ms(nbytes: int, ops: int):
     tb, to = nbytes / HBM_BPS * 1e3, ops / INT32_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -315,11 +365,18 @@ def main(argv=None) -> int:
     from h264_tpu_torch import device as D
     from h264_tpu_torch import native
     from h264_tpu_torch.bitstream import write_annexb
+    from h264_tpu_torch.decoder import device as DEV
+    from h264_tpu_torch.decoder.decoder import H264Decoder
     from h264_tpu_torch.encoder import rd, rd_b, rd_p
     from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
+    from h264_tpu_torch.kernels import decode_inter as K8
     from h264_tpu_torch.kernels import intra_commit as K1
     from h264_tpu_torch.kernels import ref_bank as K2
     from h264_tpu_torch.ops.exact import chroma_qp
+    from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
+    from h264_tpu_torch.tools.decode_cases import built_cases as dec_cases
+    from h264_tpu_torch.tools.decode_cases import clip_sides
+    from h264_tpu_torch.tools.profile_decode import mean_by_type, timed_decode
     from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                       strengths_b_inputs)
     from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
@@ -331,9 +388,10 @@ def main(argv=None) -> int:
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     D.build_cuda(["intra_commit", "ref_bank", "search_grid", "qpel",
-                  "inter_tq", "deblock", "b_direct"])
+                  "inter_tq", "deblock", "b_direct", "decode_inter"])
     t_nvcc = time.perf_counter() - t0
-    for stem in ("cabac_engine", "cabac_writer", "deblock"):
+    for stem in ("cabac_engine", "cabac_writer", "deblock", "cabac_reader",
+                 "cavlc_reader", "recon"):
         if native._load(stem) is None:
             fail(f"host C library {stem} did not build")
     print(f"build: nvcc {t_nvcc:.1f}s, total {time.perf_counter() - t0:.1f}s")
@@ -417,6 +475,8 @@ def main(argv=None) -> int:
                       f" ms; ref_bank {tm['ref_bank']['ms']:.4f} ms, plain "
                       f"{tm['ref_bank']['plain_ms']:.4f} ms")
 
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+
     # ---- 3. K3-K6 vs plain versions on the inputs of real P pictures ---------
     def p_cfg(size, qp=28, wp=True):
         return EncoderConfig(width=size[0], height=size[1], qp=qp, fast=True,
@@ -472,6 +532,8 @@ def main(argv=None) -> int:
                           "kernel / plain): " + ", ".join(
                               f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
                               for n in rd_p.P_ENTRIES))
+
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
     # ---- 4. the B entries vs plain versions on the inputs of B pictures ------
     def b_cfg(size, qp=28, hier=False):
@@ -581,6 +643,8 @@ def main(argv=None) -> int:
                       "plain): " + ", ".join(
                           f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
                           for n in rd_b.B_ENTRIES))
+
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
     # ---- 5. the paths through the kernels ------------------------------------
     counters = {"intra_commit": K1.intra_commit_step, "ref_bank": K2.ref_bank,
@@ -714,6 +778,8 @@ def main(argv=None) -> int:
             report[f"{tag} {size[0]}x{size[1]}"] = {
                 "pictures": pics, "stream_bytes": len(stream)}
 
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+
     # ---- 6. the same frames through the plain versions on the card -----------
     class PlainEncoder(H264Encoder):
         _intra_step = staticmethod(K1.intra_commit_step_plain)
@@ -744,24 +810,164 @@ def main(argv=None) -> int:
             print(f"plain path {tag} {size[0]}x{size[1]}: stream, recon and "
                   "reference entries identical")
 
-    # ---- 7. report -----------------------------------------------------------
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+
+    # ---- 7. the decoder on the card ------------------------------------------
+    k8_calls = []  # (what, args, H, W, NS) of every K8 call of the decodes
+    k8 = DEV.decode_inter
+
+    def decode(data: bytes, what: str, **kw):
+        """Decode order pictures of a device-path decode, K8's inputs
+        recorded, checked byte-identical to the native host decode."""
+        def rec(*a, H, W, NS):
+            k8_calls.append((what, a, H, W, NS))
+            return k8(*a, H=H, W=W, NS=NS)
+
+        DEV.decode_inter = rec
+        try:
+            pics = list(H264Decoder(device="cuda").decode_stream(data))
+        finally:
+            DEV.decode_inter = k8
+        host = list(H264Decoder(use_device=False).decode_stream(data))
+        if [p.to_yuv_bytes() for p in pics] != [p.to_yuv_bytes()
+                                                for p in host]:
+            fail(f"decode of {what}: differs from the native host decode")
+        return pics
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    streams = sorted(f for f in os.listdir(os.path.join(here, "tests",
+                                                        "streams"))
+                     if f.endswith(".264"))
+    for f in streams:
+        with open(os.path.join(here, "tests", "streams", f), "rb") as fh:
+            pics = decode(fh.read(), f)
+    print(f"decode: the {len(streams)} in-repo streams on the card equal "
+          f"the native host decode ({len(k8_calls)} K8 calls)")
+    if len(streams) != 17:
+        fail(f"{len(streams)} in-repo streams, expected 17")
+
+    dec_counters = {"decode_inter": K8.decode_inter, "ref_bank": K2.ref_bank}
+    for fn in dec_counters.values():
+        fn.launches = 0
+    dec_pics = {s: decode(runs["IPB"][s][1], f"IPB {s[0]}x{s[1]}")
+                for s in N_IPB}  # the decode main path
+    launches_dec = {n: fn.launches for n, fn in dec_counters.items()}
+    print(f"decode path launches (IPB CIF + 720p): {launches_dec}")
+    if launches_dec["decode_inter"] == 0:
+        fail("kernel decode_inter was not launched on the decode path")
+
+    b_diff = {}
+    for tag, by_size in runs.items():
+        for size, (enc, stream, _) in by_size.items():
+            what = f"{tag} {size[0]}x{size[1]}"
+            pics = (dec_pics[size] if tag == "IPB" else decode(stream, what))
+            if len(pics) != len(enc.all_recons):
+                fail(f"decode of {what}: {len(pics)} pictures, encoded "
+                     f"{len(enc.all_recons)}")
+            for pic, (poc, rec) in zip(pics, enc.all_recons):
+                kind = pic.slice_type.name
+                if pic.poc != poc:
+                    fail(f"decode of {what}: POC {pic.poc}, encoded {poc}")
+                dy = int((np.asarray(pic.planes.Y) != rec.Y).sum())
+                dc = int((np.asarray(pic.planes.U) != rec.U).sum()
+                         + (np.asarray(pic.planes.V) != rec.V).sum())
+                if kind in ("I", "P") and tag != "IPB-hierarchy" and (dy or dc):
+                    fail(f"decode of {what}: {kind} picture POC {poc} differs "
+                         f"from the encoder's recon ({dy} luma, {dc} chroma "
+                         "samples)")
+                if kind == "B" or tag == "IPB-hierarchy":
+                    b_diff.setdefault(what, []).append((kind, poc, dy, dc))
+            print(f"decode of {what}: byte-identical to the host decode; I/P "
+                  "pictures equal to the encoder's recons"
+                  if tag != "IPB-hierarchy" else
+                  f"decode of {what}: byte-identical to the host decode")
+    for what, rows in b_diff.items():
+        print(f"decode vs encoder recon, {what} (report; the reference's B "
+              "windows, ROADMAP Queue 3): " + ", ".join(
+                  f"{k} POC {poc}: {dy} luma / {dc} chroma samples differ"
+                  for k, poc, dy, dc in rows))
+    report["decode_vs_recon"] = b_diff
+
+    # K8 against its plain version on every recorded and built input
+    def hold_k8(args, H, W, ns, what):
+        got = K8.decode_inter(*args, H=H, W=W, NS=ns)
+        want = K8.decode_inter_plain(*args, H=H, W=W, NS=ns)
+        d = (got.long() - want.long()).abs()
+        err["decode_inter"] = max(err["decode_inter"], int(d.max()))
+        mismatches["decode_inter"] += int((d > 0).sum())
+        if int(d.max()) or got.dtype != want.dtype:
+            fail(f"decode_inter {what}: differs from its plain version "
+                 f"({int((d > 0).sum())} samples)")
+
+    for what, a, H, W, ns in k8_calls:
+        hold_k8(a, H, W, ns, what)
+    n_built = 0
+    for (W, H) in ((176, 144), CIF, HD):
+        for name, arrs in dec_cases(H, W, seed=SEED + W):
+            args_t = tuple(torch.as_tensor(x, device=dev) for x in arrs)
+            hold_k8(args_t, H, W, DEC_NS, f"{W}x{H} built {name}")
+            n_built += 1
+        sides = clip_sides(arrs[3], H, W)
+        if min(v for d in sides.values() for v in d.values()) == 0:
+            fail(f"decode_inter built inputs {W}x{H}: a side is not clipped")
+    print(f"check decode_inter: {len(k8_calls)} recorded calls (QCIF, CIF, "
+          f"720p) and {n_built} built inputs (far mvs clipped on every side, "
+          "WP, T8, QP 0/51, wrapping dequant) equal to the plain version "
+          "(tolerance 0: bit-exact)")
+
+    timing_d = {}
+    for size in N_IPB:
+        mine = [c for c in k8_calls if c[0] == f"IPB {size[0]}x{size[1]}"]
+        wk = [decode_work(a, H, W) for _, a, H, W, _ in mine]
+        timing_d[size] = {"decode_inter": {
+            "ms": float(np.mean([cuda_ms(
+                lambda c=c: K8.decode_inter(*c[1], H=c[2], W=c[3], NS=c[4]),
+                10) for c in mine])),
+            "plain_ms": float(np.mean([cuda_ms(
+                lambda c=c: K8.decode_inter_plain(*c[1], H=c[2], W=c[3],
+                                                  NS=c[4]), 1)
+                for c in mine[:3]])),
+            "launches_per_picture": 1,
+            "work": (int(np.mean([w[0] for w in wk])),
+                     int(np.mean([w[1] for w in wk])))}}
+        tm = timing_d[size]["decode_inter"]
+        print(f"time {size[0]}x{size[1]} decode_inter per inter picture "
+              f"(mean of {len(mine)}): {tm['ms']:.4f} ms, plain "
+              f"{tm['plain_ms']:.3f} ms, bound "
+              f"{bound_ms(*tm['work'])[0]:.5f} ms ({tm['work'][0]} B)")
+        data = runs["IPB"][size][1]
+        _, dev_t = timed_decode(data, device="cuda")
+        _, host_t = timed_decode(data, use_device=False)
+        report[f"decode_ms_{size[0]}x{size[1]}"] = {
+            "device_path": mean_by_type(dev_t),
+            "host_path": mean_by_type(host_t)}
+        print(f"decode {size[0]}x{size[1]} IPB ms per picture (host clock, "
+              f"synchronized): device path {mean_by_type(dev_t)}, host path "
+              f"{mean_by_type(host_t)}")
+
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+
+    # ---- 8. report -----------------------------------------------------------
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        tm = (timing_b if name in rd_b.B_OWN else timing)[CIF][name]
+        tm = (timing_d if name == "decode_inter" else timing_b
+              if name in rd_b.B_OWN else timing)[CIF][name]
         b_ms, b_by = bound_ms(*tm["work"])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (launches_dec if name == "decode_inter"
+                         else launches)[name],
             "max_abs_err": err[name], "mismatches": mismatches[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
         })
-    for kind, tms in (("", timing), ("b_", timing_b)):
+    for kind, tms in (("", timing), ("b_", timing_b), ("decode_", timing_d)):
         for size, tm in tms.items():
             report[f"timing_{kind}{size[0]}x{size[1]}"] = {
                 n: {**v, "bound_ms": bound_ms(*v["work"])[0]}
                 for n, v in tm.items()}
-    report["launches"] = launches_of
+    report["launches"] = {**launches_of, "decode": launches_dec}
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     smi = subprocess.run(

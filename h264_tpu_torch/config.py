@@ -1,11 +1,83 @@
-"""Profile / level validation (lencod/src/configfile.c:1289 ProfileCheck,
-:1481 LevelCheck; level indices lencod.c:2647 SetLevelIndices).
+"""The JM ``.cfg`` parser and the decoder's run configuration, and
+profile / level validation.
 
-The two functions the encoder needs from the reference package's
-config.py, which also holds the JM ``.cfg`` parser (ROADMAP Queue 1,
-"Config and CLIs")."""
+Copies of the reference package's config.py: ``parse_cfg_text`` /
+``parse_cfg_file`` (``Param = Value`` lines, ``#`` comments, quoted
+strings), ``DecoderRunConfig`` and ``parse_decoder_cfg`` (ldecod's fixed
+positional decoder.cfg, ldecod/src/ldecod.c:508 init_conf), and
+``level_for`` / ``profile_check`` (lencod/src/configfile.c:1289
+ProfileCheck, :1481 LevelCheck; level indices lencod.c:2647
+SetLevelIndices).  The encoder half of the parser (``configure_encoder``)
+is not ported yet (ROADMAP Queue 1, "Config and CLIs")."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+
+
+def parse_cfg_text(text: str) -> dict[str, str]:
+    """Parse JM `Param = Value # comment` lines into a string dict."""
+    out: dict[str, str] = {}
+    for raw in text.splitlines():
+        line = raw.split("#", 1)[0].strip()
+        if not line or "=" not in line:
+            continue
+        key, val = line.split("=", 1)
+        key = key.strip()
+        val = val.strip()
+        if val.startswith('"') and val.endswith('"') and len(val) >= 2:
+            val = val[1:-1]
+        if key:
+            out[key] = val
+    return out
+
+
+def parse_cfg_file(path: str | Path) -> dict[str, str]:
+    return parse_cfg_text(Path(path).read_text(errors="replace"))
+
+
+@dataclass
+class DecoderRunConfig:
+    """ldecod positional config (bin/decoder.cfg, ldecod.c:508)."""
+
+    input_file: str = "test.264"
+    output_file: str = "test_dec.yuv"
+    ref_file: str = ""
+    write_uv: bool = True
+    nal_mode: int = 0  # 0 Annex B, 1 RTP
+    ref_offset: int = 0
+    poc_scale: int = 2
+    concealment_mode: int = 0
+    ref_poc_gap: int = 2
+    poc_gap: int = 2
+    silent: bool = False
+
+
+def parse_decoder_cfg(path: str | Path) -> DecoderRunConfig:
+    tokens = []
+    for raw in Path(path).read_text(errors="replace").splitlines():
+        t = raw.split()[0] if raw.split() else ""
+        if t:
+            tokens.append(t)
+    d = DecoderRunConfig()
+    fields_pos = [
+        ("input_file", str), ("output_file", str), ("ref_file", str),
+        ("write_uv", lambda v: bool(int(v))), ("nal_mode", int),
+        ("ref_offset", int), ("poc_scale", int), ("_rate", int),
+        ("_b", int), ("_f", int), ("_lb", str),
+        ("concealment_mode", int), ("ref_poc_gap", int), ("poc_gap", int),
+        ("silent", lambda v: bool(int(v))),
+    ]
+    for (name, conv), tok in zip(fields_pos, tokens):
+        if name.startswith("_"):
+            continue
+        try:
+            setattr(d, name, conv(tok))
+        except ValueError:
+            break  # free-text trailer reached
+    return d
+
 
 # level_idc -> (MaxMBPS, MaxFS, MaxDpbMbs)  (spec Table A-1, normative)
 LEVEL_LIMITS = {

@@ -71,13 +71,37 @@ def encoder_refs_from_numpy(enc, refs, src=None,
     enc._rd_refs = out
 
 
+def decode_inter_args_from_numpy(args, device=None):
+    """The arguments of one call of the reference's decoder/device.py
+    ``_decode_inter`` (banks, cpads, refmap, ..., ils4c: 25 arrays, as
+    numpy) -> the port's int32 tensors on `device`, in the order K8
+    (``kernels.decode_inter``) and ``decode_inter_plain`` take them."""
+    if len(args) != 25:
+        raise ValueError(f"{len(args)} arrays, expected the 25 arguments "
+                         "of _decode_inter")
+    dev = resolve_device(device)
+    return tuple(torch.tensor(np.asarray(a, np.int32), device=dev)
+                 for a in args)
+
+
 # module (relative to the package root) -> the constant tables it copies
 _TABLES = {
-    "ops.quant": ("DEQUANT4", "QUANT4"),
+    "ops.quant": ("DEQUANT4", "QUANT4", "DEQUANT8"),
+    "ops.interp": ("PAD", "PLANE_OFF"),
     "ops.exact": ("QP_SCALE_CR",),
     "ops.deblock": ("ALPHA_TABLE", "BETA_TABLE", "CLIP_TAB"),
     "decoder.mbtables": ("BLK4_TO_XY", "XY_TO_BLK4", "ZZ_SCAN_4x4",
-                         "ZZ_SCAN_8x8", "I16_CBP_TAB"),
+                         "ZZ_SCAN_8x8", "FIELD_SCAN_4x4", "FIELD_SCAN_8x8",
+                         "I16_CBP_TAB", "BLK8_TO_XY", "SUB_MB_P",
+                         "SUB_MB_B"),
+    "decoder.cavlc_mb": ("_CBP_FROM_CODE",),
+    "decoder.mv": ("_B8_PARTS",),
+    "decoder.device": ("MAXREF", "_ILS4", "_ILS8"),
+    "entropy.cavlc.tables": (
+        "COEFF_TOKEN_LEN", "COEFF_TOKEN_CODE", "COEFF_TOKEN_CDC_LEN",
+        "COEFF_TOKEN_CDC_CODE", "TOTAL_ZEROS_LEN", "TOTAL_ZEROS_CODE",
+        "TOTAL_ZEROS_CDC_LEN", "TOTAL_ZEROS_CDC_CODE", "RUN_BEFORE_LEN",
+        "RUN_BEFORE_CODE", "NCBP"),
     "entropy.cabac.tables": (
         "INIT_I", "INIT_P", "RANGE_TAB_LPS", "TRANS_IDX_MPS",
         "TRANS_IDX_LPS", "C1ISDC", "MAX_C2", "MAXPOS", "POS2CTX_MAP",

@@ -103,15 +103,18 @@ def load_cuda(stem: str) -> ctypes.CDLL:
         return lib
 
 
-def build_host_c(stem: str, src_dir: pathlib.Path) -> pathlib.Path:
-    """Compile ``<src_dir>/<stem>.c`` with gcc into
+def build_host_c(stem: str, src_dir: pathlib.Path,
+                 extra=()) -> pathlib.Path:
+    """Compile ``<src_dir>/<stem>.c`` (and the `extra` sources of that
+    directory, linked as separate translation units) with gcc into
     ``build/h264_tpu_torch/lib<stem>.so`` if stale; returns its path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = src_dir / f"{stem}.c"
+    srcs = [src_dir / f"{stem}.c", *(src_dir / x for x in extra)]
     so = BUILD_DIR / f"lib{stem}.so"
-    if _stale(so, [src]):
+    if _stale(so, srcs):
         tmp = BUILD_DIR / f"lib{stem}.so.tmp{os.getpid()}"
-        base = ["gcc", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(src)]
+        base = ["gcc", "-O3", "-shared", "-fPIC", "-o", str(tmp),
+                *map(str, srcs)]
         r = subprocess.run(base[:2] + ["-march=native", "-fno-math-errno"]
                            + base[2:], capture_output=True)
         if r.returncode != 0:  # conservative flags

@@ -8,23 +8,31 @@ port is installed:
         -m gpu tests/test_torch_kernels.py
 
 (the CPU side of each kernel is held against the JAX package by
-test_torch_intra.py, test_torch_bank.py, test_torch_encode.py and the
-test_torch_p_*.py and test_torch_b_*.py files)."""
+test_torch_intra.py, test_torch_bank.py, test_torch_encode.py, the
+test_torch_p_*.py and test_torch_b_*.py files, and for K8
+test_torch_decode_ops.py and test_torch_decode.py)."""
+
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
+from h264_tpu_torch.decoder import device as DEV
+from h264_tpu_torch.decoder.decoder import decode_annexb
 from h264_tpu_torch.encoder import rd, rd_b, rd_p
 from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
 from h264_tpu_torch.kernels import b_direct as K7
 from h264_tpu_torch.kernels import deblock as K6
+from h264_tpu_torch.kernels import decode_inter as K8
 from h264_tpu_torch.kernels import inter_tq as K5
 from h264_tpu_torch.kernels import intra_commit as K1
 from h264_tpu_torch.kernels import qpel as K4
 from h264_tpu_torch.kernels import ref_bank as K2
 from h264_tpu_torch.kernels import search_grid as K3
 from h264_tpu_torch.ops.exact import chroma_qp
+from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
+from h264_tpu_torch.tools.decode_cases import built_cases
 from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                   strengths_b_inputs)
 from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
@@ -349,3 +357,83 @@ def test_ipb_encoder_on_card_matches_cpu(cuda, hier):
         assert ea[0] == eb[0]
         for x, y in zip((*ea[1:3], *ea[3]), (*eb[1:3], *eb[3])):
             assert torch.equal(x.cpu(), y)
+
+
+STREAMS = sorted((pathlib.Path(__file__).parent / "streams").glob("*.264"),
+                 key=lambda p: p.name)
+
+
+def _decode_calls(cuda, paths):
+    """(args, H, W, NS) of every K8 call of decoding `paths` on the card."""
+    calls = []
+    kernel = DEV.decode_inter
+
+    def rec(*a, H, W, NS):
+        calls.append((a, H, W, NS))
+        return kernel(*a, H=H, W=W, NS=NS)
+
+    DEV.decode_inter = rec
+    try:
+        for path in paths:
+            decode_annexb(path.read_bytes(), device=cuda)
+    finally:
+        DEV.decode_inter = kernel
+    return calls
+
+
+def test_decode_inter_matches_plain_recorded(cuda):
+    """K8 on the inputs of every inter picture of the in-repo streams."""
+    calls = _decode_calls(cuda, STREAMS)
+    assert len(calls) > 50
+    for args, H, W, ns in calls:
+        got = K8.decode_inter(*args, H=H, W=W, NS=ns)
+        want = K8.decode_inter_plain(*args, H=H, W=W, NS=ns)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("W,H", [(176, 144), (352, 288), (1280, 720)],
+                         ids=lambda v: str(v))
+def test_decode_inter_matches_plain_built(cuda, W, H):
+    """Far mvs, ref_idx up to 9, explicit/implicit WP, T8, QP 0/51 and
+    wrapping dequant (tools/decode_cases.py)."""
+    for name, arrs in built_cases(H, W, seed=W + H):
+        args = tuple(torch.as_tensor(a, device=cuda) for a in arrs)
+        before = K8.decode_inter.launches
+        got = K8.decode_inter(*args, H=H, W=W, NS=DEC_NS)
+        assert K8.decode_inter.launches == before + 1
+        want = K8.decode_inter_plain(*args, H=H, W=W, NS=DEC_NS)
+        assert torch.equal(got, want), name
+
+
+def test_decode_inter_rejects_bad_input(cuda):
+    H, W = 48, 64
+    args = [torch.as_tensor(a, device=cuda)
+            for a in built_cases(H, W, seed=3)[0][1]]
+    ok = K8.decode_inter(*args, H=H, W=W, NS=DEC_NS)
+    assert ok.shape == (H * W * 3 // 2,)
+    for i, bad in ((0, args[0].to(torch.int64)),  # dtype
+                   (3, args[3][:, :-1]),  # shape
+                   (17, args[17].cpu()),  # device
+                   (5, args[5].t().contiguous().t())):  # layout
+        wrong = list(args)
+        wrong[i] = bad
+        with pytest.raises(ValueError):
+            K8.decode_inter(*wrong, H=H, W=W, NS=DEC_NS)
+    with pytest.raises(ValueError):
+        K8.decode_inter(*args[:-1], H=H, W=W, NS=DEC_NS)
+    with pytest.raises(ValueError):
+        K8.decode_inter(*args, H=H + 8, W=W, NS=DEC_NS)
+
+
+@pytest.mark.parametrize("path", STREAMS, ids=lambda p: p.stem)
+def test_decoder_on_card_matches_cpu(cuda, path):
+    data = path.read_bytes()
+    before = K8.decode_inter.launches
+    card = b"".join(p.to_yuv_bytes() for p in decode_annexb(data))
+    cpu = b"".join(p.to_yuv_bytes()
+                   for p in decode_annexb(data, device="cpu"))
+    host = b"".join(p.to_yuv_bytes()
+                    for p in decode_annexb(data, use_device=False))
+    assert card == cpu == host
+    if path.stem not in ("cabac_ipcm", "cavlc_ipcm", "field"):
+        assert K8.decode_inter.launches > before
