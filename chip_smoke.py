@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-1. builds the CUDA kernels K1-K8 (nvcc, sm_90a, one process per source,
+1. builds the CUDA kernels K1-K9 (nvcc, sm_90a, one process per source,
    all at once) and the host C runtime (gcc);
 2. holds K1 (intra commit) and K2 (reference bank) against their plain
    PyTorch versions on the card, bit for bit, at CIF and 1280x720, QP 28
@@ -13,7 +13,12 @@
    the card, bit for bit, on the real inputs of P pictures (1 I + 2 P) at
    CIF and 1280x720, QP 28 and 51, weighted prediction on and off, with 5
    reference frames and search range 28; times kernel and plain version
-   per P picture at both sizes (QP 28, WP on);
+   per P picture at both sizes (QP 28, WP on); holds K9 (``t8_decide``,
+   the 8x8-transform decision) against its plain version on the real
+   inputs of P pictures with the 8x8 transform (1 I + 2 P, CIF and
+   1280x720, QP 28 and 51, WP on) and on built inputs (QP 0 with +-255
+   residuals, zero residuals that tie, every winner class;
+   tools/t8_cases.py), and times both per CIF and 720p P picture;
 4. holds every entry of the B pipeline (its own K7 ``b_direct``,
    ``mc_luma_win``, ``mc_chroma_b``, ``strengths_b``, and the K3-K6
    entries it shares) against its plain version on the card, bit for bit,
@@ -29,11 +34,19 @@
    and 3 1280x720 frames), the main path, the bench configuration (IPB:
    one B picture between anchors, 5 reference frames, search range 28,
    explicit WP, QP 28; 9 CIF and 5 1280x720 frames) and the hierarchical
-   IPB path (``b_hierarchy``, 9 CIF frames) through ``H264Encoder(...,
+   IPB path (``b_hierarchy``, 9 CIF frames), and this slice's paths: the
+   bench configuration with the 8x8 transform (High profile, ``IPB-T8``:
+   9 CIF and 5 1280x720 frames), CAVLC all-intra (4 CIF), CAVLC IPPP
+   (Baseline, WP off, 6 CIF), CAVLC IPB (Main, 9 CIF) and IPPP with the
+   8x8 transform and CAVLC (6 CIF), through ``H264Encoder(...,
    device="cuda").encode_stream``, each with the kernels' launch counters
    set to 0 just before and read just after;
-6. encodes the same frames through the kernels' plain versions on the
-   card and requires the identical streams, recons and reference entries;
+6. encodes the same frames at CIF through the kernels' plain versions on
+   the card (the IPB-T8 path: its first 5 frames, encoded again through
+   the kernels) and requires the identical streams, recons and reference
+   entries (the 1280x720 encodes are not repeated: steps 2-4 hold every
+   entry on recorded 720p inputs, and K1's plain version alone takes
+   several seconds per CIF picture);
 7. the decoder: decodes the 17 in-repo streams (QCIF) and every stream
    of step 5 with ``H264Decoder(device="cuda")``, recording K8's
    (``decode_inter``) inputs, and requires each decode to be
@@ -49,10 +62,12 @@
    the decode per picture type, device and host path;
 8. prints per-picture times for I, P and B pictures (CUDA events and host
    clock around each ``encode_stream`` step, pipeline depth 1), their
-   means per type with sample counts, PSNR-Y, bytes and the mode mixes, a
-   ``kernels`` JSON line (launches from the main path; K8's from the
-   decode of step 7), the card's name and power limit, and as its last
-   line the result object.
+   means per type with sample counts, PSNR-Y, bytes and the mode mixes
+   (with the 8x8 transform, the share of 8x8-transform MBs among the P
+   MBs), a ``kernels`` JSON line (launches from the main path, the bench
+   configuration; K9's from the IPB-T8 path; K8's from the decode of
+   step 7), the card's name and power limit, and as its last line the
+   result object.
 
 Inputs are seeded synthetic frames (h264_tpu_torch/tools/synthseq.py).
 Exits non-zero, printing no result, when no CUDA card is present or the
@@ -77,6 +92,7 @@ N_INTRA = {CIF: 4, HD: 2}  # all-intra path
 N_IPPP = {CIF: 6, HD: 3}  # IPPP path: 1 I + 5 / 2 P
 N_IPB = {CIF: 9, HD: 5}  # the main path: I P B P B ... (4 / 2 B)
 N_HIER = 9  # hierarchical IPB at CIF: I, 2 x (P, stored B, 2 B)
+N_IPB_T8_PLAIN = 5  # the IPB-T8 path's frames held against the plain path
 SEED = 2026
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and the
 # non-tensor float32 rate, used as the int32 rate (the card has half as
@@ -103,6 +119,10 @@ OPS_LINE = 40
 OPS_DIRECT, OPS_CHROMA_B = 12, 30
 # per 4x4 block edge of strengths_b (the pairing rule, four mv pairs)
 OPS_BS_B = 40
+# per sample of csrc/t8.cu as written: four 8-point butterflies (~40
+# operations each, every thread computing its row's or column's), quant,
+# dequant, recon, two SSD terms, the bit counts and the shared sums
+OPS_T8 = 230
 # per sample of csrc/decode_inter.cu: a luma prediction per list (two
 # reads, their rounded mean), a chroma one per list (four taps, weights,
 # rounding), and per inter sample the weighting and select, dequant,
@@ -144,6 +164,7 @@ SOURCES = {
                     "h264_tpu/encoder/rd.py:1928"),
     "decode_inter": ("h264_tpu_torch/csrc/decode_inter.cu",
                      "h264_tpu/decoder/device.py:99"),
+    "t8_decide": ("h264_tpu_torch/csrc/t8.cu", "h264_tpu/encoder/rd.py:1071"),
 }
 
 
@@ -316,6 +337,11 @@ def p_work(name: str, args):
         # edge segment with bS > 0
         seg = int((bsv > 0).sum()) + int((bsh > 0).sum())
         return 2 * nb(y, u, v) + nb(bsv, bsh), seg * (4 + 2 * 2) * OPS_LINE
+    if name == "t8_decide":
+        n_mb = args[0].shape[0]
+        # orig, pred, 4x4 recon and levels, win, sub, intra in; the flags,
+        # 8x8 levels, 4x4 levels and recon out
+        return nb(*args[:7]) + n_mb * (1 + 3 * 256) * 4, n_mb * 256 * OPS_T8
     raise KeyError(name)
 
 
@@ -372,6 +398,7 @@ def main(argv=None) -> int:
     from h264_tpu_torch.kernels import decode_inter as K8
     from h264_tpu_torch.kernels import intra_commit as K1
     from h264_tpu_torch.kernels import ref_bank as K2
+    from h264_tpu_torch.kernels import t8 as K9
     from h264_tpu_torch.ops.exact import chroma_qp
     from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
     from h264_tpu_torch.tools.decode_cases import built_cases as dec_cases
@@ -380,6 +407,7 @@ def main(argv=None) -> int:
     from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                       strengths_b_inputs)
     from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
+    from h264_tpu_torch.tools.t8_cases import built_cases as t8_cases
 
     dev = torch.device("cuda")
     report: dict = {"device": torch.cuda.get_device_name(0)}
@@ -388,10 +416,10 @@ def main(argv=None) -> int:
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     D.build_cuda(["intra_commit", "ref_bank", "search_grid", "qpel",
-                  "inter_tq", "deblock", "b_direct", "decode_inter"])
+                  "inter_tq", "deblock", "b_direct", "decode_inter", "t8"])
     t_nvcc = time.perf_counter() - t0
-    for stem in ("cabac_engine", "cabac_writer", "deblock", "cabac_reader",
-                 "cavlc_reader", "recon"):
+    for stem in ("cabac_engine", "cabac_writer", "cavlc_writer", "deblock",
+                 "cabac_reader", "cavlc_reader", "recon"):
         if native._load(stem) is None:
             fail(f"host C library {stem} did not build")
     print(f"build: nvcc {t_nvcc:.1f}s, total {time.perf_counter() - t0:.1f}s")
@@ -478,11 +506,11 @@ def main(argv=None) -> int:
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
     # ---- 3. K3-K6 vs plain versions on the inputs of real P pictures ---------
-    def p_cfg(size, qp=28, wp=True):
+    def p_cfg(size, qp=28, wp=True, **kw):
         return EncoderConfig(width=size[0], height=size[1], qp=qp, fast=True,
-                             rd=True, entropy="cabac", b_frames=0,
-                             num_ref_frames=5, search_range=28,
-                             weighted_pred=wp)
+                             rd=True, entropy=kw.pop("entropy", "cabac"),
+                             b_frames=0, num_ref_frames=5, search_range=28,
+                             weighted_pred=wp, **kw)
 
     kern = rd_p.default_kernels()
     for size in (CIF, HD):
@@ -506,17 +534,18 @@ def main(argv=None) -> int:
                             fail(f"{name} {size[0]}x{size[1]} QP {qp} WP "
                                  f"{wp}: output {i} differs "
                                  f"({int((d > 0).sum())} elements)")
-                if {n for n, _ in calls} != set(rd_p.P_ENTRIES):
+                p_names = rd_p.entries_of(False)
+                if {n for n, _ in calls} != set(p_names):
                     fail("a P entry was not called")
                 print(f"check {size[0]}x{size[1]} QP {qp} WP {wp}: "
-                      f"{len(calls)} calls of the {len(rd_p.P_ENTRIES)} P "
+                      f"{len(calls)} calls of the {len(p_names)} P "
                       "entries equal to their plain versions (tolerance 0: "
                       "bit-exact)")
                 if qp == 28 and wp:
                     # per P picture: the second P picture's calls
                     last = [c for c in calls[len(calls) // 2:]]
                     tm = timing.setdefault(size, {})
-                    for name in rd_p.P_ENTRIES:
+                    for name in p_names:
                         mine = [a for n, a in last if n == name]
                         fk, fp = getattr(kern, name), getattr(rd_p.PLAIN, name)
                         work = [p_work(name, a) for a in mine]
@@ -531,17 +560,72 @@ def main(argv=None) -> int:
                     print(f"time {size[0]}x{size[1]} per P picture (ms, "
                           "kernel / plain): " + ", ".join(
                               f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
-                              for n in rd_p.P_ENTRIES))
+                              for n in p_names))
+
+    # K9 on the real inputs of P pictures with the 8x8 transform (the other
+    # entries of those pictures are the shapes held above) and on built ones
+    def hold_k9(cargs, what):
+        got = K9.t8_decide(*cargs)
+        want = K9.t8_decide_plain(*cargs)
+        for i, (g, w) in enumerate(zip(got, want)):
+            d = (g.long() - w.long()).abs()
+            e = int(d.max()) if d.numel() else 0
+            err["t8_decide"] = max(err["t8_decide"], e)
+            mismatches["t8_decide"] += int((d > 0).sum())
+            if e or g.dtype != w.dtype:
+                fail(f"t8_decide {what}: output {i} differs "
+                     f"({int((d > 0).sum())} elements)")
+        return got
+
+    for size in (CIF, HD):
+        for qp in (28, 51):
+            enc = H264Encoder(p_cfg(size, qp, True, transform8x8=True),
+                              device="cuda")
+            enc._p_kernels, calls = rd_p.recording(kern)
+            list(enc.encode_stream(pframes[size][:3]))
+            torch.cuda.synchronize()
+            k9 = [a for n, a in calls if n == "t8_decide"]
+            if len(k9) != 2 or {n for n, _ in calls} != set(
+                    rd_p.entries_of(True)):
+                fail("a P entry of the T8 pictures was not called")
+            n8 = sum(int(hold_k9(a, f"{size[0]}x{size[1]} QP {qp}")[0].sum())
+                     for a in k9)
+            print(f"check {size[0]}x{size[1]} QP {qp} T8: t8_decide on the "
+                  f"{len(k9)} recorded P pictures equal to its plain version "
+                  f"(tolerance 0: bit-exact); {n8} 8x8-transform MBs")
+            if qp == 28:
+                tm = timing.setdefault(size, {})
+                tm["t8_decide"] = {
+                    "ms": cuda_ms(lambda a=k9[1]: K9.t8_decide(*a), 20),
+                    "plain_ms": cuda_ms(
+                        lambda a=k9[1]: K9.t8_decide_plain(*a), 5),
+                    "launches_per_picture": 1,
+                    "work": p_work("t8_decide", k9[1])}
+                print(f"time {size[0]}x{size[1]} t8_decide per P picture: "
+                      f"{tm['t8_decide']['ms']:.4f} ms, plain "
+                      f"{tm['t8_decide']['plain_ms']:.3f} ms, bound "
+                      f"{bound_ms(*tm['t8_decide']['work'])[0]:.5f} ms")
+    n_mb_cif = (CIF[0] // 16) * (CIF[1] // 16)
+    for name, arrs, qp, lam in t8_cases(n_mb_cif, SEED):
+        got = hold_k9(tuple(torch.as_tensor(a, device=dev) for a in arrs)
+                      + (qp, lam), f"built {name}")
+        if name == "ties" and got[0].any():
+            fail("t8_decide: a tie chose the 8x8 transform")
+        if name == "qp0_bound" and int(got[1].abs().max()) != 3264:
+            fail("t8_decide: the QP 0 bound case misses level 3264")
+    print("check t8_decide built inputs (QP 0 +-255 residuals at the level "
+          "bound 3264, ties, every winner class at QP 28 and 51): equal to "
+          "the plain version (tolerance 0: bit-exact)")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
     # ---- 4. the B entries vs plain versions on the inputs of B pictures ------
-    def b_cfg(size, qp=28, hier=False):
+    def b_cfg(size, qp=28, hier=False, **kw):
         return EncoderConfig(width=size[0], height=size[1], qp=qp, fast=True,
-                             rd=True, entropy="cabac",
+                             rd=True, entropy=kw.pop("entropy", "cabac"),
                              b_frames=3 if hier else 1, b_hierarchy=hier,
                              num_ref_frames=5, search_range=28,
-                             weighted_pred=True)
+                             weighted_pred=True, **kw)
 
     bkern = rd_b.default_kernels()
 
@@ -691,18 +775,33 @@ def main(argv=None) -> int:
                          "row": row})
         return enc, write_annexb(nalus), pics
 
-    def intra_cfg(size):
+    def intra_cfg(size, entropy="cabac"):
         return EncoderConfig(width=size[0], height=size[1], qp=28, fast=True,
-                             rd=True, entropy="cabac", idr_period=1)
+                             rd=True, entropy=entropy, idr_period=1)
 
+    i_names = ("intra_commit", "ref_bank")
+    p_names = (*i_names, *rd_p.entries_of(False))
+    t8_names = (*i_names, *rd_p.entries_of(True))
+    b_names = tuple(n for n in counters if n != "t8_decide")
     paths = {
         "all-intra": ({s: (intra_cfg(s), frames[s]) for s in N_INTRA},
-                      ("intra_commit", "ref_bank")),
-        "IPPP": ({s: (p_cfg(s), pframes[s]) for s in N_IPPP},
-                 ("intra_commit", "ref_bank", *rd_p.P_ENTRIES)),
-        "IPB": ({s: (b_cfg(s), bframes[s]) for s in N_IPB}, tuple(counters)),
-        "IPB-hierarchy": ({CIF: (b_cfg(CIF, hier=True), hframes)},
-                          tuple(counters)),
+                      i_names),
+        "IPPP": ({s: (p_cfg(s), pframes[s]) for s in N_IPPP}, p_names),
+        "IPB": ({s: (b_cfg(s), bframes[s]) for s in N_IPB}, b_names),
+        "IPB-hierarchy": ({CIF: (b_cfg(CIF, hier=True), hframes)}, b_names),
+        # this slice: the bench configuration in the High profile, and
+        # CAVLC (Baseline IPPP, Main IPB)
+        "IPB-T8": ({s: (b_cfg(s, transform8x8=True), bframes[s])
+                    for s in N_IPB}, tuple(counters)),
+        "all-intra-CAVLC": ({CIF: (intra_cfg(CIF, "cavlc"), frames[CIF])},
+                            i_names),
+        "IPPP-CAVLC": ({CIF: (p_cfg(CIF, wp=False, entropy="cavlc"),
+                              pframes[CIF])}, p_names),
+        "IPB-CAVLC": ({CIF: (b_cfg(CIF, entropy="cavlc"), bframes[CIF])},
+                      b_names),
+        "IPPP-T8-CAVLC": ({CIF: (p_cfg(CIF, entropy="cavlc",
+                                       transform8x8=True), pframes[CIF])},
+                          t8_names),
     }
     runs, launches_of = {}, {}
     for tag, (sizes, needed) in paths.items():
@@ -715,7 +814,10 @@ def main(argv=None) -> int:
         for name in needed:
             if launches_of[tag][name] == 0:
                 fail(f"kernel {name} was not launched on the {tag} path")
-    launches = launches_of["IPB"]  # the main path: the bench configuration
+    # the main path: the bench configuration; K9 runs on its High-profile
+    # form, this slice's path
+    launches = {**launches_of["IPB"],
+                "t8_decide": launches_of["IPB-T8"]["t8_decide"]}
 
     def share(m):
         return round(float(np.mean(m)), 4)
@@ -727,7 +829,8 @@ def main(argv=None) -> int:
             ref8, sub = ref8.reshape(n_mb, 4), sub.reshape(n_mb, 4)
             inter = win < rd_p.C_I16
             p88 = win == rd_p.C_P8x8
-            return {"skip": share(win == rd_p.C_SKIP),
+            t8 = row[9 * n_mb: 10 * n_mb] > 0
+            return {"t8": share(t8), "skip": share(win == rd_p.C_SKIP),
                     "p16x16": share((win == rd_p.C_P16x16)
                                     | (win == rd_p.C_P16PMV)),
                     "p16x8": share(win == rd_p.C_P16x8),
@@ -758,6 +861,15 @@ def main(argv=None) -> int:
                       f"{p['psnr_y']:.2f} dB, {p['bytes']} bytes"
                       + (f", modes {p['mode_mix']}" if "mode_mix" in p
                          else ""))
+            t8s = [p["mode_mix"]["t8"] for p in pics if p["type"] == "P"]
+            if "T8" in tag and not max(t8s) > 0:
+                fail(f"{tag} {size}: no P MB took the 8x8 transform")
+            if "T8" in tag:
+                print(f"8x8-transform share of the P MBs, {tag} "
+                      f"{size[0]}x{size[1]}: {np.mean(t8s):.4f} (mean of "
+                      f"{len(t8s)} P pictures)")
+                report[f"t8_share {tag} {size[0]}x{size[1]}"] = float(
+                    np.mean(t8s))
             for kind in ("I", "P", "B"):
                 sel = [p for p in pics if p["type"] == kind]
                 if kind == "I" and tag == "all-intra":
@@ -788,8 +900,12 @@ def main(argv=None) -> int:
         _b_kernels = rd_b.PLAIN
 
     for tag, (sizes, _) in paths.items():
-        for size, (enc, stream, _) in runs[tag].items():
+        for size in (CIF,):
             cfg, fr = sizes[size]
+            enc, stream, _ = runs[tag][size]
+            if tag == "IPB-T8":  # a shorter stream, through both
+                fr = fr[:N_IPB_T8_PLAIN]
+                enc, stream, _ = encode(H264Encoder, cfg, fr)
             penc, pstream, _ = encode(PlainEncoder, cfg, fr)
             if pstream != stream:
                 fail(f"{tag} {size}: stream differs from the plain path's")
@@ -807,8 +923,8 @@ def main(argv=None) -> int:
                     if not torch.equal(x, y):
                         fail(f"{tag} {size}: reference entry differs from "
                              "the plain path's")
-            print(f"plain path {tag} {size[0]}x{size[1]}: stream, recon and "
-                  "reference entries identical")
+            print(f"plain path {tag} {size[0]}x{size[1]} ({len(fr)} frames):"
+                  " stream, recon and reference entries identical")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 

@@ -86,7 +86,7 @@ def decode_inter_args_from_numpy(args, device=None):
 
 # module (relative to the package root) -> the constant tables it copies
 _TABLES = {
-    "ops.quant": ("DEQUANT4", "QUANT4", "DEQUANT8"),
+    "ops.quant": ("DEQUANT4", "QUANT4", "DEQUANT8", "QUANT8", "Q_BITS_8"),
     "ops.interp": ("PAD", "PLANE_OFF"),
     "ops.exact": ("QP_SCALE_CR",),
     "ops.deblock": ("ALPHA_TABLE", "BETA_TABLE", "CLIP_TAB"),
@@ -102,6 +102,10 @@ _TABLES = {
         "COEFF_TOKEN_CDC_CODE", "TOTAL_ZEROS_LEN", "TOTAL_ZEROS_CODE",
         "TOTAL_ZEROS_CDC_LEN", "TOTAL_ZEROS_CDC_CODE", "RUN_BEFORE_LEN",
         "RUN_BEFORE_CODE", "NCBP"),
+    "entropy.cavlc.enc": ("_INC_VLC",),
+    "encoder.syntax_cavlc": ("_CBP_CODE_INTRA", "_CBP_CODE_INTER",
+                             "_B_16x8_CODE", "_B_8x16_CODE",
+                             "_SUB_MB_B_CODE", "DC_PRED"),
     "entropy.cabac.tables": (
         "INIT_I", "INIT_P", "RANGE_TAB_LPS", "TRANS_IDX_MPS",
         "TRANS_IDX_LPS", "C1ISDC", "MAX_C2", "MAXPOS", "POS2CTX_MAP",

@@ -1,15 +1,19 @@
-"""H.264 encoder on a CUDA card: IPB, IPPP and all-intra CABAC streams.
+"""H.264 encoder on a CUDA card: IPB, IPPP and all-intra streams, CABAC or
+CAVLC, with or without the FRExt 8x8 transform.
 
 The PyTorch counterpart of the reference package's encoder/encoder.py.
 An IDR picture is coded by the device intra pipeline
 (``rd.rd_i_pipeline``: full-RD I16 vs I4x4 on the card), deblocked by the
-native host filter and entropy-coded by the native CABAC writer; it then
+native host filter and entropy-coded (CABAC or CAVLC); it then
 gets its reference bank entry on the card (``rd.ref_entry_from_planes``).
 A P picture runs whole on the card (``rd_p.rd_p_pipeline``: motion search,
 partition and mode decisions, residual coding, intra commit, deblocking
-and its own next reference entry), up to ``pipeline_depth`` pictures
-ahead of the host, which fetches each group's flat outputs in one copy,
-fills the parse state and CABAC-codes the slices.  Explicit weighted
+and its own next reference entry, and with ``transform8x8`` the 8x8
+transform decision of the High profile), up to ``pipeline_depth``
+pictures ahead of the host, which fetches each group's flat outputs in one
+copy, fills the parse state and entropy-codes the slices (the native CABAC
+or CAVLC writer; B slices and 8x8-transform slices of a CAVLC stream go
+through the Python CAVLC writer, as in the reference).  Explicit weighted
 prediction is estimated on the host (float64 numpy, as the reference).
 With ``b_frames`` B pictures between anchors the stream goes out in
 decode order (each anchor before the B pictures that reference it, and
@@ -20,9 +24,9 @@ commit and filter stages), and its host tail adds the temporal direct
 fill from the anchor's parse state.
 
 Every other configuration raises NotImplementedError naming its ROADMAP
-item: CAVLC, the FRExt 8x8 transform, intra refresh,
-loss-aware RDO, tile-row slices, rate control, multi-slice / FMO, SEI and
-the host-path encoder (``fast=False``, ``rd=False``, ``enable_i4=False``).
+item: custom scaling matrices, intra refresh, loss-aware RDO, tile-row
+slices, rate control, multi-slice / FMO, SEI and the host-path encoder
+(``fast=False``, ``rd=False``, ``enable_i4=False``).
 No half-ported path runs.
 """
 
@@ -53,6 +57,7 @@ from . import rd as RD
 from . import rd_b as RDB
 from . import rd_p as RDP
 from .syntax_cabac import CabacSliceWriter
+from .syntax_cavlc import CavlcSliceWriter
 
 
 @dataclass
@@ -120,9 +125,8 @@ _NOT_PORTED = (
     (lambda c: not c.rd, "rd=False (legacy P16x16 path)", "Legacy P16x16 path"),
     (lambda c: not c.enable_i4, "enable_i4=False (host-path intra)",
      "Host-path ME"),
-    (lambda c: c.entropy != "cabac", "CAVLC entropy coding", "CAVLC"),
-    (lambda c: c.transform8x8 or c.scaling_lists is not None,
-     "FRExt 8x8 transform / scaling matrices", "T8 stage"),
+    (lambda c: c.scaling_lists is not None,
+     "custom scaling matrices (the reference's host path)", "Host-path ME"),
     (lambda c: c.intra_refresh > 0, "intra refresh", "Intra refresh"),
     (lambda c: c.loss_aware_k > 0, "loss-aware RDO", "Loss-aware RDO"),
     (lambda c: c.row_slices > 1, "tile-row slices", "Tile-row slices"),
@@ -137,7 +141,8 @@ _NOT_PORTED = (
 
 
 class H264Encoder:
-    """IPB / IPPP / all-intra CABAC encoder; ``device`` is where the
+    """IPB / IPPP / all-intra encoder (CABAC or CAVLC, 4x4 or 4x4/8x8
+    transforms); ``device`` is where the
     picture decisions, the P and B pipelines and the reference banks run
     (CUDA unless told otherwise)."""
 
@@ -170,7 +175,8 @@ class H264Encoder:
         self.cfg = cfg
         use_b = cfg.b_frames > 0
         self.sps = SPS(
-            profile_idc=77,  # CABAC: Main
+            # Baseline unless CABAC or B pictures (Main); High below
+            profile_idc=77 if (cfg.entropy == "cabac" or use_b) else 66,
             level_idc=max(30, level_for(
                 cfg.width, cfg.height, cfg.rc_fps,
                 cfg.num_ref_frames + (1 if use_b else 0))),
@@ -186,7 +192,13 @@ class H264Encoder:
             log2_max_pic_order_cnt_lsb_minus4=4,
             log2_max_frame_num_minus4=4,
         )
-        self.pps = PPS(entropy_coding_mode_flag=True)
+        self.pps = PPS(entropy_coding_mode_flag=(cfg.entropy == "cabac"))
+        if cfg.transform8x8:
+            # High profile (FREXT_HP): the 8x8 transform is signalled there
+            # (lencod/src/parset.c GenerateSPS)
+            self.sps.profile_idc = 100
+            self.pps.transform_8x8_mode_flag = True
+            self.pps.second_chroma_qp_index_offset = 0
         if cfg.search_range > 28:
             warnings.warn(
                 f"device pipelines clamp SearchRange {cfg.search_range} "
@@ -330,8 +342,7 @@ class H264Encoder:
             slice_group_change_cycle=cfg.slice_group_change_cycle,
         )
         w = write_slice_header(sh, sps, pps)
-        # CABAC slices end byte-aligned after the flush; no stop bit
-        CabacSliceWriter(st, sps, pps, sh).write_slice_data(w, addrs)
+        self._write_slice_data(w, st, sh, addrs)
         nals = [NalUnit(5 if is_idr else 1, 3, w.get_bytes())]
 
         self.all_recons.append((poc, planes))
@@ -426,7 +437,7 @@ class H264Encoder:
             *cur, banks, cpads, H=H, W=W, R=min(cfg.search_range, 28),
             qp=qp, qp_c=qp_c, lam=lam_fx, lam_me=2 * lam_fx,
             nref=len(refs), wp_w=wp_w, wp_o=wp_o, device=dev,
-            k=self._p_kernels)
+            k=self._p_kernels, use_t8=bool(cfg.transform8x8))
         frame_num = self.frame_num
         self.frame_num += 1
         if poc is None:
@@ -442,7 +453,7 @@ class H264Encoder:
 
     def _finish_p_rd(self, pending, fetched) -> list[NalUnit]:
         """Host tail of a dispatched P picture: split its fetched flat
-        outputs (`fetched`, numpy), fill the parse state and CABAC-code
+        outputs (`fetched`, numpy), fill the parse state and entropy-code
         the slice."""
         (_, recon, frame_num, poc, ref_pocs, qp, wp_weights) = pending
         sps, pps = self.sps, self.pps
@@ -462,20 +473,21 @@ class H264Encoder:
         win = parts[0]
         ref8 = parts[1].reshape(n_mb, 4)
         b8sub = parts[2].reshape(n_mb, 4)
-        # parts[3] and parts[9]: transform_size_8x8 flags and 8x8 levels,
-        # zero until the T8 stage is ported
+        t8 = parts[3]
         mv4x = parts[4].reshape(n_mb, 4, 4)
         mv4y = parts[5].reshape(n_mb, 4, 4)
         i16mode = parts[6]
         cip = parts[7]
         lev = parts[8].reshape(n_mb, 4, 4, 4, 4)
+        lev8 = parts[9].reshape(n_mb, 2, 2, 8, 8)
         dc = parts[10].reshape(n_mb, 4, 4)
         levc = parts[11].reshape(n_mb, 2, 2, 2, 4, 4)
         dcc = parts[12].reshape(n_mb, 2, 2, 2)
         ipm_plane = parts[13].reshape(4 * H, 4 * W)
         planes.Y, planes.U, planes.V = (x.cpu().numpy() for x in recon)
         self._fill_p_state_rd(st, win, ref8, b8sub, mv4x, mv4y, i16mode,
-                              cip, lev, dc, levc, dcc, ref_pocs, ipm_plane)
+                              cip, lev, dc, levc, dcc, ref_pocs, ipm_plane,
+                              t8, lev8)
         nr = len(ref_pocs)
         sh = SliceHeader(
             first_mb_in_slice=0,
@@ -497,21 +509,35 @@ class H264Encoder:
             sh.pred_weights[0] = [PredWeight(wv, ov, [32, 32], [0, 0])
                                   for (wv, ov) in wp_weights]
         w = write_slice_header(sh, sps, pps)
-        CabacSliceWriter(st, sps, pps, sh).write_slice_data(
-            w, list(range(n_mb)))
+        self._write_slice_data(w, st, sh, list(range(n_mb)))
         self.all_recons.append((poc, planes))
         self._log_picture("P", poc, fetched)
         self.recon_pics = (self.recon_pics + [(poc, planes, st, None)])[
             -sps.num_ref_frames:]
         return [NalUnit(1, 3, w.get_bytes())]
 
+    def _write_slice_data(self, w, st, sh, addrs) -> None:
+        """Entropy-code one slice's data after its header: CABAC slices
+        end byte-aligned after the flush (no stop bit), CAVLC slices with
+        the RBSP trailing bits."""
+        if self.pps.entropy_coding_mode_flag:
+            CabacSliceWriter(st, self.sps, self.pps, sh).write_slice_data(
+                w, addrs)
+        else:
+            CavlcSliceWriter(st, self.sps, self.pps, sh).write_slice_data(
+                w, addrs)
+            w.rbsp_trailing_bits()
+
     def _fill_p_state_rd(self, st, win, ref8, b8sub, mv4x, mv4y, i16mode,
-                         cip, lev, dc, levc, dcc, ref_pocs, ipm_plane):
+                         cip, lev, dc, levc, dcc, ref_pocs, ipm_plane,
+                         t8, lev8):
         """Decode-state fill for the RD pipeline interchange buffer.
 
         mv4x/mv4y: (n_mb, 4 units, 4 subpos) per-4x4 motion; b8sub:
         (n_mb, 4) device sub-mode code per unit (0 8x8 / 1 8x4 / 2 4x8
-        / 3 4x4), meaningful for P8x8 winners."""
+        / 3 4x4), meaningful for P8x8 winners; t8 (n_mb,) the
+        transform_size_8x8 flags and lev8 (n_mb, 2, 2, 8, 8) their 8x8
+        levels (zero without the T8 stage)."""
         n_mb = st.n_mbs
         n_my, n_mx = st.H, st.W
         i4 = win == RDP.C_I4
@@ -567,8 +593,16 @@ class H264Encoder:
         st.luma_dc[:] = np.where(i16[:, None, None], dc, 0)
         st.chroma_levels[:] = levc.reshape(n_mb, 2, 4, 4, 4)
         st.chroma_dc[:] = dcc
+        t8b = t8.astype(bool)
+        # transform_size_8x8 winners: flag + 8x8 levels
+        st.transform8x8[t8b] = 1
+        st.luma8_levels[t8b] = lev8.reshape(n_mb, 4, 8, 8)[t8b]
         # cbp: I16 -> all-or-nothing luma; I4/inter -> per-8x8 bits
         nz4 = lev.any(axis=(3, 4))  # (n_mb, br, bc)
+        # a nonzero 8x8 block marks its four 4x4 cells
+        nz8 = lev8.any(axis=(3, 4)).reshape(n_mb, 2, 2)
+        nz4 = nz4 | (np.repeat(np.repeat(nz8, 2, 1), 2, 2)
+                     & t8b[:, None, None])
         q8 = nz4.reshape(n_mb, 2, 2, 2, 2).any(axis=(2, 4))
         cbp_inter = (q8[:, 0, 0] * 1 + q8[:, 0, 1] * 2 + q8[:, 1, 0] * 4
                      + q8[:, 1, 1] * 8)
@@ -577,6 +611,10 @@ class H264Encoder:
         has_dc = dcc.any(axis=(2, 3)).any(axis=1)
         cbp_c = np.where(has_ac, 2, np.where(has_dc, 1, 0))
         st.cbp[:] = cbp_l + 16 * cbp_c
+        # transform_size_8x8_flag is only transmitted when luma cbp != 0
+        # (need_transform_size); an untransmitted flag must read 0 for
+        # the decoder's CABAC neighbour contexts (macroblock.c:2901)
+        st.transform8x8[(st.cbp & 15) == 0] = 0
         weights = (1 << np.arange(16, dtype=np.int64)).reshape(4, 4)
         cbp_blk = (nz4 * weights).sum(axis=(1, 2))
         dc_any = dc.any(axis=(1, 2)) & i16
@@ -747,7 +785,7 @@ class H264Encoder:
     def _finish_b_rd(self, pending, fetched) -> list[NalUnit]:
         """Host tail of a dispatched B picture: split its fetched flat
         outputs (the 14 parts of rd_b's host_out), fill the parse state
-        and CABAC-code the slice."""
+        and entropy-code the slice."""
         (_, recon, poc, pocs0, poc1, qp, frame_num, is_ref) = pending
         sps, pps = self.sps, self.pps
         W, H = sps.pic_width_in_mbs, sps.frame_height_in_mbs
@@ -790,8 +828,7 @@ class H264Encoder:
             slice_qp_delta=qp - (26 + pps.pic_init_qp_minus26),
         )
         w = write_slice_header(sh, sps, pps)
-        CabacSliceWriter(st, sps, pps, sh).write_slice_data(
-            w, list(range(n_mb)))
+        self._write_slice_data(w, st, sh, list(range(n_mb)))
         if is_ref:
             # stored B: later Bs read its parse state as colocated
             self.recon_pics = (self.recon_pics + [(poc, planes, st, None)])[

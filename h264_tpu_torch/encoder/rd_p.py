@@ -8,9 +8,10 @@ two-pass PMV field, the 49-point quarter-pel SATD refinement of every
 partition and sub-8x8 unit, the P_Skip field and prediction, residual
 coding of six candidate predictions with RDOQ-lite and JM coefficient
 thresholding, the I16 candidate, the winner gather, inter chroma, the
-wavefront intra commit, boundary strengths and the in-loop filter, and the
-next reference entry.  The host tail reads the flat ``host_out`` buffer,
-whose layout is the reference's.
+FRExt transform-size decision (High profile), the wavefront intra commit,
+boundary strengths and the in-loop filter, and the next reference entry.
+The host tail reads the flat ``host_out`` buffer, whose layout is the
+reference's.
 
 The per-pixel and per-candidate work goes through the hand-written CUDA
 kernels, one entry each (``PKernels``); everything else here is glue on
@@ -20,8 +21,9 @@ function of the same name below: the CPU runs it, and the card compares
 the kernels with it.
 
 The pipeline always runs the reference's coarse stage (``use_cme``, as
-its encoder does) and neither the FRExt 8x8-transform stage, forced intra
-refresh nor loss-aware RDO (ROADMAP Queue 1).  The reference's trace-time
+its encoder does), the FRExt 8x8-transform decision when asked
+(``use_t8``), and neither forced intra refresh nor loss-aware RDO
+(ROADMAP Queue 1).  The reference's trace-time
 experiment switches (``H264_NO_SUB8`` ...) are not carried: at their
 defaults they are the identity.  Its ``stage=`` early returns are not
 carried either; the stages are the ``p_*`` functions, each filling in a
@@ -44,9 +46,10 @@ from ..ops import quant as Q
 from ..ops import transforms as TR
 from ..ops.deblock import ALPHA_TABLE, BETA_TABLE, CLIP_TAB
 from . import rd as RD
-from .rd import (_QTAB, _REFINE, I32, PAD, _chroma_tq, _i16_pred_all,
-                 _i16_tq, _lam_cost, _mc_chroma_unit, _med3, _mv_bits, _rdoq4,
-                 _satd, _threshold_inter_luma, _wp_affine, lam_satd_of)
+from .rd import (_QTAB, _REFINE, I32, PAD, _bitlen, _chroma_tq,
+                 _coef_bits, _i16_pred_all, _i16_tq, _lam_cost,
+                 _mc_chroma_unit, _med3, _mv_bits, _rdoq4, _satd,
+                 _threshold_inter_luma, _wp_affine, lam_satd_of)
 
 # candidate mode indices (winner codes in host_out)
 C_P16x16, C_P16x8, C_P8x16, C_P8x8, C_SKIP, C_P16PMV = 0, 1, 2, 3, 4, 5
@@ -302,6 +305,52 @@ def i16_candidate_plain(cur_y, qp: int):
     return rec, D16, cb16
 
 
+def _blocks8(x):
+    """(n, 16, 16) -> (n, 2, 2, 8, 8) [b8y][b8x][y][x]."""
+    return x.reshape(-1, 2, 8, 2, 8).transpose(2, 3)
+
+
+def t8_decide_plain(orig_mb, w_pred, w_rec, w_lev, win, w_sub, is_intra,
+                    qp: int, lam: int):
+    """The FRExt transform-size decision (rd.py:1071-1113; lencod
+    transform8x8.c:1452): every MB's winning prediction re-coded with the
+    8x8 transform (forward, quant with the inter offset, dequant, inverse,
+    recon) and kept when D_8 + lambda (cb8 + 1) < D_4 + lambda (cb4 + 1),
+    strictly, so a tie keeps 4x4; only inter, non-skip winners whose units
+    are all at least 8x8 may switch.  orig_mb/w_pred/w_rec (n_mb, 16, 16),
+    w_lev (n_mb, 4, 4, 4, 4), win (n_mb,), w_sub (n_mb, 4), is_intra
+    (n_mb,) bool.  Returns (w_t8 (n_mb,), w_lev8 (n_mb, 2, 2, 8, 8), w_lev,
+    w_rec) with the 4x4 levels zeroed and the recon replaced where 8x8
+    wins.
+
+    Level bound: the forward butterflies gain at most 8 per dimension
+    (the DC row of a +-255 residual: 64 * 255 = 16320), so at QP 0 the
+    largest level is (16320 * 13107 + 10944) >> 16 = 3264 (DC, class 0);
+    every other position's gain times its QUANT8 factor is smaller.  So
+    `_bitlen` sees levels below 8192, where it equals the reference's."""
+    lev8 = Q.quant8x8(TR.forward8x8(_blocks8(orig_mb - w_pred)), qp,
+                      Q.default_offset8(qp, False))
+    rr8 = TR.inverse8x8(Q.dequant8x8(lev8, qp))
+    rec8 = ((rr8 + (_blocks8(w_pred) << 6) + 32) >> 6).clamp(0, 255)
+    rec8 = rec8.transpose(2, 3).reshape(-1, 16, 16)
+    d8 = orig_mb - rec8
+    D_8 = (d8 * d8).sum((-1, -2), dtype=I32)
+    a8 = lev8.abs()
+    nz8 = a8 > 0
+    cb8 = (torch.where(nz8, 2 * _bitlen(a8.clamp(min=1)) + 2, 0).sum(
+        (-1, -2), dtype=I32) + torch.where(nz8.any(-1).any(-1), 4, 0)).sum(
+        (-1, -2), dtype=I32)
+    d4 = orig_mb - w_rec
+    D_4 = (d4 * d4).sum((-1, -2), dtype=I32)
+    cb4 = _coef_bits(w_lev).sum((-1, -2), dtype=I32)
+    ok = (~is_intra) & (win != C_SKIP) & ((win != C_P8x8)
+                                          | (w_sub == 0).all(-1))
+    use8 = ok & (D_8 + _lam_cost(lam, cb8 + 1) < D_4 + _lam_cost(lam, cb4 + 1))
+    u5 = use8[:, None, None, None, None]
+    return (use8.to(I32), torch.where(u5, lev8, 0), torch.where(u5, 0, w_lev),
+            torch.where(use8[:, None, None], rec8, w_rec))
+
+
 def strengths_plain(nz4, mvx4, mvy4, ref4, intra4):
     """Boundary strengths (rd.py:1713 `strengths_full`): per 4x4 block
     the bS 0..4 of its left (BSV) and top (BSH) edge, 0 on picture edges.
@@ -481,6 +530,7 @@ class PKernels:
     deblock: object
     intra_step: object
     ref_bank: object
+    t8_decide: object
 
     def names(self):
         return [f.name for f in fields(self)]
@@ -490,7 +540,7 @@ PLAIN = PKernels(
     coarse_search_plain, ssd_grid8_plain, ssd_grid4_plain, qpel_refine_plain,
     mc_luma_plain, mc_chroma_plain, inter_luma_tq_plain,
     inter_chroma_tq_plain, i16_candidate_plain, strengths_plain,
-    deblock_plain, RD._intra_step, RD.ref_entry_plain)
+    deblock_plain, RD._intra_step, RD.ref_entry_plain, t8_decide_plain)
 
 
 def default_kernels() -> PKernels:
@@ -502,12 +552,13 @@ def default_kernels() -> PKernels:
     from ..kernels import qpel as K4
     from ..kernels import ref_bank as K2
     from ..kernels import search_grid as K3
+    from ..kernels import t8 as K9
 
     return PKernels(
         K3.coarse_search, K3.ssd_grid8, K3.ssd_grid4, K4.qpel_refine,
         K4.mc_luma, K4.mc_chroma, K5.inter_luma_tq, K5.inter_chroma_tq,
         K5.i16_candidate, K6.strengths, K6.deblock, K1.intra_commit_step,
-        K2.ref_bank)
+        K2.ref_bank, K9.t8_decide)
 
 
 # ---------------------------------------------------------------------------
@@ -520,7 +571,7 @@ class PFrame:
 
     def __init__(self, cur_y, cur_u, cur_v, banks, cpads, H: int, W: int,
                  R: int, qp: int, qp_c: int, lam: int, lam_me: int, nref: int,
-                 wp=None, k: PKernels | None = None):
+                 wp=None, k: PKernels | None = None, use_t8: bool = False):
         self.cur_y, self.cur_u, self.cur_v = cur_y, cur_u, cur_v
         self.banks, self.cpads = banks, cpads
         self.H, self.W, self.R = H, W, R
@@ -528,6 +579,8 @@ class PFrame:
             int(qp), int(qp_c), int(lam), int(lam_me))
         self.nref = int(nref)
         self.wp = wp
+        self.use_t8 = bool(use_t8)
+        self.w_lev8 = None  # the 8x8 levels, made by p_t8 when use_t8
         self.k = k if k is not None else default_kernels()
         self.dev = cur_y.device
         self.NR = banks.shape[0]
@@ -904,6 +957,7 @@ def p_winner(f: PFrame) -> None:
     skip = win == C_SKIP
     f.w_lev = torch.where(skip[:, None, None, None, None], 0, f.lev_i[wi, ar])
     f.w_rec = torch.where(skip[:, None, None], f.skip_rec, f.rec_i[wi, ar])
+    f.w_pred = f.preds[wi, ar]
     f.w_ref8 = f.ref8[wi, ar]
     w_mv8x, w_mv8y = f.mv8x[wi, ar], f.mv8y[wi, ar]
     is_p88 = win == C_P8x8
@@ -920,6 +974,17 @@ def p_winner(f: PFrame) -> None:
     f.levc = torch.where(skip[:, None, None, None, None, None], 0, levc)
     f.dcc = torch.where(skip[:, None, None, None], 0, dcc)
     f.recc = torch.where(skip[:, None, None, None], pred_c.clamp(0, 255), recc)
+
+
+def p_t8(f: PFrame) -> None:
+    """The FRExt transform-size decision of every winner (rd.py:1071-1113,
+    K9); without it every MB keeps the 4x4 transform."""
+    if not f.use_t8:
+        f.w_t8 = torch.zeros(f.n_mb, dtype=I32, device=f.dev)
+        return
+    f.w_t8, f.w_lev8, f.w_lev, f.w_rec = f.k.t8_decide(
+        f.orig_mb, f.w_pred, f.w_rec, f.w_lev, f.win, f.w_sub, f.is_intra,
+        f.qp, f.lam)
 
 
 def p_commit(f: PFrame) -> None:
@@ -940,6 +1005,10 @@ def p_deblock(f: PFrame) -> None:
     nz4 = (f.w_lev != 0).any(-1).any(-1)
     nz4 = nz4 | (f.is_intra[:, None, None]
                  & (f.lum_dc != 0).any(-1).any(-1)[:, None, None])
+    if f.w_lev8 is not None:
+        # T8 MBs: a nonzero 8x8 block marks all four of its 4x4 cells
+        nz8 = (f.w_lev8 != 0).any(-1).any(-1)  # (n_mb, 2, 2)
+        nz4 = nz4 | nz8.repeat_interleave(2, 1).repeat_interleave(2, 2)
     nz4 = nz4.reshape(n_my, n_mx, 4, 4).permute(0, 2, 1, 3).reshape(
         4 * n_my, 4 * n_mx)
 
@@ -956,6 +1025,15 @@ def p_deblock(f: PFrame) -> None:
                 .repeat_interleave(4, 1)).contiguous()
     BSV, BSH = f.k.strengths(nz4.contiguous(), f.mvx4, f.mvy4, f.ref4,
                              f.intra4)
+    if f.w_lev8 is not None:
+        # 8x8-transform MBs filter only their 8-pel-grid edges
+        # (ldecod/src/loopFilter.c: !(t8 && (edge & 1)))
+        t8 = ((f.w_t8 > 0).reshape(n_my, n_mx).repeat_interleave(4, 0)
+              .repeat_interleave(4, 1))
+        odd_v = (torch.arange(4 * n_mx, device=f.dev) % 2 == 1)[None, :]
+        odd_h = (torch.arange(4 * n_my, device=f.dev) % 2 == 1)[:, None]
+        BSV = torch.where(t8 & odd_v, 0, BSV).contiguous()
+        BSH = torch.where(t8 & odd_h, 0, BSH).contiguous()
     f.dy, f.du, f.dv = f.k.deblock(
         f.rec_y.contiguous(), f.rec_u.contiguous(), f.rec_v.contiguous(),
         BSV, BSH, f.qp, f.qp_c)
@@ -966,31 +1044,33 @@ def p_outputs(f: PFrame):
     reference's layout, and the colocated snapshot for B pictures."""
     n_mb, dev = f.n_mb, f.dev
     bank, cpad = f.k.ref_bank(f.dy, f.du, f.dv)
+    lev8 = (f.w_lev8 if f.w_lev8 is not None
+            else torch.zeros(256 * n_mb, dtype=I32, device=dev))
     host_out = torch.cat([
         f.win.reshape(-1), f.w_ref8.reshape(-1), f.w_sub.reshape(-1),
-        torch.zeros(n_mb, dtype=I32, device=dev),  # transform_size_8x8
-        f.w_mv4x.reshape(-1), f.w_mv4y.reshape(-1), f.i16mode.reshape(-1),
-        f.cip.reshape(-1), f.w_lev.reshape(-1),
-        torch.zeros(256 * n_mb, dtype=I32, device=dev),  # 8x8 levels
-        f.lum_dc.reshape(-1), f.levc.reshape(-1), f.dcc.reshape(-1),
+        f.w_t8.reshape(-1), f.w_mv4x.reshape(-1), f.w_mv4y.reshape(-1),
+        f.i16mode.reshape(-1), f.cip.reshape(-1), f.w_lev.reshape(-1),
+        lev8.reshape(-1), f.lum_dc.reshape(-1), f.levc.reshape(-1), f.dcc.reshape(-1),
         f.ipm.reshape(-1)]).to(I32)
     col = (f.intra4, f.ref4, f.mvx4, f.mvy4)
     return host_out, (f.dy, f.du, f.dv), (bank, cpad, col)
 
 
 P_STAGES = (p_search, p_partitions, p_refine, p_sub8, p_decide, p_winner,
-            p_commit, p_deblock)
+            p_t8, p_commit, p_deblock)
 
 
 def rd_p_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int, R: int,
                   qp: int, qp_c: int, lam: int, lam_me: int, nref=None,
-                  wp_w=None, wp_o=None, device=None, k: PKernels | None = None):
+                  wp_w=None, wp_o=None, device=None, k: PKernels | None = None,
+                  use_t8: bool = False):
     """Whole-picture RD P coding.  cur_*: uint8 or int32 planes (host or
     device); banks (NR, 4, Hp, Wp), cpads (NR, 2, Hcp, Wcp) int32 on the
     device; lam / lam_me: lambda_mode / lambda_me << 16; nref: the active
     references (the rest of `banks` is padding that never wins); wp_w /
-    wp_o: (NR,) explicit luma weights and offsets, or None.  ``k`` picks
-    the kernel entries (the CUDA wrappers by default).
+    wp_o: (NR,) explicit luma weights and offsets, or None; use_t8: the
+    FRExt 8x8-transform decision (High profile).  ``k`` picks the kernel
+    entries (the CUDA wrappers by default).
 
     Returns (host_out flat int32, recon (Y, U, V), next reference entry
     (bank, cpad, col)), all on the device."""
@@ -1001,7 +1081,7 @@ def rd_p_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int, R: int,
         wp = (RD._to_i32(wp_w, dev), RD._to_i32(wp_o, dev))
     f = PFrame(RD._to_i32(cur_y, dev), RD._to_i32(cur_u, dev),
                RD._to_i32(cur_v, dev), banks, cpads, H, W, R, qp, qp_c, lam,
-               lam_me, NR if nref is None else nref, wp, k)
+               lam_me, NR if nref is None else nref, wp, k, use_t8)
     for stage in P_STAGES:
         stage(f)
     return p_outputs(f)
@@ -1009,7 +1089,13 @@ def rd_p_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int, R: int,
 
 P_ENTRIES = ("coarse_search", "ssd_grid8", "ssd_grid4", "qpel_refine",
              "mc_luma", "mc_chroma", "inter_luma_tq", "inter_chroma_tq",
-             "i16_candidate", "strengths", "deblock")
+             "i16_candidate", "strengths", "deblock", "t8_decide")
+
+
+def entries_of(use_t8: bool) -> tuple:
+    """The P entries a picture calls: all of them with the T8 stage,
+    every one but ``t8_decide`` without."""
+    return P_ENTRIES if use_t8 else P_ENTRIES[:-1]
 
 
 def recording(k: PKernels):

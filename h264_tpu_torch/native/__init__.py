@@ -1,5 +1,5 @@
-"""Native (C) host runtime, loaded via ctypes: the CABAC slice writer,
-the serial CABAC automaton, the deblocking filter, and the decoder's
+"""Native (C) host runtime, loaded via ctypes: the CABAC and CAVLC slice
+writers, the serial CABAC automaton, the deblocking filter, and the decoder's
 CABAC/CAVLC slice parsers and full-picture reconstruction.
 
 Built on demand with gcc into ``build/h264_tpu_torch/``; every native
@@ -152,6 +152,56 @@ def _get_cavlc_tables():
             cbp_intra, cbp_inter,
         )
     return _cavlc_tables
+
+
+def cavlc_write_slice(st, is_p: bool, n_ref: int, init_qp: int,
+                      constrained_intra: bool, chroma420: bool,
+                      mb_addrs, nnz):
+    """Native CAVLC slice-data writer.
+
+    Returns (payload_bytes, nbits) or None if unavailable/unsupported.
+    `nnz` (int32 [3,4H,4W]) is updated in place (JM nz_coeff semantics)."""
+    lib = _load("cavlc_writer")
+    if lib is None:
+        return None
+    import numpy as np
+
+    if not getattr(lib, "_cavlc_sigs", False):
+        lib.cavlc_write_slice.restype = ctypes.c_long
+        lib._cavlc_sigs = True
+
+    def a(x, dtype=np.int32):
+        return np.ascontiguousarray(x, dtype)
+
+    def p(x):
+        return x.ctypes.data_as(_I32P)
+
+    tabs = _get_cavlc_tables()
+    mb_addrs = a(mb_addrs)
+    n_mbs = st.n_mbs
+    cap_bytes = 1024 * n_mbs + 4096
+    out = ctypes.create_string_buffer(cap_bytes)
+    # keep temporaries alive through the call
+    arrs = [
+        a(st.mb_type), a(st.skip_flag), a(st.cbp), a(st.qp),
+        a(st.c_ipred_mode), a(st.b8mode), a(st.i16mode), a(st.is_intra),
+        a(st.slice_id), a(st.ipredmode), a(st.ref_idx[0]), a(st.mvd[0]),
+        a(st.luma_levels), a(st.luma_dc), a(st.chroma_dc),
+        a(st.chroma_levels),
+    ]
+    if nnz.dtype != np.int32 or not nnz.flags.c_contiguous:
+        raise ValueError("cavlc_write_slice: nnz must be contiguous int32")
+    nbits = lib.cavlc_write_slice(
+        st.W, st.H,
+        *(p(x) for x in arrs),
+        int(is_p), int(n_ref), int(init_qp), int(constrained_intra),
+        int(chroma420), p(mb_addrs), len(mb_addrs),
+        *(p(x) for x in tabs),
+        p(nnz), ctypes.cast(out, ctypes.c_char_p), ctypes.c_long(8 * cap_bytes),
+    )
+    if nbits < 0:
+        return None
+    return out.raw[: (nbits + 7) // 8], nbits
 
 
 _cabac_tabs = None

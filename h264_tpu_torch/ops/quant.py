@@ -75,13 +75,27 @@ _V8 = np.array(
     ]
 )
 
+# encoder MF (quant) 8x8 per qp%6, per class
+_M8 = np.array(
+    [
+        [13107, 11428, 20972, 12222, 16777, 15481],
+        [11916, 10826, 19174, 11058, 14980, 14290],
+        [10082, 8943, 15978, 9675, 12710, 11985],
+        [9362, 8228, 14913, 8931, 11984, 11259],
+        [8192, 7346, 13159, 7740, 10486, 9777],
+        [7282, 6428, 11570, 6830, 9118, 8640],
+    ]
+)
+
 # (6, 4, 4) and (6, 8, 8) int32 tables
 DEQUANT4 = _V4[:, _CLASS4].astype(np.int32)
 QUANT4 = _M4[:, _CLASS4].astype(np.int32)
 DEQUANT8 = _V8[:, _CLASS8].astype(np.int32)
+QUANT8 = _M8[:, _CLASS8].astype(np.int32)
 FLAT_SCALE_16 = 16
 
 Q_BITS_4 = 15
+Q_BITS_8 = 16
 
 
 def _per_rem(qp) -> tuple[int, int]:
@@ -164,6 +178,21 @@ def default_offset4(qp, intra: bool) -> int:
     qbits = 15 + qp/6."""
     per, _ = _per_rem(qp)
     return (682 if intra else 342) << (Q_BITS_4 + per - 11)
+
+
+def quant8x8(coefs, qp, offset):
+    """8x8 level = sign(c) * ((|c| * MF8 + offset) >> (16 + qp/6))."""
+    per, rem = _per_rem(qp)
+    mf = _like(QUANT8[rem], coefs)
+    lev = (coefs.abs() * mf + offset) >> (Q_BITS_8 + per)
+    return _copysign(lev, coefs)
+
+
+def default_offset8(qp, intra: bool) -> int:
+    """The 8x8 rounding offset: default_offset4's base scaled to
+    qbits = 16 + qp/6."""
+    per, _ = _per_rem(qp)
+    return (682 if intra else 342) << (Q_BITS_8 + per - 11)
 
 
 def _quant_dc(dc_hadamard, qp, intra: bool):

@@ -1,5 +1,6 @@
 """Exact integer transforms (spec §8.5): the 4x4 core transform, its
-inverse, the luma/chroma DC Hadamards and the 8x8 inverse (FRExt).
+inverse, the luma/chroma DC Hadamards and the 8x8 forward and inverse
+transforms (FRExt).
 
 All functions transform the trailing two axes of (..., N, N) arrays, so
 a whole picture's blocks go through one call.  They take torch tensors
@@ -88,6 +89,37 @@ def hadamard2x2(block):
     top = _stack([a + b + c + d, a - b + c - d], -1)
     bot = _stack([a + b - c - d, a - b - c + d], -1)
     return _stack([top, bot], -2)
+
+
+def _fwd8_1d(b):
+    """Forward 8-point butterfly along the last axis."""
+    p = _cols(b, 8)
+    s0 = p[0] + p[7]
+    s1 = p[1] + p[6]
+    s2 = p[2] + p[5]
+    s3 = p[3] + p[4]
+    b0 = s0 + s3
+    b1 = s1 + s2
+    b2 = s0 - s3
+    b3 = s1 - s2
+    d0 = p[0] - p[7]
+    d1 = p[1] - p[6]
+    d2 = p[2] - p[5]
+    d3 = p[3] - p[4]
+    b4 = d1 + d2 + ((d0 >> 1) + d0)
+    b5 = d0 - d3 - ((d2 >> 1) + d2)
+    b6 = d0 + d3 - ((d1 >> 1) + d1)
+    b7 = d1 - d2 + ((d3 >> 1) + d3)
+    return _stack(
+        [b0 + b1, b4 + (b7 >> 2), b2 + (b3 >> 1), b5 + (b6 >> 2), b0 - b1,
+         b6 - (b5 >> 2), (b2 >> 1) - b3, (b4 >> 2) - b7], -1)
+
+
+def forward8x8(block):
+    """2-D forward 8x8 transform of (..., 8, 8) residuals, horizontal pass
+    then vertical (lencod/src/transform.c:229): the internal >>1 and >>2
+    make the two passes non-commutative."""
+    return _swap(_fwd8_1d(_swap(_fwd8_1d(block))))
 
 
 def _inv8_1d(m):

@@ -1,23 +1,29 @@
 """Where a P picture's time goes on the CUDA card.
 
-    python -m h264_tpu_torch.tools.profile_p [--frames N] [--out DIR]
+    python -m h264_tpu_torch.tools.profile_p [--frames N] [--entropy
+        cabac|cavlc] [--t8] [--out DIR]
 
 Encodes 1 I + N P pictures of moving, fading content (``synthseq.
 moving_frames``) at CIF and 1280x720 in the P half of the bench
-configuration (CABAC, QP 28, 5 reference frames, search range 28, explicit
-WP) through ``H264Encoder(..., device="cuda").encode_stream`` with
-pipeline depth 1, and reports per P picture:
+configuration (CABAC by default, QP 28, 5 reference frames, search range
+28, explicit WP; ``--t8`` adds the 8x8 transform of the High profile)
+through ``H264Encoder(..., device="cuda").encode_stream`` with pipeline
+depth 1, and reports per P picture:
 
 - host-clock phases, each bracketed by ``torch.cuda.synchronize``: the
   stages of ``rd_p.rd_p_pipeline`` (search, partitions, refine, sub8,
-  decide, winner, commit, deblock, outputs), the fetch of ``host_out``,
-  the parse-state fill, the CABAC writer and the rest of the picture;
+  decide, winner, t8, commit, deblock, outputs), the fetch of
+  ``host_out``, the parse-state fill, the entropy writer (``cabac`` or
+  ``cavlc``; CAVLC slices with the 8x8 transform take the Python writer)
+  and the rest of the picture;
 - from ``torch.profiler`` over one further P picture (no synchronize
   inside): the device-busy time, the kernels with the most device time,
   and the device's idle share of the picture's wall time.
 
 Prints the card's name and power limit and one JSON line per size; with
-``--out DIR`` also writes ``DIR/profile_p.json``.  Needs a CUDA card.
+``--out DIR`` also writes ``DIR/profile_p.json`` (``profile_p_cavlc.json``,
+``profile_p_t8.json``, ``profile_p_cavlc_t8.json`` with the switches).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,18 +40,20 @@ import torch
 from ..encoder import encoder as E
 from ..encoder import rd_p as RDP
 from ..encoder.syntax_cabac import CabacSliceWriter
+from ..encoder.syntax_cavlc import CavlcSliceWriter
 from .synthseq import moving_frames
 
 SIZES = ((352, 288), (1280, 720))
 
 
-def _cfg(W: int, H: int):
+def _cfg(W: int, H: int, entropy: str = "cabac", t8: bool = False):
     return E.EncoderConfig(width=W, height=H, qp=28, fast=True, rd=True,
-                           entropy="cabac", b_frames=0, num_ref_frames=5,
-                           search_range=28, weighted_pred=True)
+                           entropy=entropy, b_frames=0, num_ref_frames=5,
+                           search_range=28, weighted_pred=True,
+                           transform8x8=t8)
 
 
-def _phases(size, n: int) -> dict:
+def _phases(size, n: int, entropy: str, t8: bool) -> dict:
     acc = collections.defaultdict(float)
 
     def timed(name, fn):
@@ -59,10 +67,11 @@ def _phases(size, n: int) -> dict:
         return wrapper
 
     saved = (RDP.P_STAGES, RDP.p_outputs, E.fetch_group,
-             E.H264Encoder._fill_p_state_rd, CabacSliceWriter.write_slice_data)
+             E.H264Encoder._fill_p_state_rd, CabacSliceWriter.write_slice_data,
+             CavlcSliceWriter.write_slice_data)
     W, H = size
     frames = moving_frames(n + 2, W, H, seed=5)
-    enc = E.H264Encoder(_cfg(W, H), device="cuda")
+    enc = E.H264Encoder(_cfg(W, H, entropy, t8), device="cuda")
     gen = enc.encode_stream(frames, depth=1)
     next(gen)  # the I picture
     next(gen)  # a warm P picture: build, first launches
@@ -72,6 +81,7 @@ def _phases(size, n: int) -> dict:
         E.fetch_group = timed("fetch", saved[2])
         E.H264Encoder._fill_p_state_rd = timed("fill", saved[3])
         CabacSliceWriter.write_slice_data = timed("cabac", saved[4])
+        CavlcSliceWriter.write_slice_data = timed("cavlc", saved[5])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
@@ -80,19 +90,19 @@ def _phases(size, n: int) -> dict:
         acc["total"] = (time.perf_counter() - t0) * 1e3
     finally:
         (RDP.P_STAGES, RDP.p_outputs, E.fetch_group,
-         E.H264Encoder._fill_p_state_rd,
-         CabacSliceWriter.write_slice_data) = saved
+         E.H264Encoder._fill_p_state_rd, CabacSliceWriter.write_slice_data,
+         CavlcSliceWriter.write_slice_data) = saved
     per = {k: v / n for k, v in acc.items()}
     per["other"] = per["total"] - sum(v for k, v in per.items()
                                       if k != "total")
     return {k: round(v, 3) for k, v in per.items()}
 
 
-def _device_profile(size) -> dict:
+def _device_profile(size, entropy: str, t8: bool) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     W, H = size
-    enc = E.H264Encoder(_cfg(W, H), device="cuda")
+    enc = E.H264Encoder(_cfg(W, H, entropy, t8), device="cuda")
     gen = enc.encode_stream(moving_frames(4, W, H, seed=6), depth=1)
     for _ in range(3):
         next(gen)
@@ -122,6 +132,9 @@ def _device_profile(size) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--entropy", choices=("cabac", "cavlc"), default="cabac")
+    ap.add_argument("--t8", action="store_true",
+                    help="the 8x8 transform (High profile)")
     ap.add_argument("--out", help="directory for profile_p.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -131,14 +144,19 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]}
     print(report["device"])
+    report["config"] = {"entropy": args.entropy, "t8": args.t8}
     for size in SIZES:
         key = f"{size[0]}x{size[1]}"
-        report[key] = {"phases_ms_per_p_picture": _phases(size, args.frames),
-                       "one_p_picture": _device_profile(size)}
+        report[key] = {
+            "phases_ms_per_p_picture": _phases(size, args.frames,
+                                               args.entropy, args.t8),
+            "one_p_picture": _device_profile(size, args.entropy, args.t8)}
         print(json.dumps({key: report[key]}))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_p.json"), "w") as f:
+        name = "profile_p" + ("_cavlc" if args.entropy == "cavlc" else "") + (
+            "_t8" if args.t8 else "")
+        with open(os.path.join(args.out, name + ".json"), "w") as f:
             json.dump(report, f, indent=1)
     return 0
 

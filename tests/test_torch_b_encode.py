@@ -6,8 +6,12 @@ picture), and with an IDR every 4 pictures.  Byte-identical Annex-B stream, equa
 recons (decode order) and reference entries; every B picture's
 ``rd_b_pipeline`` outputs from the reference encoder's own DPB state
 (``convert.encoder_refs_from_numpy``); and the four B fills held on the
-parse states the reference encoder gave them.  The hierarchical stream
-(``b_hierarchy``) is in test_torch_b_pipeline.py."""
+parse states the reference encoder gave them.  The same IPB stream with
+CAVLC (Main profile; its B slices go through the Python CAVLC writer, as
+in the reference): byte-identical, equal recons and reference entries,
+every P picture's outputs from the reference's DPB state, and the
+reference's own decoder on the reference's stream.  The hierarchical
+stream (``b_hierarchy``) is in test_torch_b_pipeline.py."""
 
 import copy
 import functools
@@ -16,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_p_encode as pbase
 from h264_tpu.decoder.decoder import decode_annexb
 from h264_tpu.encoder import fills as JFL
 from h264_tpu.encoder.encoder import EncoderConfig as JaxConfig
@@ -248,3 +253,44 @@ def test_b_frames_configurations():
     assert enc.sps.num_ref_frames == 3 and enc.sps.pic_order_cnt_type == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         enc.encode_frame(frames()[0], False)
+
+
+@functools.lru_cache(maxsize=None)
+def cavlc_encode():
+    """[(encoder, stream, P snapshots)] of the JAX encoder and the port's,
+    the IPB configuration with CAVLC."""
+    out = []
+    for enc in (JaxEncoder(cfg(JaxConfig, entropy="cavlc")),
+                H264Encoder(cfg(EncoderConfig, entropy="cavlc"),
+                            device="cpu")):
+        snaps = []
+        pbase._record_p(enc, snaps)
+        out.append((enc, enc.encode_sequence(frames()), snaps))
+    return out
+
+
+def test_cavlc_stream_byte_identical_recon_and_refs_equal():
+    (jenc, jstream, _), (tenc, tstream, _) = cavlc_encode()
+    check_stream(jenc, jstream, tenc, tstream, N)
+    assert tenc.sps.profile_idc == 77
+    assert not tenc.pps.entropy_coding_mode_flag
+
+
+def test_cavlc_p_pipeline_from_jax_state():
+    (_, _, snaps), _ = cavlc_encode()
+    assert len(snaps) == 4
+    pbase.check_p_from_jax_state(snaps, cfg(EncoderConfig, entropy="cavlc"))
+
+
+def test_cavlc_reference_decoder_on_reference_stream():
+    """The reference package's decoder on the reference's CAVLC IPB
+    stream reconstructs the reference encoder's pictures, B included
+    (ROADMAP Queue 3 records the comparison)."""
+    (jenc, jstream, _), _ = cavlc_encode()
+    pics = sorted(decode_annexb(jstream), key=lambda p: p.poc)
+    recs = sorted(jenc.all_recons, key=lambda e: e[0])
+    assert [p.poc for p in pics] == [p for p, _ in recs]
+    for pic, (_, rec) in zip(pics, recs):
+        for x, y in ((pic.planes.Y, rec.Y), (pic.planes.U, rec.U),
+                     (pic.planes.V, rec.V)):
+            np.testing.assert_array_equal(_np(x), _np(y))

@@ -1,10 +1,13 @@
-"""Port all-intra CABAC encode (h264_tpu_torch.encoder.encoder) vs the JAX
+"""Port all-intra encode (h264_tpu_torch.encoder.encoder) vs the JAX
 package, on the CPU: byte-identical Annex-B stream, equal recon planes and
-reference bank, for 3 seeded 176x144 frames at QP 0, 28 and 51; the
-configurations still unported; the carried tables.  The IPPP streams are
-in test_torch_p_encode.py, the IPB streams in test_torch_b_encode.py and
-test_torch_b_pipeline.py."""
+reference bank, for 3 seeded 176x144 frames at QP 0, 28 and 51, CABAC
+and CAVLC (Baseline); the native CAVLC slice writer against the
+reference's Python writer on I and P parse states; the configurations
+still unported; the carried tables.  The IPPP streams are in
+test_torch_p_encode*.py, the IPB streams in test_torch_b_encode.py and
+test_torch_b_pipeline.py, the 8x8 transform in test_torch_t8_encode*.py."""
 
+import copy
 import os
 import subprocess
 import sys
@@ -18,17 +21,24 @@ from h264_tpu.decoder.decoder import decode_annexb
 from h264_tpu.encoder import rd as JRD
 from h264_tpu.encoder.encoder import EncoderConfig as JaxConfig
 from h264_tpu.encoder.encoder import H264Encoder as JaxEncoder
+from h264_tpu.encoder.syntax_cavlc import CavlcSliceWriter as JaxCavlcWriter
+from h264_tpu.syntax import parsets as JPS
+from h264_tpu.syntax import slice_header as JSH
+from h264_tpu_torch import native
+from h264_tpu_torch.bitstream.writer import BitWriter
 from h264_tpu_torch.convert import carried_tables, encoder_refs_from_numpy
+from h264_tpu_torch.encoder import syntax_cavlc as TCV
 from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
-from h264_tpu_torch.tools.synthseq import synthetic_frames
+from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
 
 W, H = 176, 144
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _cfg(cls, qp, **kw):
-    return cls(width=W, height=H, qp=qp, fast=True, rd=True, entropy="cabac",
-               idr_period=1, **kw)
+    kw.setdefault("entropy", "cabac")
+    return cls(width=W, height=H, qp=qp, fast=True, rd=True, idr_period=1,
+               **kw)
 
 
 @pytest.fixture(scope="module")
@@ -44,6 +54,15 @@ def encoded(request, frames):
     tenc = H264Encoder(_cfg(EncoderConfig, qp), device="cpu")
     tstream = tenc.encode_sequence(frames)
     return jenc, jstream, tenc, tstream
+
+
+@pytest.fixture(scope="module", params=[0, 28, 51], ids=lambda q: f"qp{q}")
+def encoded_cavlc(request, frames):
+    qp = request.param
+    jenc = JaxEncoder(_cfg(JaxConfig, qp, entropy="cavlc"))
+    tenc = H264Encoder(_cfg(EncoderConfig, qp, entropy="cavlc"), device="cpu")
+    return jenc, jenc.encode_sequence(frames), tenc, tenc.encode_sequence(
+        frames)
 
 
 def test_stream_byte_identical(encoded):
@@ -78,6 +97,86 @@ def test_stream_decodes_to_port_recon(encoded):
             np.testing.assert_array_equal(np.asarray(x), y)
 
 
+def test_cavlc_stream_byte_identical(encoded_cavlc):
+    _, jstream, tenc, tstream = encoded_cavlc
+    assert len(tstream) > 100
+    assert tstream == jstream
+    assert tenc.sps.profile_idc == 66
+    assert not tenc.pps.entropy_coding_mode_flag
+
+
+def test_cavlc_recon_and_bank_equal(encoded_cavlc):
+    test_recon_and_bank_equal(encoded_cavlc)
+
+
+def test_cavlc_stream_decodes_to_port_recon(encoded_cavlc):
+    test_stream_decodes_to_port_recon(encoded_cavlc)
+
+
+def _as_reference(obj, cls):
+    """A reference-package header object with the fields of the port's
+    copy (the writers read plain fields and the slice type)."""
+    out = cls.__new__(cls)
+    out.__dict__.update(copy.deepcopy(obj.__dict__))
+    return out
+
+
+@pytest.fixture(scope="module")
+def cavlc_slices():
+    """(st, sps, pps, sh) of each slice of a port CAVLC IPPP encode (I
+    then P pictures, 96x64, WP off), as its writer got them."""
+    out = []
+    write = TCV.CavlcSliceWriter.write_slice_data
+
+    def rec(self, w, addrs, *a, **kw):
+        out.append((copy.deepcopy(self.st), self.sps, self.pps, self.sh))
+        write(self, w, addrs, *a, **kw)
+
+    TCV.CavlcSliceWriter.write_slice_data = rec
+    try:
+        cfg = EncoderConfig(width=96, height=64, qp=26, fast=True,
+                            entropy="cavlc", num_ref_frames=2,
+                            search_range=8)
+        H264Encoder(cfg, device="cpu").encode_sequence(
+            moving_frames(3, 96, 64, seed=5))
+    finally:
+        TCV.CavlcSliceWriter.write_slice_data = write
+    return out
+
+
+def _slice_bits(writer, st):
+    w = BitWriter()
+    writer.write_slice_data(w, list(range(st.n_mbs)))
+    return w.raw_bits()
+
+
+def test_native_cavlc_writer_matches_reference_python_writer(
+        cavlc_slices, monkeypatch):
+    """The port's native CAVLC writer (native/cavlc_writer.c) writes the
+    bits the reference's Python CavlcSliceWriter writes on the same I and
+    P parse states, and it is the path the port takes for them."""
+    taken = []
+    fn = native.cavlc_write_slice
+
+    def counted(*a, **kw):
+        res = fn(*a, **kw)
+        taken.append(res is not None)
+        return res
+
+    monkeypatch.setattr(native, "cavlc_write_slice", counted)
+    kinds = []
+    for st, sps, pps, sh in cavlc_slices:
+        ours = _slice_bits(TCV.CavlcSliceWriter(st, sps, pps, sh), st)
+        ref = JaxCavlcWriter(st, _as_reference(sps, JPS.SPS),
+                             _as_reference(pps, JPS.PPS),
+                             _as_reference(sh, JSH.SliceHeader))
+        ref.trace = []  # the reference's Python path
+        assert ours == _slice_bits(ref, st)
+        kinds.append(sh.slice_type.name)
+    assert kinds == ["I", "P", "P"]
+    assert taken == [True] * 3
+
+
 def test_port_encode_imports_no_jax():
     code = (
         "import sys\n"
@@ -100,6 +199,13 @@ def test_port_encode_imports_no_jax():
         "assert len(s) > 50 and [p for p, _ in enc.all_recons] == [0, 4, 2]\n"
         "from h264_tpu_torch.decoder.decoder import decode_annexb\n"
         "assert [p.poc for p in decode_annexb(s, device='cpu')] == [0, 2, 4]\n"
+        "cfg = EncoderConfig(width=48, height=32, fast=True, entropy='cavlc',"
+        " transform8x8=True, num_ref_frames=2, search_range=8,"
+        " weighted_pred=True)\n"
+        "enc = H264Encoder(cfg, device='cpu')\n"
+        "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
+        "assert len(s) > 50 and enc.sps.profile_idc == 100\n"
+        "assert len(decode_annexb(s, device='cpu')) == 3\n"
         "d = open('tests/streams/wp_b_expl.264', 'rb').read()\n"
         "a = decode_annexb(d, device='cpu')\n"
         "b = decode_annexb(d, use_device=False)\n"
@@ -124,17 +230,34 @@ def test_default_device_raises_without_card(monkeypatch):
         H264Encoder(_cfg(EncoderConfig, 28), device="cuda")
 
 
+# configurations ported since this test listed them (the cases keep
+# their names): what the encoder now signals for each
+_PORTED_SINCE = {"entropy=cavlc": (66, False, False),
+                 "transform8x8=True": (100, True, True)}
+
+
 @pytest.mark.parametrize("kw", [
     {"intra_refresh": 2}, {"b_frames": 1, "rc_bitrate": 1e5},
     {"entropy": "cavlc"},
     {"fast": False}, {"rd": False}, {"slice_mode": 1, "slice_argument": 11},
     {"transform8x8": True}, {"rc_bitrate": 1e5}, {"sei_text": "x"},
     {"row_slices": 2}, {"loss_aware_k": 2},
-], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+    {"scaling_lists": (np.full((6, 4, 4), 16), np.full((2, 8, 8), 16))},
+], ids=lambda kw: "-".join(f"{k}={v}" if k != "scaling_lists" else k
+                           for k, v in kw.items()))
 def test_unported_configuration_raises(kw):
+    """Each unported configuration raises naming its ROADMAP item; CAVLC
+    and the 8x8 transform are ported and set the profile (Baseline, High),
+    the PPS entropy flag and transform_8x8_mode_flag instead."""
     base = dict(width=W, height=H, fast=True, rd=True, entropy="cabac",
                 idr_period=1)
     base.update(kw)
+    key = "-".join(f"{k}={v}" for k, v in kw.items())
+    if key in _PORTED_SINCE:
+        enc = H264Encoder(EncoderConfig(**base), device="cpu")
+        assert (enc.sps.profile_idc, enc.pps.entropy_coding_mode_flag,
+                enc.pps.transform_8x8_mode_flag) == _PORTED_SINCE[key]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         H264Encoder(EncoderConfig(**base), device="cpu")
 

@@ -9,8 +9,9 @@ port is installed:
 
 (the CPU side of each kernel is held against the JAX package by
 test_torch_intra.py, test_torch_bank.py, test_torch_encode.py, the
-test_torch_p_*.py and test_torch_b_*.py files, and for K8
-test_torch_decode_ops.py and test_torch_decode.py)."""
+test_torch_p_*.py, test_torch_t8_*.py and test_torch_b_*.py files, for
+K9 also test_torch_ops.py, and for K8 test_torch_decode_ops.py and
+test_torch_decode.py)."""
 
 import pathlib
 
@@ -30,12 +31,14 @@ from h264_tpu_torch.kernels import intra_commit as K1
 from h264_tpu_torch.kernels import qpel as K4
 from h264_tpu_torch.kernels import ref_bank as K2
 from h264_tpu_torch.kernels import search_grid as K3
+from h264_tpu_torch.kernels import t8 as K9
 from h264_tpu_torch.ops.exact import chroma_qp
 from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
 from h264_tpu_torch.tools.decode_cases import built_cases
 from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                   strengths_b_inputs)
 from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
+from h264_tpu_torch.tools.t8_cases import built_cases as t8_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -144,21 +147,23 @@ def test_encoder_on_card_matches_cpu(cuda):
 # P picture kernels (K3-K6) on the real intermediate tensors of P pictures
 # ---------------------------------------------------------------------------
 
-def _ippp_cfg(W, H, qp, wp, nref=2, sr=8):
+def _ippp_cfg(W, H, qp, wp, nref=2, sr=8, **kw):
     return EncoderConfig(width=W, height=H, qp=qp, fast=True, rd=True,
-                         entropy="cabac", num_ref_frames=nref,
-                         search_range=sr, weighted_pred=wp)
+                         entropy=kw.pop("entropy", "cabac"),
+                         num_ref_frames=nref, search_range=sr,
+                         weighted_pred=wp, **kw)
 
 
 _CALLS: dict = {}
 
 
-def _p_calls(dev, W, H, qp, wp):
+def _p_calls(dev, W, H, qp, wp, t8=False):
     """Every P-entry call of a 1 I + 2 P encode through the plain path on
     the card, as (name, args)."""
-    key = (W, H, qp, wp)
+    key = (W, H, qp, wp, t8)
     if key not in _CALLS:
-        enc = H264Encoder(_ippp_cfg(W, H, qp, wp), device=dev)
+        enc = H264Encoder(_ippp_cfg(W, H, qp, wp, transform8x8=t8),
+                          device=dev)
         enc._p_kernels, calls = rd_p.recording(rd_p.PLAIN)
         list(enc.encode_stream(moving_frames(3, W, H, seed=W + qp)))
         _CALLS[key] = calls
@@ -182,7 +187,7 @@ def test_p_kernels_match_plain(cuda, W, H, qp, wp):
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.dtype == w.dtype and torch.equal(g, w), f"{name} out {i}"
         seen.add(name)
-    assert seen == set(rd_p.P_ENTRIES)
+    assert seen == set(rd_p.entries_of(False))
 
 
 def test_p_wrappers_reject_bad_input(cuda):
@@ -211,6 +216,66 @@ def test_p_wrappers_reject_bad_input(cuda):
     y, u, v, bsv, bsh, qp, qpc = calls["deblock"]
     with pytest.raises(ValueError):
         K6.deblock(y, u, v.cpu(), bsv, bsh, qp, qpc)
+
+
+@pytest.mark.parametrize("qp", [28, 51])
+def test_t8_p_kernels_match_plain(cuda, qp):
+    """Every P entry, K9 included, on the calls of a T8 IPPP encode."""
+    kern = rd_p.default_kernels()
+    seen = set()
+    for name, args in _p_calls(cuda, 352, 288, qp, True, t8=True):
+        before = getattr(kern, name).launches
+        got = getattr(kern, name)(*args)
+        assert getattr(kern, name).launches == before + 1, name
+        want = getattr(rd_p.PLAIN, name)(*args)
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and torch.equal(g, w), f"{name} out {i}"
+        seen.add(name)
+    assert seen == set(rd_p.entries_of(True))
+
+
+@pytest.mark.parametrize("case", range(4), ids=["qp0_bound", "ties",
+                                                 "classes_qp28",
+                                                 "classes_qp51"])
+def test_t8_decide_matches_plain_built(cuda, case):
+    name, arrs, qp, lam = t8_cases(64, seed=9)[case]
+    args = tuple(torch.as_tensor(a, device=cuda) for a in arrs)
+    got = K9.t8_decide(*args, qp, lam)
+    want = K9.t8_decide_plain(*args, qp, lam)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    if name == "ties":
+        assert not got[0].any()
+    if name == "qp0_bound":
+        assert int(got[1].abs().max()) == 3264
+
+
+def test_t8_wrapper_rejects_bad_input(cuda):
+    _, arrs, qp, lam = t8_cases(16, seed=1)[1]
+    args = [torch.as_tensor(a, device=cuda) for a in arrs]
+    with pytest.raises(ValueError, match="is_intra"):
+        K9.t8_decide(*args[:6], args[6].to(torch.int32), qp, lam)
+    with pytest.raises(ValueError, match="w_lev"):
+        K9.t8_decide(*args[:3], args[3][:-1], *args[4:], qp, lam)
+    with pytest.raises(ValueError, match="qp"):
+        K9.t8_decide(*args, 52, lam)
+
+
+@pytest.mark.parametrize("kw", [
+    {"entropy": "cavlc"}, {"transform8x8": True},
+    {"transform8x8": True, "entropy": "cavlc", "b_frames": 1}],
+    ids=["cavlc", "t8", "t8_cavlc_ipb"])
+def test_cavlc_and_t8_encoders_on_card_match_cpu(cuda, kw):
+    frames = moving_frames(5, 176, 144, seed=8)
+    cfg = _ippp_cfg(176, 144, 30, True, **kw)
+    card = H264Encoder(cfg)
+    cpu = H264Encoder(cfg, device="cpu")
+    assert card.encode_sequence(frames) == cpu.encode_sequence(frames)
+    for (_, a), (_, b) in zip(card.all_recons, cpu.all_recons):
+        for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
+            np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize("wp", [True, False], ids=["wp", "nowp"])

@@ -4,8 +4,10 @@ recon planes and reference entries (bank, cpad, colocated motion), for 5
 moving, fading 176x144 frames (num_ref_frames 2, search range 8) at QP 0,
 28 and 51.  Each P picture's ``rd_p_pipeline`` outputs are also held
 against the reference's from the reference's own DPB state, carried over
-with ``convert.encoder_refs_from_numpy``.  WP off:
-test_torch_p_encode_nowp.py."""
+with ``convert.encoder_refs_from_numpy``.  WP off and the CAVLC
+(Baseline) stream: test_torch_p_encode_nowp.py; the 8x8 transform:
+test_torch_t8_encode*.py.  The helpers take the entropy coder and the
+8x8 transform as options (``entropy``, ``t8``)."""
 
 import functools
 
@@ -27,9 +29,10 @@ W, H, N = 176, 144, 5
 torch.set_num_threads(1)
 
 
-def _cfg(cls, qp, wp):
-    return cls(width=W, height=H, qp=qp, fast=True, rd=True, entropy="cabac",
-               num_ref_frames=2, search_range=8, weighted_pred=wp)
+def _cfg(cls, qp, wp, entropy="cabac", t8=False):
+    return cls(width=W, height=H, qp=qp, fast=True, rd=True, entropy=entropy,
+               num_ref_frames=2, search_range=8, weighted_pred=wp,
+               transform8x8=t8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,12 +45,13 @@ def _record_p(enc, snaps):
     and WP state, after it the picture's pending outputs."""
     start = enc._start_p_rd
 
-    def rec(yuv, *a):
+    def rec(yuv, *a, **kw):
         snap = {"yuv": yuv, "refs": list(enc._rd_refs),
                 "src": (dict(enc._src_dc), dict(enc._src_sd),
                         dict(enc._src_ds)),
-                "frame_num": enc.frame_num, "prev_poc": enc._prev_poc}
-        pend = start(yuv, *a)
+                "frame_num": enc.frame_num, "prev_poc": enc._prev_poc,
+                "kw": kw}
+        pend = start(yuv, *a, **kw)
         snap.update(pending=pend, entry=enc._rd_refs[0])
         snaps.append(snap)
         return pend
@@ -56,37 +60,38 @@ def _record_p(enc, snaps):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_encode(qp: int, wp: bool):
+def jax_encode(qp: int, wp: bool, **kw):
     """(JAX encoder, its stream, its P snapshots)."""
-    jenc, jsnaps = JaxEncoder(_cfg(JaxConfig, qp, wp)), []
+    jenc, jsnaps = JaxEncoder(_cfg(JaxConfig, qp, wp, **kw)), []
     _record_p(jenc, jsnaps)
     return jenc, jenc.encode_sequence(frames()), jsnaps
 
 
 @functools.lru_cache(maxsize=None)
-def port_encode(qp: int, wp: bool):
+def port_encode(qp: int, wp: bool, **kw):
     """(port encoder, its stream, its P snapshots)."""
-    tenc, tsnaps = H264Encoder(_cfg(EncoderConfig, qp, wp), device="cpu"), []
+    tenc, tsnaps = H264Encoder(_cfg(EncoderConfig, qp, wp, **kw),
+                               device="cpu"), []
     _record_p(tenc, tsnaps)
     return tenc, tenc.encode_sequence(frames()), tsnaps
 
 
-def encode(qp: int, wp: bool):
-    return jax_encode(qp, wp) + port_encode(qp, wp)
+def encode(qp: int, wp: bool, **kw):
+    return jax_encode(qp, wp, **kw) + port_encode(qp, wp, **kw)
 
 
 def _np(x):
     return np.asarray(x)
 
 
-def check_stream(qp, wp):
-    _, jstream, _, _, tstream, _ = encode(qp, wp)
+def check_stream(qp, wp, **kw):
+    _, jstream, _, _, tstream, _ = encode(qp, wp, **kw)
     assert len(tstream) > 100
     assert tstream == jstream
 
 
-def check_recon_and_refs(qp, wp):
-    jenc, _, _, tenc, _, _ = encode(qp, wp)
+def check_recon_and_refs(qp, wp, **kw):
+    jenc, _, _, tenc, _, _ = encode(qp, wp, **kw)
     assert len(tenc.all_recons) == len(jenc.all_recons) == N
     for (pa, a), (pb, b) in zip(jenc.all_recons, tenc.all_recons):
         assert pa == pb
@@ -102,9 +107,9 @@ def check_recon_and_refs(qp, wp):
             np.testing.assert_array_equal(x.numpy(), _np(y))
 
 
-def check_decodes(qp, wp):
+def check_decodes(qp, wp, **kw):
     """The reference package's decoder reconstructs the port's recon."""
-    _, _, _, tenc, tstream, _ = encode(qp, wp)
+    _, _, _, tenc, tstream, _ = encode(qp, wp, **kw)
     pics = decode_annexb(tstream)
     assert len(pics) == N
     for pic, (_, rec) in zip(pics, tenc.all_recons):
@@ -113,21 +118,18 @@ def check_decodes(qp, wp):
             np.testing.assert_array_equal(_np(x), y)
 
 
-def check_pipeline_from_jax_state(qp, wp):
-    """The first P picture (one reference) and the last (a full DPB)
-    restarted in a fresh port encoder from the JAX encoder's DPB (banks,
-    cpads, colocated motion) and WP statistics: host_out, recon and next
-    entry equal the reference's."""
-    jsnaps = jax_encode(qp, wp)[2]
-    assert len(jsnaps) == N - 1
-    for snap in (jsnaps[0], jsnaps[-1]):
-        tenc = H264Encoder(_cfg(EncoderConfig, qp, wp), device="cpu")
+def check_p_from_jax_state(snaps, cfg_):
+    """Each P snapshot restarted in a fresh port encoder from the JAX
+    encoder's DPB (banks, cpads, colocated motion) and WP statistics:
+    host_out, recon and next entry equal the reference's."""
+    for snap in snaps:
+        tenc = H264Encoder(cfg_, device="cpu")
         encoder_refs_from_numpy(
             tenc, [(p, _np(b), _np(c), tuple(_np(x) for x in col))
                    for p, b, c, col in snap["refs"]], src=snap["src"])
         tenc.frame_num, tenc._prev_poc = snap["frame_num"], snap["prev_poc"]
         host_out, recon, frame_num, poc, ref_pocs, _, wpw = tenc._start_p_rd(
-            snap["yuv"])
+            snap["yuv"], **snap["kw"])
         jp = snap["pending"]
         assert (frame_num, poc, ref_pocs, wpw) == (jp[3], jp[4], jp[5], jp[7])
         np.testing.assert_array_equal(host_out.numpy(), _np(jp[1]))
@@ -138,6 +140,15 @@ def check_pipeline_from_jax_state(qp, wp):
         assert tp == jpoc
         for x, y in zip((tb, tc, *tcol), (jb, jc, *jcol)):
             np.testing.assert_array_equal(x.numpy(), _np(y))
+
+
+def check_pipeline_from_jax_state(qp, wp, every=False, **kw):
+    """The first P picture (one reference) and the last (a full DPB), or
+    `every` P picture, from the JAX encoder's state (check_p_from_jax_state)."""
+    jsnaps = jax_encode(qp, wp, **kw)[2]
+    assert len(jsnaps) == N - 1
+    check_p_from_jax_state(jsnaps if every else (jsnaps[0], jsnaps[-1]),
+                           _cfg(EncoderConfig, qp, wp, **kw))
 
 
 @pytest.mark.parametrize("qp", [0, 28, 51])

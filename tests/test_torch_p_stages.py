@@ -6,7 +6,10 @@ moving, fading frames: after each port stage the same int32 sums the
 reference returns for ``stage=k`` (compared modulo 2^32: they wrap in
 int32).  Stages 1, 2, 3 and 35 here; 4 and 5 in
 test_torch_p_stages_decide.py, 6 and 7 in test_torch_p_stages_loop.py,
-so the compiles spread over the test workers."""
+so the compiles spread over the test workers.  Those two files also hold
+the port's 8x8-transform glue on the same inputs (``port_t8_run``): the
+T8 stage after the winner gather, and its deblock and ``host_out`` parts
+(the reference's whole T8 pipeline: test_torch_t8_encode*.py)."""
 
 import functools
 
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from h264_tpu.encoder import rd as JRD
+from h264_tpu_torch.encoder import rd as TRD
 from h264_tpu_torch.encoder import rd_p as TP
 from h264_tpu_torch.tools.synthseq import moving_frames
 
@@ -86,6 +90,41 @@ def port_checksums() -> dict:
 
 
 _port = functools.lru_cache(maxsize=None)(port_checksums)
+
+@functools.lru_cache(maxsize=None)
+def port_t8_run(use_t8: bool):
+    """The port's whole P pipeline (plain versions) with or without the T8
+    stage, at 176x144, QP 28, WP, on the port's own reference entries of
+    moving frames (the stage inputs above code no MB that may take the
+    8x8 transform): (frame, the recorded kernel calls, host_out, the
+    winner's (w_lev, w_rec) before the T8 stage)."""
+    Wt, Ht = 176, 144
+    frames = moving_frames(3, Wt, Ht, seed=11)
+    ents = [TRD.ref_entry_from_planes(*(np.asarray(p, np.int32)
+                                        for p in frames[i]), device="cpu")
+            for i in (1, 0)]
+    lam = _lam(QP)
+    k, calls = TP.recording(TP.PLAIN)
+    f = TP.PFrame(*(torch.from_numpy(np.asarray(p, np.int32))
+                    for p in frames[2]),
+                  torch.stack([e[0] for e in ents]),
+                  torch.stack([e[1] for e in ents]), Ht, Wt, R, QP, QP, lam,
+                  2 * lam, NR, (torch.from_numpy(WP_W), torch.from_numpy(WP_O)),
+                  k, use_t8)
+    before = None
+    for stage in TP.P_STAGES:
+        if stage is TP.p_t8:
+            before = (f.w_lev.clone(), f.w_rec.clone())
+        stage(f)
+    return f, calls, TP.p_outputs(f)[0], before
+
+
+def host_parts(host_out, n_mb):
+    """host_out split into its 14 parts (the reference's layout)."""
+    sizes = [n_mb, 4 * n_mb, 4 * n_mb, n_mb, 16 * n_mb, 16 * n_mb, n_mb,
+             n_mb, 256 * n_mb, 256 * n_mb, 16 * n_mb, 128 * n_mb, 8 * n_mb,
+             16 * n_mb]
+    return torch.split(host_out, sizes)
 
 
 @pytest.mark.parametrize("stage", [1, 2, 3, 35])
