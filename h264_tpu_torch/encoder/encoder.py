@@ -1,11 +1,29 @@
-"""H.264 encoder on a CUDA card: IPB, IPPP and all-intra streams, CABAC or
-CAVLC, with or without the FRExt 8x8 transform.
+"""H.264 encoder on a CUDA card: the reference's host-path encoder (its
+default configuration, ``fast=False``) and its device RD pipelines
+(``fast=True``): IPB, IPPP and all-intra streams, CABAC or CAVLC, with or
+without the FRExt 8x8 transform and custom scaling matrices, in one slice
+or many (``slice_mode``, FMO slice groups), with CAVLC data partitioning
+and redundant slices.
 
-The PyTorch counterpart of the reference package's encoder/encoder.py.
-An IDR picture is coded by the device intra pipeline
-(``rd.rd_i_pipeline``: full-RD I16 vs I4x4 on the card), deblocked by the
-native host filter and entropy-coded (CABAC or CAVLC); it then
-gets its reference bank entry on the card (``rd.ref_entry_from_planes``).
+The PyTorch counterpart of the reference package's encoder/encoder.py,
+routed as it routes every configuration.
+
+The host path (``_encode_picture`` with ``_FrameEncoder``, the host MB
+loop): one device pass per picture and reference list computes the dense
+16x16 SAD grids of every MB (``me.compute_sad_grids``, kernel K10); the MB
+loop then decides and codes every MB in numpy (I16 / I4 intra with an
+estimate, P16x16 from the grids with half- and quarter-pel refinement, B
+MBs over spatial direct, L0, L1, bi-prediction and intra, 4x4 or 8x8
+residuals with the scaling matrices), reconstructing with the decoder's
+own exact-integer operations.  An IDR picture of one slice with I4 allowed
+and flat scaling goes to the device intra pipeline instead
+(``rd.rd_i_pipeline``: full-RD I16 vs I4x4 on the card).  Every picture is
+deblocked by the native host filter and entropy-coded (CABAC or CAVLC) as
+one NAL per slice, or as DPA/DPB/DPC partitions, with a redundant copy of
+each primary P slice when asked.
+
+The device RD path (``fast=True``, one slice): the I picture as above, then
+it gets its reference bank entry on the card (``rd.ref_entry_from_planes``).
 A P picture runs whole on the card (``rd_p.rd_p_pipeline``: motion search,
 partition and mode decisions, residual coding, intra commit, deblocking
 and its own next reference entry, and with ``transform8x8`` the 8x8
@@ -21,17 +39,18 @@ with ``b_hierarchy`` the stored middle B before the outer ones); a B
 picture also runs whole on the card (``rd_b.rd_b_pipeline``: two-list
 search and refinement, temporal direct, bi-prediction, the same residual,
 commit and filter stages), and its host tail adds the temporal direct
-fill from the anchor's parse state.
+fill from the anchor's parse state.  With ``fast=True`` and several slices
+the P and B pictures take the host path after the I picture, as in the
+reference.
 
 Every other configuration raises NotImplementedError naming its ROADMAP
-item: custom scaling matrices, intra refresh, loss-aware RDO, tile-row
-slices, rate control, multi-slice / FMO, SEI and the host-path encoder
-(``fast=False``, ``rd=False``, ``enable_i4=False``).
-No half-ported path runs.
+item: intra refresh, loss-aware RDO, tile-row slices, rate control, SEI
+and the legacy P16x16 path (``rd=False``).  No half-ported path runs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from dataclasses import dataclass
 
@@ -39,25 +58,36 @@ import numpy as np
 import torch
 
 from ..bitstream import NalUnit, write_annexb
+from ..bitstream.writer import BitWriter
 from ..config import level_for, profile_check
 from ..decoder import mbtables as M
-from ..decoder.mv import dist_scale_factor
-from ..decoder.recon import Planes
+from ..decoder.mv import (_pskip_mv, _spatial_direct, compute_moving_mask,
+                          dist_scale_factor)
+from ..decoder.mv import pmv as predict_mv
+from ..decoder.recon import Planes, _add_residual
 from ..decoder.state import PictureParseState
 from ..device import resolve_device
 from ..kernels.intra_commit import intra_commit_step
 from ..kernels.ref_bank import ref_bank
+from ..kernels.sad_grid import sad_grid_16x16
+from ..ops import interp as MC
+from ..ops import intra as IP
+from ..ops import quant as Q
+from ..ops import transforms as TR
 from ..ops.deblock import deblock_picture
 from ..ops.exact import chroma_qp
 from ..syntax.parsets import PPS, SPS, write_pps, write_sps
 from ..syntax.slice_header import (PredWeight, SliceHeader, SliceType,
                                    write_slice_header)
 from . import fills as FL
+from . import me as ME
 from . import rd as RD
 from . import rd_b as RDB
 from . import rd_p as RDP
 from .syntax_cabac import CabacSliceWriter
 from .syntax_cavlc import CavlcSliceWriter
+
+_ZZ4 = M.ZZ_SCAN_4x4
 
 
 @dataclass
@@ -121,38 +151,31 @@ class EncoderConfig:
 
 # configuration -> the ROADMAP Queue 1 item that brings it
 _NOT_PORTED = (
-    (lambda c: not c.fast, "fast=False (host-path encoder)", "Host-path ME"),
     (lambda c: not c.rd, "rd=False (legacy P16x16 path)", "Legacy P16x16 path"),
-    (lambda c: not c.enable_i4, "enable_i4=False (host-path intra)",
-     "Host-path ME"),
-    (lambda c: c.scaling_lists is not None,
-     "custom scaling matrices (the reference's host path)", "Host-path ME"),
     (lambda c: c.intra_refresh > 0, "intra refresh", "Intra refresh"),
     (lambda c: c.loss_aware_k > 0, "loss-aware RDO", "Loss-aware RDO"),
     (lambda c: c.row_slices > 1, "tile-row slices", "Tile-row slices"),
     (lambda c: c.rc_bitrate > 0, "rate control", "Rate control"),
-    (lambda c: c.slice_mode != 0 or c.num_slice_groups > 1,
-     "multi-slice / FMO", "Host-path ME"),
     (lambda c: bool(c.sei_text) or c.sei_tone_mapping is not None
      or c.sei_recovery_point, "SEI messages", "Config and CLIs"),
-    (lambda c: c.redundant_pics or c.partition_mode == 1,
-     "redundant pictures / data partitioning", "Host-path ME"),
 )
 
 
 class H264Encoder:
     """IPB / IPPP / all-intra encoder (CABAC or CAVLC, 4x4 or 4x4/8x8
-    transforms); ``device`` is where the
-    picture decisions, the P and B pipelines and the reference banks run
-    (CUDA unless told otherwise)."""
+    transforms, one slice or many), on the host path (``fast=False``, the
+    default) or the device RD pipelines (``fast=True``); ``device`` is
+    where the SAD grids, the picture decisions, the P and B pipelines and
+    the reference banks run (CUDA unless told otherwise)."""
 
     # the kernel wrappers the pictures go through (a subclass may name
     # their plain versions to run the plain path on the card): the I
-    # picture's commit step and reference entry, and every entry of the
-    # P and B pipelines (rd_p.PKernels, rd_b.BKernels; None means their
-    # default_kernels())
+    # picture's commit step and reference entry, the host path's SAD
+    # grids, and every entry of the P and B pipelines (rd_p.PKernels,
+    # rd_b.BKernels; None means their default_kernels())
     _intra_step = staticmethod(intra_commit_step)
     _ref_bank = staticmethod(ref_bank)
+    _sad_grid = staticmethod(sad_grid_16x16)
     _p_kernels = None
     _b_kernels = None
 
@@ -165,8 +188,18 @@ class H264Encoder:
             if test(cfg):
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP Queue 1: {item})")
+        multi_slice = cfg.slice_mode != 0 or cfg.num_slice_groups > 1
+        # the reference asserts these (encoder.py:138-139, :160-163, :173)
         if cfg.b_hierarchy and cfg.b_frames != 3:
             raise ValueError("2-layer pyramid needs b_frames == 3")
+        if cfg.b_hierarchy and not cfg.fast:
+            raise ValueError("hierarchy runs on the RD pipeline (fast=True)")
+        if cfg.weighted_pred and (not cfg.fast or multi_slice):
+            raise ValueError("weighted_pred requires the fast RD path and "
+                             "one slice")
+        if cfg.fast and cfg.scaling_lists is not None:
+            raise ValueError(
+                "scaling matrices run on the host path (fast=False)")
         if cfg.b_frames > 0 and not 0 <= cfg.qp + cfg.qp_b_offset <= 51:
             raise ValueError(f"B picture QP {cfg.qp} + {cfg.qp_b_offset} "
                              "outside 0..51")
@@ -193,13 +226,26 @@ class H264Encoder:
             log2_max_frame_num_minus4=4,
         )
         self.pps = PPS(entropy_coding_mode_flag=(cfg.entropy == "cabac"))
-        if cfg.transform8x8:
-            # High profile (FREXT_HP): the 8x8 transform is signalled there
-            # (lencod/src/parset.c GenerateSPS)
+        if cfg.transform8x8 or cfg.scaling_lists is not None:
+            # High profile (FREXT_HP): the 8x8 transform and scaling
+            # matrices are signalled there (lencod/src/parset.c GenerateSPS)
             self.sps.profile_idc = 100
-            self.pps.transform_8x8_mode_flag = True
+            self.pps.transform_8x8_mode_flag = bool(cfg.transform8x8)
             self.pps.second_chroma_qp_index_offset = 0
-        if cfg.search_range > 28:
+        self._ws4 = self._ws8 = None  # scaling matrices, raster
+        if cfg.scaling_lists is not None:
+            ws4, ws8 = cfg.scaling_lists
+            self.sps.seq_scaling_matrix_present_flag = True
+            self.sps.scaling_list_present = [True] * 8
+            self.sps.scaling_lists_4x4 = [
+                [int(v) for v in np.asarray(ws4[i]).reshape(16)]
+                for i in range(6)]
+            self.sps.scaling_lists_8x8 = [
+                [int(v) for v in np.asarray(ws8[i]).reshape(64)]
+                for i in range(2)]
+            self._ws4 = np.asarray(ws4, np.int32).reshape(6, 4, 4)
+            self._ws8 = np.asarray(ws8, np.int32).reshape(2, 8, 8)
+        if cfg.fast and cfg.search_range > 28:
             warnings.warn(
                 f"device pipelines clamp SearchRange {cfg.search_range} "
                 "-> 28 (dense-grid memory shape); the coarse-to-fine "
@@ -207,6 +253,11 @@ class H264Encoder:
                 stacklevel=2)
         if cfg.weighted_pred:
             self.pps.weighted_pred_flag = True
+        if cfg.redundant_pics:
+            self.pps.redundant_pic_cnt_present_flag = True
+        if cfg.num_slice_groups > 1:
+            self._fmo_pps()
+        self._multi_slice = multi_slice
         self._src_dc: dict = {}  # poc -> source-luma mean (WP estimation)
         self._src_sd: dict = {}  # poc -> source-luma std (WP gain)
         self._src_ds: dict = {}  # poc -> 8x-decimated source luma (WP test)
@@ -214,17 +265,45 @@ class H264Encoder:
         self.idr_count = 0
         self._prev_poc = 0
         self.all_recons: list = []  # (poc, planes) of every picture
-        self.recon_pics: list = []  # (poc, planes, parse state, None) refs
+        # references (poc, planes, parse state, padded planes for the host
+        # path's motion compensation or None)
+        self.recon_pics: list = []
         self._rd_refs: list = []  # [(poc, bank, cpad, col)] newest-first
         self._anchor_ref_pocs: dict = {}  # ref poc -> its col index space
         # set to a list to have every finished picture appended as (type
-        # "I"/"P"/"B", poc, its fetched host_out or None for I)
+        # "I"/"P"/"B", poc, its fetched host_out or None for a picture
+        # without one: I, and every host-path picture)
         self.picture_log: list | None = None
         # JM lambda (lencod/src/slice.c:1261, rdopt on): base 0.68 when B
         # pictures are in use, else 0.85, x0.95 for the non-SATD ME
-        # metric, in <<16 fixed point (B slices scale it in _start_b_rd)
+        # metric; lambda_me is the host search's sqrt(lambda) in <<16
+        # fixed point, lambda_mode_fx the RD pipelines' lambda (B slices
+        # scale it in _start_b_rd)
         lam = self._lambda_base() * 2.0 ** ((cfg.qp - 12) / 3.0)
+        self.lambda_me = int(np.sqrt(lam) * 65536 + 0.5)
+        self.lambda_mode = lam
         self.lambda_mode_fx = int(lam * 65536 + 0.5)
+
+    def _fmo_pps(self) -> None:
+        """The slice-group fields of the PPS for map types 0-6."""
+        cfg, p = self.cfg, self.pps
+        p.num_slice_groups_minus1 = cfg.num_slice_groups - 1
+        p.slice_group_map_type = t = cfg.slice_group_map_type
+        n_mbs = (cfg.width // 16) * (cfg.height // 16)
+        if t == 0:
+            runs = cfg.slice_group_run_length or (1,) * cfg.num_slice_groups
+            p.run_length_minus1 = [r - 1 for r in runs]
+        elif t == 2:
+            p.top_left = [tl for tl, _ in cfg.slice_group_rects]
+            p.bottom_right = [br for _, br in cfg.slice_group_rects]
+        elif t in (3, 4, 5):
+            p.slice_group_change_direction_flag = (
+                cfg.slice_group_change_direction)
+            p.slice_group_change_rate_minus1 = cfg.slice_group_change_rate - 1
+        elif t == 6:
+            ids = list(cfg.slice_group_ids) or [0] * n_mbs
+            p.slice_group_id = (ids + [0] * n_mbs)[:n_mbs]
+            p.pic_size_in_map_units_minus1 = n_mbs - 1
 
     def _lambda_base(self) -> float:
         return (0.68 if self.cfg.b_frames > 0 else 0.85) * 0.95
@@ -255,15 +334,18 @@ class H264Encoder:
         return write_annexb(nalus)
 
     def encode_stream(self, frames, depth: int | None = None):
-        """Pipelined encode: yields a list of NalUnits per frame.  P
-        pictures are dispatched to the card up to `depth` frames ahead of
-        the host tail (the reference chain stays on the card); each group
-        is fetched in one copy and then entropy-coded in order.  With B
-        pictures the pictures come out in decode order, the groups hold
-        at least 2 pictures unless `depth` is given (1 fetches and codes
-        every picture as soon as it is dispatched: the same stream)."""
+        """Pipelined encode: yields a list of NalUnits per frame.  On the
+        device RD path P pictures are dispatched to the card up to `depth`
+        frames ahead of the host tail (the reference chain stays on the
+        card); each group is fetched in one copy and then entropy-coded in
+        order.  IDR pictures, every picture of the host path and every
+        picture of a multi-slice stream are coded one at a time.  With B
+        pictures the pictures come out in decode order; on the RD path the
+        groups hold at least 2 pictures unless `depth` is given (1 fetches
+        and codes every picture as soon as it is dispatched: the same
+        stream)."""
         if self.cfg.b_frames > 0:
-            yield from self._encode_stream_b_rd(frames, depth)
+            yield from self._encode_stream_b(frames, depth)
             return
         if depth is None:
             depth = self.cfg.pipeline_depth
@@ -272,10 +354,10 @@ class H264Encoder:
             is_idr = idx == 0 or (
                 self.cfg.idr_period and idx % self.cfg.idr_period == 0
             )
-            if is_idr:
+            if is_idr or not self.cfg.fast or self._multi_slice:
                 yield from self._drain(pend)
                 pend = []
-                yield self.encode_frame(yuv, True)
+                yield self.encode_frame(yuv, is_idr)
             else:
                 pend.append(self._start_p_rd(yuv))
                 if len(pend) >= depth:
@@ -289,20 +371,68 @@ class H264Encoder:
             for row, p in zip(rows, group):
                 yield self._finish_p_rd(p, row)
 
+    def _encode_stream_b(self, frames, depth: int | None = None):
+        """Decode-order emission I (B^n P)* of a GOP with B pictures
+        (lencod NumberBFrames, lencod.c SetImgType + the image.c B-picture
+        loop): each anchor P is coded before the B pictures that reference
+        it; POC is twice the display index since the last IDR.  The device
+        RD path (``_encode_stream_b_rd``) takes it with ``fast`` and one
+        slice, the host path otherwise."""
+        if self.cfg.fast and not self._multi_slice:
+            yield from self._encode_stream_b_rd(frames, depth)
+            return
+        nb = self.cfg.b_frames
+        idr_p = self.cfg.idr_period
+        pend: list = []  # buffered display frames awaiting their anchor
+        base = 0  # display index of the last IDR
+        for idx, yuv in enumerate(frames):
+            is_idr = idx == 0 or (idr_p and idx % idr_p == 0)
+            if is_idr:
+                for b_yuv, b_idx in pend:  # close the GOP with P pictures
+                    yield self._encode_picture(
+                        b_yuv, SliceType.P, False, 2 * (b_idx - base))
+                pend = []
+                base = idx
+                yield self._encode_picture(yuv, SliceType.I, True, 0)
+            elif len(pend) < nb:
+                pend.append((yuv, idx))
+            else:
+                yield self._encode_picture(
+                    yuv, SliceType.P, False, 2 * (idx - base))
+                for b_yuv, b_idx in pend:
+                    yield self._encode_picture(
+                        b_yuv, SliceType.B, False, 2 * (b_idx - base))
+                pend = []
+        for b_yuv, b_idx in pend:
+            yield self._encode_picture(
+                b_yuv, SliceType.P, False, 2 * (b_idx - base))
+
     # ------------------------------------------------------------------
     def encode_frame(self, yuv, is_idr: bool) -> list[NalUnit]:
-        if not is_idr and self.cfg.b_frames > 0:
-            # the reference codes this P picture on its host path
-            raise NotImplementedError(
-                "a lone P picture of a B configuration is not ported yet "
-                "(ROADMAP Queue 1: Host-path ME)")
-        if not is_idr:
+        cfg = self.cfg
+        rd_path = cfg.fast and not self._multi_slice
+        if not is_idr and rd_path and cfg.b_frames == 0:
             p = self._start_p_rd(yuv)
             return self._finish_p_rd(p, fetch_group([p[0]])[0])
-        return self._encode_picture(yuv, SliceType.I, True, 0)
+        if not is_idr and rd_path:
+            # the reference codes this picture on its host path, whose
+            # motion compensation reads the padded planes that its RD
+            # pictures do not keep (encoder.py:575-584, :914, :2024): it
+            # fails there, and so the port refuses it
+            raise NotImplementedError(
+                "a lone P picture of a fast=True B configuration: the "
+                "reference package fails on it too (ROADMAP Queue 3)")
+        stype = SliceType.I if is_idr else SliceType.P
+        poc = 0 if is_idr else self._prev_poc + 2
+        return self._encode_picture(yuv, stype, is_idr, poc)
 
     def _encode_picture(self, yuv, stype: SliceType, is_idr: bool,
                         poc: int) -> list[NalUnit]:
+        """Code one picture on the host path (the device intra pipeline
+        for a one-slice I picture with I4 allowed and flat scaling):
+        the SAD grids on the card, the MB loop, the deblocking filter and
+        one NAL per slice (or its data partitions, and a redundant copy
+        of each P slice when asked); then the reference bookkeeping."""
         cfg = self.cfg
         Y = np.asarray(yuv[0], np.int32)
         U = np.asarray(yuv[1], np.int32)
@@ -315,57 +445,176 @@ class H264Encoder:
         st = PictureParseState(W, H)
         planes = Planes(sps)
         if is_idr:
-            self._rd_refs.clear()
             self.recon_pics.clear()
+            self._rd_refs.clear()
             self.frame_num = 0
-        qp = cfg.qp
-        addrs = list(range(st.n_mbs))  # one slice
-        st.slice_id[:] = 0
+        is_ref = stype != SliceType.B  # B pictures are disposable here
+        qp = cfg.qp + (cfg.qp_b_offset if stype == SliceType.B else 0)
+
+        slices = self._partition_slices()
+        for sid, addrs in enumerate(slices):
+            st.slice_id[np.asarray(addrs, np.int64)] = sid
         st.qp[:] = qp
         cb_off, cr_off = pps.chroma_qp_offset
         st.qpc[:, 0] = chroma_qp(qp, cb_off)
         st.qpc[:, 1] = chroma_qp(qp, cr_off)
-        self._device_intra_picture(st, planes, Y, U, V, qp)
+
+        # device ME pass (whole picture at once, per reference list: K10)
+        ref0 = ref1 = None
+        grids = [None, None]
+        b_info = None
+        if stype == SliceType.P:
+            ref0 = self.recon_pics[-1]
+            grids[0] = self._sad_grids(Y, ref0)
+        elif stype == SliceType.B:
+            ref0 = max((p for p in self.recon_pics if p[0] < poc),
+                       key=lambda p: p[0])
+            ref1 = min((p for p in self.recon_pics if p[0] > poc),
+                       key=lambda p: p[0])
+            grids[0] = self._sad_grids(Y, ref0)
+            grids[1] = self._sad_grids(Y, ref1)
+            b_info = {
+                "type": SliceType.B,
+                "ref_ids": [[ref0[0]], [ref1[0]]],
+                "col": {"moving": compute_moving_mask(ref1[2])},
+                "direct_8x8_inference": sps.direct_8x8_inference_flag,
+                "spatial_direct": True,
+            }
+        if (stype == SliceType.I and len(slices) == 1
+                and cfg.enable_i4 and not pps.constrained_intra_pred_flag
+                and self._ws4 is None
+                and sps.chroma_format_idc == 1 and sps.bit_depth_luma == 8):
+            self._device_intra_picture(st, planes, Y, U, V, qp)
+        else:
+            enc = _FrameEncoder(self, st, planes, Y, U, V, stype, qp, ref0,
+                                grids[0], ref1=ref1, sad_grids1=grids[1],
+                                b_info=b_info)
+            for addr in range(st.n_mbs):
+                enc.encode_mb(addr)
         if cfg.enable_deblock:
             deblock_picture(st, sps, planes)
 
-        sh = SliceHeader(
-            first_mb_in_slice=0,
-            slice_type_code=stype.value,
-            frame_num=self.frame_num % sps.max_frame_num,
-            is_idr=is_idr,
-            nal_ref_idc=3,
-            idr_pic_id=self.idr_count % 2 if is_idr else 0,
-            pic_order_cnt_lsb=self._poc_lsb(poc),
-            direct_spatial_mv_pred_flag=False,
-            slice_qp_delta=qp - (26 + pps.pic_init_qp_minus26),
-            slice_group_change_cycle=cfg.slice_group_change_cycle,
-        )
-        w = write_slice_header(sh, sps, pps)
-        self._write_slice_data(w, st, sh, addrs)
-        nals = [NalUnit(5 if is_idr else 1, 3, w.get_bytes())]
+        # bitstream: one NAL per slice
+        nals = []
+        nal_ref = 3 if is_ref else 0
+        use_dp = (cfg.partition_mode == 1
+                  and not pps.entropy_coding_mode_flag and not is_idr)
+        for addrs in slices:
+            sh = SliceHeader(
+                first_mb_in_slice=addrs[0],
+                slice_type_code=stype.value,
+                frame_num=self.frame_num % sps.max_frame_num,
+                is_idr=is_idr,
+                nal_ref_idc=nal_ref,
+                idr_pic_id=self.idr_count % 2 if is_idr else 0,
+                pic_order_cnt_lsb=self._poc_lsb(poc),
+                direct_spatial_mv_pred_flag=stype == SliceType.B,
+                slice_qp_delta=qp - (26 + pps.pic_init_qp_minus26),
+                slice_group_change_cycle=cfg.slice_group_change_cycle,
+            )
+            w = write_slice_header(sh, sps, pps)
+            if use_dp:
+                # slice_id: the count of NALs before this slice's, as the
+                # reference numbers them
+                nals.extend(self._data_partitions(w, st, sh, addrs,
+                                                  len(nals), nal_ref))
+                continue
+            self._write_slice_data(w, st, sh, addrs)
+            nals.append(NalUnit(5 if is_idr else 1, nal_ref, w.get_bytes()))
+            if cfg.redundant_pics and not is_idr and stype == SliceType.P:
+                # redundant coded slice: the same coding of the same MBs
+                # (redundant_pic_cnt = 1), decodable in place of a lost
+                # primary (lencod.c:2718)
+                shr = dataclasses.replace(sh, redundant_pic_cnt=1)
+                wr = write_slice_header(shr, sps, pps)
+                self._write_slice_data(wr, st, shr, addrs)
+                nals.append(NalUnit(1, nal_ref, wr.get_bytes()))
 
         self.all_recons.append((poc, planes))
         self._log_picture(stype.name, poc, None)
-        bank, cpad = RD.ref_entry_from_planes(
-            planes.Y, planes.U, planes.V, device=self.device,
-            impl=self._ref_bank)
-        # intra pictures entering the device DPB: colocated motion is
-        # all-intra
-        H4, W4 = 4 * H, 4 * W
-        z = torch.zeros((H4, W4), dtype=torch.int32, device=self.device)
-        col = (torch.ones((H4, W4), dtype=torch.bool, device=self.device),
-               z, z.clone(), z.clone())
-        self._rd_refs = ([(poc, bank, cpad, col)] + self._rd_refs)[
-            : sps.num_ref_frames]
-        self._anchor_ref_pocs[poc] = []
-        self.recon_pics = [(poc, planes, st, None)] if is_idr else (
-            self.recon_pics + [(poc, planes, st, None)])[-sps.num_ref_frames:]
-        self._prev_poc = poc
-        self.frame_num += 1
+        if is_ref:
+            padded = None
+            if cfg.fast:
+                bank, cpad = RD.ref_entry_from_planes(
+                    planes.Y, planes.U, planes.V, device=self.device,
+                    impl=self._ref_bank)
+                # host-path pictures entering the device DPB: colocated
+                # motion is all-intra (as the reference records them)
+                H4, W4 = 4 * H, 4 * W
+                z = torch.zeros((H4, W4), dtype=torch.int32,
+                                device=self.device)
+                col = (torch.ones((H4, W4), dtype=torch.bool,
+                                  device=self.device), z, z.clone(),
+                       z.clone())
+                self._rd_refs = ([(poc, bank, cpad, col)] + self._rd_refs)[
+                    : sps.num_ref_frames]
+                self._anchor_ref_pocs[poc] = []
+            if not cfg.fast or self._multi_slice:
+                # the host path's P and B pictures read these
+                padded = (MC.pad_plane(planes.Y), MC.pad_plane(planes.U),
+                          MC.pad_plane(planes.V))
+            entry = (poc, planes, st, padded)
+            self.recon_pics = [entry] if is_idr else (
+                self.recon_pics + [entry])[-sps.num_ref_frames:]
+            self._prev_poc = poc
+            self.frame_num += 1
         if is_idr:
             self.idr_count += 1
         return nals
+
+    def _sad_grids(self, Y, ref) -> np.ndarray:
+        """The SAD grids of the picture `Y` against the reference entry
+        `ref` (K10 on the card)."""
+        return ME.compute_sad_grids(Y, np.asarray(ref[1].Y),
+                                    self.cfg.search_range, device=self.device,
+                                    impl=self._sad_grid)
+
+    def _data_partitions(self, w, st, sh, addrs, sid: int,
+                         nal_ref: int) -> list[NalUnit]:
+        """CAVLC data partitioning of one slice (spec 7.3.2.8-10,
+        lencod/src/header.c:541): partition A (the header, slice_id and
+        the MB headers and motion), B (intra residual) and C (inter
+        residual); empty partitions are not sent."""
+        w.ue(sid)  # slice_id
+        wB, wC = BitWriter(), BitWriter()
+        CavlcSliceWriter(st, self.sps, self.pps, sh).write_slice_data(
+            w, addrs, wB=wB, wC=wC)
+        w.rbsp_trailing_bits()
+        out = [NalUnit(2, nal_ref, w.get_bytes())]
+        for nt, ww in ((3, wB), (4, wC)):
+            bits, nbits = ww.raw_bits()
+            if nbits == 0:
+                continue
+            hw = BitWriter()
+            hw.ue(sid)
+            if self.pps.redundant_pic_cnt_present_flag:
+                hw.ue(0)
+            hw.append_bits(bits, nbits)
+            hw.rbsp_trailing_bits()
+            out.append(NalUnit(nt, nal_ref, hw.get_bytes()))
+        return out
+
+    def _partition_slices(self) -> list[list[int]]:
+        """MB address lists per slice, in slice-group scan order (lencod
+        fmo.c FmoGetNextMBNr + the slice.c:214 slice loop, SliceMode 0/1):
+        each slice group is walked in raster order of its member MBs;
+        slice_mode 1 splits every group into runs of `slice_argument`
+        MBs."""
+        from ..syntax.fmo import mb_to_slice_group
+
+        cfg, pps = self.cfg, self.pps
+        sg_map = mb_to_slice_group(self.sps, pps, cfg.slice_group_change_cycle)
+        slices: list[list[int]] = []
+        for g in range(pps.num_slice_groups_minus1 + 1):
+            addrs = [int(a) for a in np.nonzero(sg_map == g)[0]]
+            if not addrs:
+                continue
+            if cfg.slice_mode == 1 and cfg.slice_argument > 0:
+                for i in range(0, len(addrs), cfg.slice_argument):
+                    slices.append(addrs[i: i + cfg.slice_argument])
+            else:
+                slices.append(addrs)
+        return slices
 
     # ------------------------------------------------------------------
     def _start_p_rd(self, yuv, poc: int | None = None):
@@ -996,6 +1245,759 @@ class H264Encoder:
         planes.Y[:] = ry
         planes.U[:] = ru
         planes.V[:] = rv
+
+
+
+class _FrameEncoder:
+    """Per-frame MB encoding loop (decision + quant + recon)."""
+
+    def __init__(self, parent, st, planes, Y, U, V, stype, qp, ref, sad_grids,
+                 ref1=None, sad_grids1=None, b_info=None):
+        self.p = parent
+        self.st = st
+        self.pl = planes
+        self.Y, self.U, self.V = Y, U, V
+        self.stype = stype
+        self.qp = qp
+        self.qpc = (int(st.qpc[0, 0]), int(st.qpc[0, 1]))
+        self.refs = [ref, ref1]  # (poc, planes, state, padded) or None
+        self.grids = [sad_grids, sad_grids1]
+        self.b_info = b_info
+        self.sps = parent.sps
+        self.pps = parent.pps
+        self.R = parent.cfg.search_range
+        self.W = st.W
+        # per-picture lambdas (SetLagrangianMultipliers, lencod/src/slice.c
+        # :1261: 0.68 base with B pictures else 0.85, x0.95 non-SATD ME;
+        # B slices x clip3(2, 4, qp_temp/6))
+        base = (0.68 if parent.cfg.b_frames > 0 else 0.85) * 0.95
+        lam = base * 2.0 ** ((qp - 12) / 3.0)
+        if stype == SliceType.B:
+            lam *= min(4.0, max(2.0, (qp - 12) / 6.0))
+        self.lambda_mode = lam
+        self.lambda_me = int(np.sqrt(lam) * 65536 + 0.5)
+
+    # ------------------------------------------------------------------
+    def encode_mb(self, addr: int):
+        st = self.st
+        # decoder convention: ipredmode defaults to DC for every MB; I4
+        # overwrites per block (neighbors' MPM depends on this)
+        x4, y4 = st.mb_block_origin(addr)
+        st.ipredmode[y4 : y4 + 4, x4 : x4 + 4] = 2
+        if self.stype == SliceType.B:
+            self._encode_b_mb(addr)
+        elif self.stype == SliceType.P:
+            inter = self._try_inter(addr)
+            intra = self._intra_cost(addr)
+            if inter[0] <= intra[0]:
+                self._commit_inter(addr, inter)
+                return
+            self._commit_intra(addr, intra)
+        else:
+            intra = self._intra_cost(addr)
+            self._commit_intra(addr, intra)
+
+    # ------------------------------------------------------------------
+    # intra
+    # ------------------------------------------------------------------
+    def _mb_px(self, addr):
+        return (addr % self.W) * 16, (addr // self.W) * 16
+
+    def _intra_avail(self, addr):
+        st = self.st
+        up = st.mb_up(addr)
+        left = st.mb_left(addr)
+        ula, ulmb, *_ = st.luma4x4_neighbor(addr, -1, -1)
+        return up >= 0, left >= 0, ula
+
+    def _intra_cost(self, addr: int):
+        """Choose I16 mode (and later compare vs I4). Returns
+        (cost, 'I16', mode) or (cost, 'I4', None)."""
+        mx, my = self._mb_px(addr)
+        orig = self.Y[my : my + 16, mx : mx + 16]
+        au, al, aul = self._intra_avail(addr)
+        Yp = self.pl.Y
+        up = Yp[my - 1, mx : mx + 16] if au else np.zeros(16, np.int32)
+        left = Yp[my : my + 16, mx - 1] if al else np.zeros(16, np.int32)
+        upleft = int(Yp[my - 1, mx - 1]) if aul else 0
+        best = (1 << 60, None)
+        for mode in range(4):
+            if mode == IP.VERT_PRED_16 and not au:
+                continue
+            if mode == IP.HOR_PRED_16 and not al:
+                continue
+            if mode == IP.PLANE_16 and not (au and al and aul):
+                continue
+            pred = IP.pred16x16(mode, up, left, upleft, au, al, aul)
+            cost = int(np.abs(orig - pred).sum())
+            if cost < best[0]:
+                best = (cost, mode)
+        i16_cost, i16_mode = best
+        if self.p.cfg.enable_i4:
+            # I4 estimated cost: per-block best SAD against current recon
+            # neighbors (approximation: decision uses predicted-from-recon
+            # so committed recon matches; see _commit_i4)
+            i4_cost = self._i4_estimate(addr)
+            bias = int(6 * self.lambda_mode)
+            if i4_cost + bias < i16_cost:
+                return (i4_cost + bias, "I4", None)
+        return (i16_cost, "I16", i16_mode)
+
+    def _i4_estimate(self, addr: int) -> int:
+        """Sum of per-block best-mode SADs using original (not recon)
+        neighbors — a fast estimate for the I16-vs-I4 choice only."""
+        mx, my = self._mb_px(addr)
+        au, al, _ = self._intra_avail(addr)
+        total = 0
+        Yp = self.pl.Y
+        for blk in range(16):
+            bx, by = (int(v) for v in M.BLK4_TO_XY[blk])
+            px, py = mx + bx * 4, my + by * 4
+            orig = self.Y[py : py + 4, px : px + 4]
+            bu = au or by > 0
+            bl = al or bx > 0
+            up = self.Y[py - 1, px : px + 4] if bu else None
+            left = self.Y[py : py + 4, px - 1] if bl else None
+            cands = [IP.DC_PRED]
+            if bu:
+                cands.append(IP.VERT_PRED)
+            if bl:
+                cands.append(IP.HOR_PRED)
+            bestc = 1 << 60
+            for mode in cands:
+                pred = IP.pred4x4(
+                    mode,
+                    up.tolist() if up is not None else None,
+                    None,
+                    left.tolist() if left is not None else None,
+                    0,
+                    bu,
+                    bl,
+                    False,
+                    False,
+                )
+                c = int(np.abs(orig - pred).sum())
+                bestc = min(bestc, c)
+            total += bestc + 60  # ~4*lambda mode bits
+        return total
+
+    def _commit_intra(self, addr: int, intra):
+        _, kind, mode = intra
+        if kind == "I16":
+            self._commit_i16(addr, mode)
+        else:
+            self._commit_i4(addr)
+        self._encode_chroma_intra(addr)
+        self.st.is_intra[addr] = 1
+
+    # -- I16 ----------------------------------------------------------
+    def _commit_i16(self, addr: int, mode: int):
+        st, pl = self.st, self.pl
+        mx, my = self._mb_px(addr)
+        orig = self.Y[my : my + 16, mx : mx + 16]
+        au, al, aul = self._intra_avail(addr)
+        Yp = pl.Y
+        up = Yp[my - 1, mx : mx + 16] if au else np.zeros(16, np.int32)
+        left = Yp[my : my + 16, mx - 1] if al else np.zeros(16, np.int32)
+        upleft = int(Yp[my - 1, mx - 1]) if aul else 0
+        pred = IP.pred16x16(mode, up, left, upleft, au, al, aul)
+        res = orig - pred
+        qp = self.qp
+        # 4x4 transforms of all 16 blocks
+        blocks = res.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 4, 4)
+        # reorder rows: we want Z-order per BLK4; build raster-order (r, c)
+        blk_rc = res.reshape(4, 4, 4, 4).swapaxes(1, 2)  # [br][bc][4][4]
+        coefs = TR.forward4x4(blk_rc.astype(np.int64))
+        dc = coefs[:, :, 0, 0].copy()  # [br][bc]
+        # DC path: hadamard + quant
+        dch = TR.hadamard4x4(dc) >> 1  # JM: (hadamard)>>1 before quant
+        wi = None if self.p._ws4 is None else self.p._ws4[0]
+        dc_lev = Q.quant_luma_dc(dch, qp, intra=True, weight_scale=wi)
+        st.luma_dc[addr] = dc_lev
+        if dc_lev.any():
+            st.cbp_blk[addr] |= 1
+        # AC path
+        offset = Q.default_offset4(qp, True)
+        lev = Q.quant4x4(coefs, qp, offset, wi)
+        lev[:, :, 0, 0] = 0
+        cbp_ac = 0
+        for br in range(4):
+            for bc in range(4):
+                blk = int(M.XY_TO_BLK4[br, bc])
+                if lev[br, bc].any():
+                    cbp_ac = 15
+                    st.cbp_blk[addr] |= 1 << (4 * br + bc)
+                st.luma_levels[addr, blk] = lev[br, bc]
+        st.mb_type[addr] = M.I16MB
+        st.i16mode[addr] = mode
+        st.cbp[addr] = cbp_ac
+        # reconstruct exactly like the decoder
+        dc_deq = Q.dequant_luma_dc(
+            TR.hadamard4x4(dc_lev.astype(np.int64)), qp, wi)
+        rec = np.empty((16, 16), np.int32)
+        for br in range(4):
+            for bc in range(4):
+                blk = int(M.XY_TO_BLK4[br, bc])
+                coef = Q.dequant4x4(
+                    st.luma_levels[addr, blk], qp, wi).astype(np.int64)
+                coef[0, 0] = dc_deq[br, bc]
+                r4 = TR.inverse4x4(coef)
+                rec[br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4] = _add_residual(
+                    pred[br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4], r4
+                )
+        pl.Y[my : my + 16, mx : mx + 16] = rec
+
+    # -- I4 -----------------------------------------------------------
+    def _commit_i4(self, addr: int):
+        st, pl = self.st, self.pl
+        mx, my = self._mb_px(addr)
+        qp = self.qp
+        x4o, y4o = st.mb_block_origin(addr)
+        st.mb_type[addr] = M.I4MB
+        st.is_intra[addr] = 1  # needed for in-MB neighbor decisions
+        st.b8mode[addr] = M.IBLOCK
+        st.b8pdir[addr] = -1
+        offset = Q.default_offset4(qp, True)
+        wi = None if self.p._ws4 is None else self.p._ws4[0]
+        cbp = 0
+        for blk in range(16):
+            bx, by = (int(v) for v in M.BLK4_TO_XY[blk])
+            ioff, joff = bx * 4, by * 4
+            px, py = mx + ioff, my + joff
+            orig = self.Y[py : py + 4, px : px + 4]
+            pred, mode = self._best_i4_block(addr, ioff, joff, px, py, orig)
+            st.ipredmode[y4o + by, x4o + bx] = mode
+            res = (orig - pred).astype(np.int64)
+            coef = TR.forward4x4(res)
+            lev = Q.quant4x4(coef, qp, offset, wi)
+            if lev.any():
+                st.luma_levels[addr, blk] = lev
+                cbp |= 1 << (2 * (by // 2) + (bx // 2))
+                st.cbp_blk[addr] |= 1 << (4 * by + bx)
+                deq = Q.dequant4x4(lev, qp, wi).astype(np.int64)
+                rec = _add_residual(pred, TR.inverse4x4(deq))
+            else:
+                rec = pred
+            pl.Y[py : py + 4, px : px + 4] = rec
+        st.cbp[addr] = cbp
+
+    def _best_i4_block(self, addr, ioff, joff, px, py, orig):
+        st, pl = self.st, self.pl
+        la, lmb, *_ = st.luma4x4_neighbor(addr, ioff - 1, joff)
+        ua, umb, *_ = st.luma4x4_neighbor(addr, ioff, joff - 1)
+        ura, urmb, *_ = st.luma4x4_neighbor(addr, ioff + 4, joff - 1)
+        ula, ulmb, *_ = st.luma4x4_neighbor(addr, ioff - 1, joff - 1)
+        if ioff == 4 and (joff == 4 or joff == 12):
+            ura = False
+        if self.pps.constrained_intra_pred_flag:
+            la = la and bool(st.is_intra[lmb])
+            ua = ua and bool(st.is_intra[umb])
+            ura = ura and bool(st.is_intra[urmb])
+            ula = ula and bool(st.is_intra[ulmb])
+        Yp = pl.Y
+        up = Yp[py - 1, px : px + 4].tolist() if ua else None
+        upright = Yp[py - 1, px + 4 : px + 8].tolist() if ura else None
+        left = Yp[py : py + 4, px - 1].tolist() if la else None
+        upleft = int(Yp[py - 1, px - 1]) if ula else 0
+        # candidate modes by availability (spec constraints)
+        cands = [IP.DC_PRED]
+        if ua:
+            cands += [IP.VERT_PRED, IP.DIAG_DOWN_LEFT_PRED, IP.VERT_LEFT_PRED]
+        if la:
+            cands += [IP.HOR_PRED, IP.HOR_UP_PRED]
+        if ua and la and ula:
+            cands += [IP.DIAG_DOWN_RIGHT_PRED, IP.VERT_RIGHT_PRED, IP.HOR_DOWN_PRED]
+        mpm = self._mpm(addr, ioff >> 2, joff >> 2)
+        best = (1 << 60, None, None)
+        for mode in cands:
+            pred = IP.pred4x4(mode, up, upright, left, upleft, ua, la, ula, ura)
+            cost = int(np.abs(orig - pred).sum())
+            if mode != mpm:
+                cost += int(self.lambda_mode * 4)
+            if cost < best[0]:
+                best = (cost, pred, mode)
+        return best[1], best[2]
+
+    def _mpm(self, addr, bx, by):
+        st = self.st
+        la, lmb, _, _, lx, ly = st.luma4x4_neighbor(addr, (bx << 2) - 1, by << 2)
+        ua, umb, _, _, ux, uy = st.luma4x4_neighbor(addr, bx << 2, (by << 2) - 1)
+        if self.pps.constrained_intra_pred_flag:
+            la = la and bool(st.is_intra[lmb])
+            ua = ua and bool(st.is_intra[umb])
+        left_m = int(st.ipredmode[ly, lx]) if la else -1
+        up_m = int(st.ipredmode[uy, ux]) if ua else -1
+        return 2 if (left_m < 0 or up_m < 0) else min(left_m, up_m)
+
+    # -- chroma (intra) -------------------------------------------------
+    def _encode_chroma_intra(self, addr: int):
+        st, pl = self.st, self.pl
+        cw, ch = self.sps.mb_chroma_size
+        cx, cy = (addr % self.W) * cw, (addr // self.W) * ch
+        au, al, aul = self._intra_avail(addr)
+        best = (1 << 60, 0)
+        for mode in range(4):
+            if mode == IP.HOR_PRED_8 and not al:
+                continue
+            if mode == IP.VERT_PRED_8 and not au:
+                continue
+            if mode == IP.PLANE_8 and not (au and al and aul):
+                continue
+            cost = 0
+            for orig_plane, rec_plane in ((self.U, pl.U), (self.V, pl.V)):
+                up = rec_plane[cy - 1, cx : cx + cw] if au else np.zeros(cw, np.int32)
+                left = rec_plane[cy : cy + ch, cx - 1] if al else np.zeros(ch, np.int32)
+                upleft = int(rec_plane[cy - 1, cx - 1]) if (au and al and aul) else 0
+                pred = IP.pred_chroma(mode, up, left, upleft, au, al, cw, ch)
+                cost += int(
+                    np.abs(orig_plane[cy : cy + ch, cx : cx + cw] - pred).sum()
+                )
+            if cost < best[0]:
+                best = (cost, mode)
+        mode = best[1]
+        st.c_ipred_mode[addr] = mode
+        self._chroma_residual(addr, mode=mode, mc_pred=None)
+
+    def _chroma_residual(self, addr: int, mode=None, mc_pred=None):
+        """Quantize chroma residual (intra pred mode or MC pred given) and
+        reconstruct; updates cbp chroma bits."""
+        st, pl = self.st, self.pl
+        cw, ch = self.sps.mb_chroma_size
+        cx, cy = (addr % self.W) * cw, (addr // self.W) * ch
+        au, al, aul = self._intra_avail(addr)
+        cbp_c = 0  # 0 none, 1 dc only, 2 ac
+        intra = bool(st.is_intra[addr]) or mode is not None
+        recs = []
+        all_dc_levels = []
+        all_ac_levels = []
+        for uv, (orig_plane, rec_plane) in enumerate(((self.U, pl.U), (self.V, pl.V))):
+            qp_c = int(st.qpc[addr, uv])
+            if mc_pred is not None:
+                pred = mc_pred[uv]
+            else:
+                up = rec_plane[cy - 1, cx : cx + cw] if au else np.zeros(cw, np.int32)
+                left = rec_plane[cy : cy + ch, cx - 1] if al else np.zeros(ch, np.int32)
+                upleft = int(rec_plane[cy - 1, cx - 1]) if (au and al and aul) else 0
+                pred = IP.pred_chroma(mode, up, left, upleft, au, al, cw, ch)
+            orig = orig_plane[cy : cy + ch, cx : cx + cw]
+            res = (orig - pred).astype(np.int64)
+            blk_rc = res.reshape(2, 4, 2, 4).swapaxes(1, 2)  # [br][bc][4][4]
+            coefs = TR.forward4x4(blk_rc)
+            dc = coefs[:, :, 0, 0].copy()
+            dch = TR.hadamard2x2(dc)
+            wc = (None if self.p._ws4 is None
+                  else self.p._ws4[(1 if intra else 4) + uv])
+            dc_lev = Q.quant_chroma_dc(dch, qp_c, intra, weight_scale=wc)
+            st.chroma_dc[addr, uv] = dc_lev
+            offset = Q.default_offset4(qp_c, intra)
+            lev = Q.quant4x4(coefs, qp_c, offset, wc)
+            lev[:, :, 0, 0] = 0
+            for br in range(2):
+                for bc in range(2):
+                    st.chroma_levels[addr, uv, br * 2 + bc] = lev[br, bc]
+            if lev.any():
+                cbp_c = 2
+            elif dc_lev.any():
+                cbp_c = max(cbp_c, 1)
+            all_dc_levels.append(dc_lev)
+            all_ac_levels.append(lev)
+            recs.append((pred, qp_c))
+        # reconstruct
+        for uv, (orig_plane, rec_plane) in enumerate(((self.U, pl.U), (self.V, pl.V))):
+            pred, qp_c = recs[uv]
+            dch2 = TR.hadamard2x2(st.chroma_dc[addr, uv].astype(np.int64))
+            wc = (None if self.p._ws4 is None
+                  else self.p._ws4[(1 if intra else 4) + uv])
+            dc_deq = Q.dequant_chroma_dc(dch2, qp_c, wc)
+            rec = np.empty((ch, cw), np.int32)
+            for br in range(2):
+                for bc in range(2):
+                    coef = Q.dequant4x4(
+                        st.chroma_levels[addr, uv, br * 2 + bc], qp_c, wc
+                    ).astype(np.int64)
+                    coef[0, 0] = dc_deq[br, bc]
+                    if coef.any():
+                        r4 = TR.inverse4x4(coef)
+                        rec[br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4] = _add_residual(
+                            pred[br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4], r4
+                        )
+                    else:
+                        rec[br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4] = pred[
+                            br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4
+                        ]
+            rec_plane[cy : cy + ch, cx : cx + cw] = rec
+        st.cbp[addr] = int(st.cbp[addr]) + 16 * cbp_c
+
+    # ------------------------------------------------------------------
+    # inter
+    # ------------------------------------------------------------------
+    def _try_inter(self, addr: int, lst: int = 0):
+        """16x16 ME on reference list `lst`: grid lookup + MV cost + subpel
+        refine.  Returns (cost, mv, pred_y, pmv, mv_rate_cost)."""
+        st = self.st
+        mbx, mby = addr % self.W, addr // self.W
+        R = self.R
+        grid = self.grids[lst][:, :, mby, mbx]  # (2R+1, 2R+1)
+        px, py = predict_mv(st, addr, lst, 0, 0, 0, 4, 4)
+        lam = self.lambda_me
+        # integer search with MV cost
+        dyx = np.indices(grid.shape)
+        mvx_q = (dyx[1] - R) * 4
+        mvy_q = (dyx[0] - R) * 4
+        costs = grid.astype(np.int64)
+        # vectorized mv bit cost
+        bits = _mv_bits_vec(mvx_q - px) + _mv_bits_vec(mvy_q - py)
+        costs = costs + ((lam * bits) >> 16)
+        best_flat = int(np.argmin(costs))
+        bdy, bdx = divmod(best_flat, 2 * R + 1)
+        best_mv = ((bdx - R) * 4, (bdy - R) * 4)
+        best_cost = int(costs[bdy, bdx])
+        mx, my = self._mb_px(addr)
+        orig = self.Y[my : my + 16, mx : mx + 16]
+        Ypad = self.refs[lst][3][0]
+        if self.p.cfg.subpel:
+            for step in (2, 1):  # half then quarter
+                center = best_mv
+                for ddy in (-step, 0, step):
+                    for ddx in (-step, 0, step):
+                        if ddx == 0 and ddy == 0:
+                            continue
+                        mv = (center[0] + ddx, center[1] + ddy)
+                        pred = self._mc_luma(Ypad, mx, my, mv, 16, 16)
+                        c = int(np.abs(orig - pred).sum())
+                        c += (lam * (ME.mv_bits(mv[0] - px) + ME.mv_bits(mv[1] - py))) >> 16
+                        if c < best_cost:
+                            best_cost = c
+                            best_mv = mv
+        pred = self._mc_luma(Ypad, mx, my, best_mv, 16, 16)
+        mv_cost = (
+            lam * (ME.mv_bits(best_mv[0] - px) + ME.mv_bits(best_mv[1] - py))
+        ) >> 16
+        return (best_cost, best_mv, pred, (px, py), mv_cost)
+
+    def _mc_luma(self, Ypad, px, py, mv, w, h):
+        width, height = self.sps.width, self.sps.height
+        xi = px + (mv[0] >> 2)
+        yi = py + (mv[1] >> 2)
+        dx, dy = mv[0] & 3, mv[1] & 3
+        xi = max(-(MC.PAD - 8), min(width + MC.PAD - w - 8, xi))
+        yi = max(-(MC.PAD - 8), min(height + MC.PAD - h - 8, yi))
+        return MC.luma_block(Ypad, MC.PAD, xi, yi, dx, dy, w, h)
+
+    def _commit_inter(self, addr: int, inter):
+        st, pl = self.st, self.pl
+        _, mv, pred, (pmx, pmy), _mvc = inter
+        mx, my = self._mb_px(addr)
+        x4, y4 = st.mb_block_origin(addr)
+        qp = self.qp
+        self._luma_residual_recon(addr, pred, allow8x8=True)
+        st.mb_type[addr] = M.P16x16
+        st.b8mode[addr] = 1
+        st.b8pdir[addr] = 0
+        st.ref_idx[0, y4 : y4 + 4, x4 : x4 + 4] = 0
+        st.mv[0, y4 : y4 + 4, x4 : x4 + 4] = mv
+        st.ref_pic_id[0, y4 : y4 + 4, x4 : x4 + 4] = self.refs[0][0]
+        st.mvd[0, y4 : y4 + 4, x4 : x4 + 4] = (mv[0] - pmx, mv[1] - pmy)
+
+        # chroma MC prediction
+        cw, ch = self.sps.mb_chroma_size
+        cwidth, cheight = self.sps.width >> 1, self.sps.height >> 1
+        preds_c = []
+        for plane_pad in (self.refs[0][3][1], self.refs[0][3][2]):
+            cx_full = (mx >> 1) + (mv[0] >> 3)
+            cy_full = (my >> 1) + (mv[1] >> 3)
+            fx, fy = mv[0] & 7, mv[1] & 7
+            cx_full = max(-(MC.PAD - 4), min(cwidth + MC.PAD - cw - 4, cx_full))
+            cy_full = max(-(MC.PAD - 4), min(cheight + MC.PAD - ch - 4, cy_full))
+            preds_c.append(
+                MC.chroma_block(plane_pad, MC.PAD, cx_full, cy_full, fx, fy, cw, ch)
+            )
+        self._chroma_residual(addr, mc_pred=preds_c)
+
+        cbp = int(st.cbp[addr])
+        # P_Skip detection: 16x16, ref0, mv == pskip predictor, no residual
+        if cbp == 0:
+            skip_mv = _pskip_mv(st, addr)
+            if tuple(skip_mv) == tuple(mv):
+                st.skip_flag[addr] = 1
+                st.mb_type[addr] = M.PSKIP
+                st.b8mode[addr] = 0
+                st.mvd[0, y4 : y4 + 4, x4 : x4 + 4] = 0
+
+    # ------------------------------------------------------------------
+    # B slices (md_low-style decision over direct/L0/L1/BI/intra;
+    # capability reference: lencod/src/md_low.c + mv-search.c bi-pred)
+    # ------------------------------------------------------------------
+    def _encode_b_mb(self, addr: int):
+        st = self.st
+        mx, my = self._mb_px(addr)
+        orig = self.Y[my : my + 16, mx : mx + 16]
+        lam = self.lambda_me
+        # direct trial: derive spatial-direct motion into the state and
+        # predict exactly like the decoder (per-4x4 MC, bi-average)
+        _spatial_direct(st, addr, self.b_info)
+        pred_dir = self._pred_from_state(addr)
+        cost_dir = int(np.abs(orig - pred_dir[0]).sum())
+        c0 = self._try_inter(addr, 0)
+        c1 = self._try_inter(addr, 1)
+        pred_bi = (c0[2] + c1[2] + 1) >> 1
+        cost_bi = (
+            int(np.abs(orig - pred_bi).sum())
+            + c0[4]
+            + c1[4]
+            + ((lam * 3) >> 16)
+        )
+        intra = self._intra_cost(addr)
+        cands = [
+            (cost_dir, "DIR"),
+            (c0[0] + ((lam * 2) >> 16), "L0"),
+            (c1[0] + ((lam * 2) >> 16), "L1"),
+            (cost_bi, "BI"),
+            (intra[0] + ((lam * 24) >> 16), "INTRA"),
+        ]
+        best = min(cands, key=lambda t: t[0])[1]
+        if best == "DIR":
+            self._commit_direct(addr, pred_dir)
+        elif best == "INTRA":
+            self._reset_motion(addr)
+            self._commit_intra(addr, intra)
+        else:
+            pdir = {"L0": M.PD_L0, "L1": M.PD_L1, "BI": M.PD_BI}[best]
+            self._commit_b(addr, pdir, (c0[1], c1[1]), (c0[3], c1[3]))
+
+    def _reset_motion(self, addr: int):
+        st = self.st
+        x4, y4 = st.mb_block_origin(addr)
+        st.ref_idx[:, y4 : y4 + 4, x4 : x4 + 4] = -1
+        st.mv[:, y4 : y4 + 4, x4 : x4 + 4] = 0
+        st.ref_pic_id[:, y4 : y4 + 4, x4 : x4 + 4] = -(10**9)
+        st.mvd[:, y4 : y4 + 4, x4 : x4 + 4] = 0
+
+    def _pred_from_state(self, addr: int):
+        """MC prediction from the committed motion state, mirroring the
+        decoder's per-4x4 loop (decoder/recon.py _recon_inter) so the
+        encoder reconstruction is bit-exact with any conformant decode."""
+        st = self.st
+        mx, my = self._mb_px(addr)
+        x4, y4 = st.mb_block_origin(addr)
+        width, height = self.sps.width, self.sps.height
+        cw, chh = self.sps.mb_chroma_size
+        cwidth, cheight = width >> 1, height >> 1
+        pred_y = np.empty((16, 16), np.int32)
+        pred_u = np.empty((chh, cw), np.int32)
+        pred_v = np.empty((chh, cw), np.int32)
+        for by in range(4):
+            for bx in range(4):
+                px, py = mx + bx * 4, my + by * 4
+                ys, us, vs = [], [], []
+                for lst in (0, 1):
+                    ref = int(st.ref_idx[lst, y4 + by, x4 + bx])
+                    if ref < 0 or self.refs[lst] is None:
+                        continue
+                    mvx = int(st.mv[lst, y4 + by, x4 + bx, 0])
+                    mvy = int(st.mv[lst, y4 + by, x4 + bx, 1])
+                    Ypad, Upad, Vpad = self.refs[lst][3][:3]
+                    xi = px + (mvx >> 2)
+                    yi = py + (mvy >> 2)
+                    dx, dy = mvx & 3, mvy & 3
+                    xi = max(-(MC.PAD - 8), min(width + MC.PAD - 12, xi))
+                    yi = max(-(MC.PAD - 8), min(height + MC.PAD - 12, yi))
+                    ys.append(MC.luma_block(Ypad, MC.PAD, xi, yi, dx, dy, 4, 4))
+                    cx_full = (px >> 1) + (mvx >> 3)
+                    cy_full = (py >> 1) + (mvy >> 3)
+                    fx, fy = mvx & 7, mvy & 7
+                    cx_full = max(-(MC.PAD - 4), min(cwidth + MC.PAD - 8, cx_full))
+                    cy_full = max(-(MC.PAD - 4), min(cheight + MC.PAD - 8, cy_full))
+                    us.append(
+                        MC.chroma_block(Upad, MC.PAD, cx_full, cy_full, fx, fy, 2, 2)
+                    )
+                    vs.append(
+                        MC.chroma_block(Vpad, MC.PAD, cx_full, cy_full, fx, fy, 2, 2)
+                    )
+                if len(ys) == 2:
+                    yblk = (ys[0] + ys[1] + 1) >> 1
+                    ublk = (us[0] + us[1] + 1) >> 1
+                    vblk = (vs[0] + vs[1] + 1) >> 1
+                else:
+                    yblk, ublk, vblk = ys[0], us[0], vs[0]
+                pred_y[by * 4 : by * 4 + 4, bx * 4 : bx * 4 + 4] = yblk
+                pred_u[by * 2 : by * 2 + 2, bx * 2 : bx * 2 + 2] = ublk
+                pred_v[by * 2 : by * 2 + 2, bx * 2 : bx * 2 + 2] = vblk
+        return pred_y, pred_u, pred_v
+
+    def _luma_residual_recon(self, addr: int, pred, allow8x8=False) -> None:
+        """Inter luma residual coding + exact reconstruction against
+        `pred`; sets the luma cbp bits.  With allow8x8 and
+        cfg.transform8x8, an RD-style 4x4-vs-8x8 transform-size decision
+        is made per MB (lencod/src/transform8x8.c:258
+        TransformDecision, re-done as a two-candidate SSD+rate compare);
+        scaling matrices feed quant and dequant when configured."""
+        st, pl = self.st, self.pl
+        mx, my = self._mb_px(addr)
+        qp = self.qp
+        orig = self.Y[my : my + 16, mx : mx + 16]
+        res = (orig - pred).astype(np.int64)
+        w4 = None if self.p._ws4 is None else self.p._ws4[3]
+        blk_rc = res.reshape(4, 4, 4, 4).swapaxes(1, 2)
+        coefs = TR.forward4x4(blk_rc)
+        lev4 = Q.quant4x4(coefs, qp, Q.default_offset4(qp, False), w4)
+        rec4 = self._recon_luma4(pred, lev4, qp, w4)
+        if self.stype != SliceType.I:
+            # JM inter-luma coefficient thresholding (macroblock.c:1236
+            # per-8x8, :1386 whole-MB): isolated small coefficients cost
+            # more bits than their distortion gain
+            cost4 = np.zeros((4, 4), np.int64)
+            for br in range(4):
+                for bc in range(4):
+                    cost4[br, bc] = _coeff_cost_4x4(lev4[br, bc])
+            c8 = cost4.reshape(2, 2, 2, 2).sum((1, 3))
+            drop8 = c8 <= 4
+            if np.where(drop8, 0, c8).sum() <= 5:
+                drop8[:] = True
+            if drop8.any():
+                for qr in range(2):
+                    for qc in range(2):
+                        if drop8[qr, qc]:
+                            lev4[2 * qr : 2 * qr + 2, 2 * qc : 2 * qc + 2] = 0
+                rec4 = self._recon_luma4(pred, lev4, qp, w4)
+        use8 = False
+        if allow8x8 and self.p.cfg.transform8x8:
+            w8 = None if self.p._ws8 is None else self.p._ws8[1]
+            blk8 = res.reshape(2, 8, 2, 8).swapaxes(1, 2)
+            lev8 = Q.quant8x8(
+                TR.forward8x8(blk8), qp, Q.default_offset8(qp, False), w8)
+            rec8 = self._recon_luma8(pred, lev8, qp, w8)
+            lam = self.p.lambda_mode
+            c4 = float(((orig - rec4) ** 2).sum()) + lam * _est_coef_bits(lev4)
+            c8 = float(((orig - rec8) ** 2).sum()) + lam * _est_coef_bits(lev8)
+            use8 = c8 < c4
+        cbp = 0
+        if use8:
+            st.transform8x8[addr] = 1
+            for b8 in range(4):
+                qr, qc = b8 >> 1, b8 & 1
+                if lev8[qr, qc].any():
+                    st.luma8_levels[addr, b8] = lev8[qr, qc]
+                    cbp |= 1 << b8
+                    st.cbp_blk[addr] |= 51 << (4 * b8 - 2 * (b8 & 1))
+            pl.Y[my : my + 16, mx : mx + 16] = rec8
+        else:
+            st.transform8x8[addr] = 0
+            for br in range(4):
+                for bc in range(4):
+                    blk = int(M.XY_TO_BLK4[br, bc])
+                    if lev4[br, bc].any():
+                        st.luma_levels[addr, blk] = lev4[br, bc]
+                        cbp |= 1 << (2 * (br // 2) + (bc // 2))
+                        st.cbp_blk[addr] |= 1 << (4 * br + bc)
+            pl.Y[my : my + 16, mx : mx + 16] = rec4
+        st.cbp[addr] = cbp
+
+    def _recon_luma4(self, pred, lev4, qp, w4):
+        rec = np.empty((16, 16), np.int32)
+        for br in range(4):
+            for bc in range(4):
+                if lev4[br, bc].any():
+                    deq = Q.dequant4x4(lev4[br, bc], qp, w4).astype(np.int64)
+                    rec[br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4] = (
+                        _add_residual(
+                            pred[br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4],
+                            TR.inverse4x4(deq),
+                        )
+                    )
+                else:
+                    rec[br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4] = pred[
+                        br * 4 : br * 4 + 4, bc * 4 : bc * 4 + 4
+                    ].clip(0, 255)
+        return rec
+
+    def _recon_luma8(self, pred, lev8, qp, w8):
+        rec = np.empty((16, 16), np.int32)
+        for qr in range(2):
+            for qc in range(2):
+                po = pred[qr * 8 : qr * 8 + 8, qc * 8 : qc * 8 + 8]
+                if lev8[qr, qc].any():
+                    deq = Q.dequant8x8(lev8[qr, qc], qp, w8).astype(np.int64)
+                    rec[qr * 8 : qr * 8 + 8, qc * 8 : qc * 8 + 8] = (
+                        _add_residual(po, TR.inverse8x8(deq))
+                    )
+                else:
+                    rec[qr * 8 : qr * 8 + 8, qc * 8 : qc * 8 + 8] = (
+                        po.clip(0, 255)
+                    )
+        return rec
+
+    def _commit_b(self, addr: int, pdir: int, mvs, pmvs):
+        st = self.st
+        x4, y4 = st.mb_block_origin(addr)
+        st.mb_type[addr] = M.P16x16
+        st.b8mode[addr] = 1
+        st.b8pdir[addr] = pdir
+        st.skip_flag[addr] = 0
+        for lst in (0, 1):
+            if pdir == lst or pdir == M.PD_BI:
+                mv, p = mvs[lst], pmvs[lst]
+                st.ref_idx[lst, y4 : y4 + 4, x4 : x4 + 4] = 0
+                st.mv[lst, y4 : y4 + 4, x4 : x4 + 4] = mv
+                st.ref_pic_id[lst, y4 : y4 + 4, x4 : x4 + 4] = self.refs[lst][0]
+                st.mvd[lst, y4 : y4 + 4, x4 : x4 + 4] = (mv[0] - p[0], mv[1] - p[1])
+            else:
+                st.ref_idx[lst, y4 : y4 + 4, x4 : x4 + 4] = -1
+                st.mv[lst, y4 : y4 + 4, x4 : x4 + 4] = 0
+                st.ref_pic_id[lst, y4 : y4 + 4, x4 : x4 + 4] = -(10**9)
+                st.mvd[lst, y4 : y4 + 4, x4 : x4 + 4] = 0
+        pred_y, pred_u, pred_v = self._pred_from_state(addr)
+        self._luma_residual_recon(addr, pred_y, allow8x8=True)
+        self._chroma_residual(addr, mc_pred=(pred_u, pred_v))
+
+    def _commit_direct(self, addr: int, pred):
+        st = self.st
+        x4, y4 = st.mb_block_origin(addr)
+        pred_y, pred_u, pred_v = pred
+        st.mb_type[addr] = M.BSKIP_DIRECT
+        st.b8mode[addr] = M.B8_DIRECT
+        st.b8pdir[addr] = M.PD_BI
+        st.mvd[:, y4 : y4 + 4, x4 : x4 + 4] = 0
+        self._luma_residual_recon(addr, pred_y)
+        self._chroma_residual(addr, mc_pred=(pred_u, pred_v))
+        if int(st.cbp[addr]) == 0:
+            st.skip_flag[addr] = 1
+
+
+_COEFF_COST_RUN = np.array(
+    [3, 2, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], np.int64)
+
+
+def _coeff_cost_4x4(lev, first: int = 0) -> int:
+    """JM coeff_cost of one 4x4 level block (lencod/src/block.c:899):
+    |level| > 1 counts 9, |level| == 1 counts COEFF_COST4x4[run]."""
+    cost = 0
+    run = -1
+    for k in range(first, 16):
+        x, y = _ZZ4[k]
+        run += 1
+        v = int(lev[y, x])
+        if v:
+            cost += 9 if abs(v) > 1 else int(_COEFF_COST_RUN[run])
+            run = -1
+    return cost
+
+
+def _est_coef_bits(lev) -> int:
+    """Cheap coefficient-rate estimate for the transform-size decision:
+    2*bitlength(|l|)+1 per nonzero (Exp-Golomb-shaped)."""
+    a = np.abs(np.asarray(lev, np.int64)).ravel()
+    nz = a[a > 0]
+    if not nz.size:
+        return 0
+    return int((2 * np.floor(np.log2(nz)).astype(np.int64) + 3).sum())
+
+
+def _mv_bits_vec(d):
+    """Vectorized se(v) code length: 2*bitlength(k+1) - 1."""
+    k = 2 * np.abs(d.astype(np.int64)) - (d > 0)
+    bl = np.floor(np.log2(k + 1)).astype(np.int64) + 1
+    return 2 * bl - 1
 
 
 def b_lambda_fx(qp: int, is_ref: bool) -> int:

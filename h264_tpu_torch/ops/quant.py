@@ -8,12 +8,10 @@ path macroblock.c:3838-3857).
 
 ``qp`` may be a Python int or a 0-d tensor; it selects a table row and
 the shifts, so it is read as an int once per call (a 0-d CUDA tensor is
-fetched to the host there).  The dequant functions take int tensors (the
-encoder, flat scaling) or numpy arrays (the decoder's host
-reconstruction, with the SPS/PPS scaling matrices as ``weight_scale``)
-and return the same kind; the quant functions take tensors and flat
-scaling only (custom scaling matrices ride the host path of the
-reference package, ROADMAP Queue 1, "Host-path ME").
+fetched to the host there).  Every function takes int tensors (the
+device pipelines, flat scaling) or numpy arrays (the decoder's host
+reconstruction and the host-path encoder, with the SPS scaling matrices as
+``weight_scale``) and returns the same kind.
 """
 
 from __future__ import annotations
@@ -161,14 +159,25 @@ def dequant_chroma_dc(dc_hadamard, qp_c, weight_scale=None):
     return t << (per - 5)
 
 
-def quant4x4(coefs, qp, offset):
+def _mf_weighted(mf, weight_scale):
+    """Encoder MF under a custom scaling matrix: MF * 16 / w with
+    truncating division, as JM (q_matrix.c CalculateQuantParam:
+    LevelScale = (quant_coef << 4) / ScalingList); `mf` unchanged for flat
+    scaling."""
+    if weight_scale is None:
+        return mf
+    w = np.asarray(weight_scale, np.int64)
+    return ((mf.astype(np.int64) << 4) // w).astype(np.int32)
+
+
+def quant4x4(coefs, qp, offset, weight_scale=None):
     """level = sign(c) * ((|c| * MF + offset) >> qbits).
 
     `offset` is the rounding offset already scaled to qbits (JM
     LevelOffset4x4: base (intra ? 682 : 342) << (qbits - 11))."""
     per, rem = _per_rem(qp)
-    mf = _like(QUANT4[rem], coefs)
-    lev = (coefs.abs() * mf + offset) >> (Q_BITS_4 + per)
+    mf = _like(_mf_weighted(QUANT4[rem], weight_scale), coefs)
+    lev = (abs(coefs) * mf + offset) >> (Q_BITS_4 + per)
     return _copysign(lev, coefs)
 
 
@@ -180,11 +189,11 @@ def default_offset4(qp, intra: bool) -> int:
     return (682 if intra else 342) << (Q_BITS_4 + per - 11)
 
 
-def quant8x8(coefs, qp, offset):
+def quant8x8(coefs, qp, offset, weight_scale=None):
     """8x8 level = sign(c) * ((|c| * MF8 + offset) >> (16 + qp/6))."""
     per, rem = _per_rem(qp)
-    mf = _like(QUANT8[rem], coefs)
-    lev = (coefs.abs() * mf + offset) >> (Q_BITS_8 + per)
+    mf = _like(_mf_weighted(QUANT8[rem], weight_scale), coefs)
+    lev = (abs(coefs) * mf + offset) >> (Q_BITS_8 + per)
     return _copysign(lev, coefs)
 
 
@@ -195,26 +204,28 @@ def default_offset8(qp, intra: bool) -> int:
     return (682 if intra else 342) << (Q_BITS_8 + per - 11)
 
 
-def _quant_dc(dc_hadamard, qp, intra: bool):
+def _quant_dc(dc_hadamard, qp, intra: bool, weight_scale=None):
     per, rem = _per_rem(qp)
-    mf00 = int(QUANT4[rem, 0, 0])
+    mf00 = int(_mf_weighted(QUANT4[rem], weight_scale)[0, 0])
     offset = default_offset4(qp, intra) * 2
-    lev = (dc_hadamard.abs() * mf00 + offset) >> (Q_BITS_4 + per + 1)
+    lev = (abs(dc_hadamard) * mf00 + offset) >> (Q_BITS_4 + per + 1)
     return _copysign(lev, dc_hadamard)
 
 
-def quant_luma_dc(dc_hadamard, qp, intra: bool = True):
+def quant_luma_dc(dc_hadamard, qp, intra: bool = True, weight_scale=None):
     """Quantize the 4x4 Hadamard of luma DC:
     (|c| * MF00 + 2*offset) >> (qbits+1)."""
-    return _quant_dc(dc_hadamard, qp, intra)
+    return _quant_dc(dc_hadamard, qp, intra, weight_scale)
 
 
-def quant_chroma_dc(dc_hadamard, qp_c, intra: bool):
+def quant_chroma_dc(dc_hadamard, qp_c, intra: bool, weight_scale=None):
     """Quantize the 2x2 chroma DC Hadamard:
     (|c| * MF00 + 2*offset) >> (qbits+1)."""
-    return _quant_dc(dc_hadamard, qp_c, intra)
+    return _quant_dc(dc_hadamard, qp_c, intra, weight_scale)
 
 
 def _copysign(mag, src):
     """mag with the sign of src."""
-    return torch.where(src < 0, -mag, mag)
+    if isinstance(src, torch.Tensor):
+        return torch.where(src < 0, -mag, mag)
+    return np.where(src < 0, -mag, mag)

@@ -37,6 +37,7 @@ import torch
 from ..encoder import encoder as E
 from ..encoder import rd_b as RDB
 from ..encoder.syntax_cabac import CabacSliceWriter
+from .devprof import device_profile
 from .synthseq import moving_frames
 
 SIZES = ((352, 288), (1280, 720))
@@ -133,35 +134,14 @@ def _phases(size, n: int) -> dict:
 
 
 def _device_profile(size) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
     steps = _Steps(size, 7, seed=6)
     steps.until_before_b()
     steps.step()  # warm B
     steps.until_before_b()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        kind = steps.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    kind, report = device_profile(steps.step, 14)
     if kind != "B":
         raise RuntimeError("profile_b: expected a B picture")
-    kern = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kern[e.name][0] += e.time_range.elapsed_us() / 1e3
-            kern[e.name][1] += 1
-    busy = sum(v[0] for v in kern.values())
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:14]
-    return {
-        "wall_ms": round(wall, 3),
-        "device_busy_ms": round(busy, 3) if kern else "not measured",
-        "idle_share": round(1 - busy / wall, 4) if kern else "not measured",
-        "kernels": {name[:60]: {"ms": round(ms, 4), "count": c}
-                    for name, (ms, c) in top},
-    }
+    return report
 
 
 def main(argv=None) -> int:

@@ -41,6 +41,7 @@ from ..decoder import decoder as DD
 from ..decoder import device as DEV
 from ..decoder.recon import PictureReconstructor
 from ..encoder.encoder import EncoderConfig, H264Encoder
+from .devprof import device_profile
 from .synthseq import moving_frames
 
 SIZES = {(352, 288): 9, (1280, 720): 5}
@@ -180,30 +181,9 @@ def _phases(data: bytes) -> dict:
 
 
 def _device_profile(data: bytes) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pics = DD.decode_annexb(data, device="cuda")
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kern[e.name][0] += e.time_range.elapsed_us() / 1e3
-            kern[e.name][1] += 1
-    busy = sum(v[0] for v in kern.values())
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
-    return {
-        "pictures": len(pics),
-        "wall_ms": round(wall, 3),
-        "device_busy_ms": round(busy, 3) if kern else "not measured",
-        "idle_share": round(1 - busy / wall, 4) if kern else "not measured",
-        "kernels": {name[:60]: {"ms": round(ms, 4), "count": c}
-                    for name, (ms, c) in top},
-    }
+    pics, report = device_profile(
+        lambda: DD.decode_annexb(data, device="cuda"), 10)
+    return {"pictures": len(pics), **report}
 
 
 def main(argv=None) -> int:

@@ -32,6 +32,7 @@ import torch
 from ..encoder import encoder as E
 from ..encoder import rd
 from ..encoder.syntax_cabac import CabacSliceWriter
+from .devprof import device_profile
 from .synthseq import synthetic_frames
 
 SIZES = ((352, 288), (1280, 720))
@@ -82,35 +83,14 @@ def _phases(size, n: int) -> dict:
 
 
 def _device_profile(size) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
     W, H = size
     enc = E.H264Encoder(E.EncoderConfig(
         width=W, height=H, qp=28, fast=True, entropy="cabac", idr_period=1),
         device="cuda")
     frames = synthetic_frames(2, W, H, seed=6)
     enc.encode_frame(frames[0], True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        enc.encode_frame(frames[1], True)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kern[e.name][0] += e.time_range.elapsed_us() / 1e3
-            kern[e.name][1] += 1
-    busy = sum(v[0] for v in kern.values())
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
-    return {
-        "wall_ms": round(wall, 3),
-        "device_busy_ms": round(busy, 3) if kern else "not measured",
-        "idle_share": round(1 - busy / wall, 4) if kern else "not measured",
-        "kernels": {name[:60]: {"ms": round(ms, 4), "count": c}
-                    for name, (ms, c) in top},
-    }
+    return device_profile(lambda: enc.encode_frame(frames[1], True),
+                          6)[1]
 
 
 def main(argv=None) -> int:

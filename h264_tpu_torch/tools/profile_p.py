@@ -41,6 +41,7 @@ from ..encoder import encoder as E
 from ..encoder import rd_p as RDP
 from ..encoder.syntax_cabac import CabacSliceWriter
 from ..encoder.syntax_cavlc import CavlcSliceWriter
+from .devprof import device_profile
 from .synthseq import moving_frames
 
 SIZES = ((352, 288), (1280, 720))
@@ -99,34 +100,12 @@ def _phases(size, n: int, entropy: str, t8: bool) -> dict:
 
 
 def _device_profile(size, entropy: str, t8: bool) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
     W, H = size
     enc = E.H264Encoder(_cfg(W, H, entropy, t8), device="cuda")
     gen = enc.encode_stream(moving_frames(4, W, H, seed=6), depth=1)
     for _ in range(3):
         next(gen)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        next(gen)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kern[e.name][0] += e.time_range.elapsed_us() / 1e3
-            kern[e.name][1] += 1
-    busy = sum(v[0] for v in kern.values())
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
-    return {
-        "wall_ms": round(wall, 3),
-        "device_busy_ms": round(busy, 3) if kern else "not measured",
-        "idle_share": round(1 - busy / wall, 4) if kern else "not measured",
-        "kernels": {name[:60]: {"ms": round(ms, 4), "count": c}
-                    for name, (ms, c) in top},
-    }
+    return device_profile(lambda: next(gen), 12)[1]
 
 
 def main(argv=None) -> int:

@@ -206,6 +206,17 @@ def test_port_encode_imports_no_jax():
         "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
         "assert len(s) > 50 and enc.sps.profile_idc == 100\n"
         "assert len(decode_annexb(s, device='cpu')) == 3\n"
+        "cfg = EncoderConfig(width=48, height=32, search_range=4)\n"
+        "enc = H264Encoder(cfg, device='cpu')\n"
+        "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
+        "assert len(s) > 50 and not cfg.fast\n"
+        "assert [p.to_yuv_bytes() for p in decode_annexb(s, device='cpu')]"
+        " == [p.to_yuv_bytes() for p in decode_annexb(s, use_device=False)]\n"
+        "cfg = EncoderConfig(width=48, height=32, search_range=4, b_frames=1,"
+        " slice_mode=1, slice_argument=2, partition_mode=1)\n"
+        "s = H264Encoder(cfg, device='cpu').encode_sequence("
+        "synthetic_frames(3, 48, 32))\n"
+        "assert len(decode_annexb(s, device='cpu')) == 3\n"
         "d = open('tests/streams/wp_b_expl.264', 'rb').read()\n"
         "a = decode_annexb(d, device='cpu')\n"
         "b = decode_annexb(d, use_device=False)\n"
@@ -231,9 +242,13 @@ def test_default_device_raises_without_card(monkeypatch):
 
 
 # configurations ported since this test listed them (the cases keep
-# their names): what the encoder now signals for each
-_PORTED_SINCE = {"entropy=cavlc": (66, False, False),
-                 "transform8x8=True": (100, True, True)}
+# their names): what the encoder now signals for each (profile, CABAC,
+# transform_8x8_mode_flag, several slices, host path)
+_PORTED_SINCE = {"entropy=cavlc": (66, False, False, False, False),
+                 "transform8x8=True": (100, True, True, False, False),
+                 "fast=False": (77, True, False, False, True),
+                 "slice_mode=1-slice_argument=11": (77, True, False, True,
+                                                    False)}
 
 
 @pytest.mark.parametrize("kw", [
@@ -246,9 +261,12 @@ _PORTED_SINCE = {"entropy=cavlc": (66, False, False),
 ], ids=lambda kw: "-".join(f"{k}={v}" if k != "scaling_lists" else k
                            for k, v in kw.items()))
 def test_unported_configuration_raises(kw):
-    """Each unported configuration raises naming its ROADMAP item; CAVLC
-    and the 8x8 transform are ported and set the profile (Baseline, High),
-    the PPS entropy flag and transform_8x8_mode_flag instead."""
+    """Each unported configuration raises naming its ROADMAP item; CAVLC,
+    the 8x8 transform, the host path (fast=False) and multi-slice are
+    ported and set the profile (Baseline, High), the PPS entropy flag and
+    transform_8x8_mode_flag, the multi-slice flag and the path instead;
+    scaling matrices with fast=True raise where the reference asserts
+    (they run on the host path)."""
     base = dict(width=W, height=H, fast=True, rd=True, entropy="cabac",
                 idr_period=1)
     base.update(kw)
@@ -256,7 +274,14 @@ def test_unported_configuration_raises(kw):
     if key in _PORTED_SINCE:
         enc = H264Encoder(EncoderConfig(**base), device="cpu")
         assert (enc.sps.profile_idc, enc.pps.entropy_coding_mode_flag,
-                enc.pps.transform_8x8_mode_flag) == _PORTED_SINCE[key]
+                enc.pps.transform_8x8_mode_flag, enc._multi_slice,
+                not enc.cfg.fast) == _PORTED_SINCE[key]
+        return
+    if "scaling_lists" in kw:
+        with pytest.raises(AssertionError, match="host path"):
+            JaxEncoder(JaxConfig(**base))
+        with pytest.raises(ValueError, match="host path"):
+            H264Encoder(EncoderConfig(**base), device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         H264Encoder(EncoderConfig(**base), device="cpu")

@@ -10,8 +10,9 @@ port is installed:
 (the CPU side of each kernel is held against the JAX package by
 test_torch_intra.py, test_torch_bank.py, test_torch_encode.py, the
 test_torch_p_*.py, test_torch_t8_*.py and test_torch_b_*.py files, for
-K9 also test_torch_ops.py, and for K8 test_torch_decode_ops.py and
-test_torch_decode.py)."""
+K9 also test_torch_ops.py, for K8 test_torch_decode_ops.py and
+test_torch_decode.py, and for K10 test_torch_me.py and the
+test_torch_host_*.py files)."""
 
 import pathlib
 
@@ -30,6 +31,7 @@ from h264_tpu_torch.kernels import inter_tq as K5
 from h264_tpu_torch.kernels import intra_commit as K1
 from h264_tpu_torch.kernels import qpel as K4
 from h264_tpu_torch.kernels import ref_bank as K2
+from h264_tpu_torch.kernels import sad_grid as K10
 from h264_tpu_torch.kernels import search_grid as K3
 from h264_tpu_torch.kernels import t8 as K9
 from h264_tpu_torch.ops.exact import chroma_qp
@@ -502,3 +504,73 @@ def test_decoder_on_card_matches_cpu(cuda, path):
     assert card == cpu == host
     if path.stem not in ("cabac_ipcm", "cavlc_ipcm", "field"):
         assert K8.decode_inter.launches > before
+
+
+# ---------------------------------------------------------------------------
+# K10: the host-path encoder's SAD grids, and the host path on the card
+# ---------------------------------------------------------------------------
+
+def _sad_inputs(content, W, H, R, seed, device):
+    rs = np.random.RandomState(seed)
+    if content == "random":
+        cur, ref = rs.randint(0, 256, (2, H, W))
+    elif content == "flat":
+        cur, ref = np.full((2, H, W), 117)
+    else:  # 0/255: every term at its largest
+        cur, ref = np.full((H, W), 255), np.zeros((H, W), np.int64)
+    ref_p = np.pad(ref, R, mode="edge")
+    return (torch.as_tensor(cur, dtype=torch.int32, device=device),
+            torch.as_tensor(ref_p, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("content", ["random", "flat", "0_255"])
+@pytest.mark.parametrize("R", [0, 1, 8, 16, 28, 32, 64])
+@pytest.mark.parametrize("W,H", [(176, 144), (352, 288), (1280, 720)],
+                         ids=lambda v: str(v))
+def test_sad_grid_matches_plain(cuda, W, H, R, content):
+    cur, ref = _sad_inputs(content, W, H, R, seed=W + R, device=cuda)
+    before = K10.sad_grid_16x16.launches
+    got = K10.sad_grid_16x16(cur, ref, R)
+    assert K10.sad_grid_16x16.launches == before + 1
+    want = K10.sad_grid_16x16_plain(cur, ref, R)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    if content == "0_255":
+        assert int(got.min()) == int(got.max()) == 255 * 256
+
+
+def test_sad_grid_rejects_bad_input(cuda):
+    cur, ref = _sad_inputs("random", 48, 32, 4, seed=1, device=cuda)
+    with pytest.raises(ValueError, match="ref_padded"):
+        K10.sad_grid_16x16(cur, ref[:-1], 4)
+    with pytest.raises(ValueError, match="cur"):
+        K10.sad_grid_16x16(cur.to(torch.int64), ref, 4)
+    with pytest.raises(ValueError, match="whole MBs"):
+        K10.sad_grid_16x16(cur[:-1], ref, 4)
+    with pytest.raises(ValueError, match="negative"):
+        K10.sad_grid_16x16(cur, ref, -1)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"entropy": "cabac", "b_frames": 1},
+    {"slice_mode": 1, "slice_argument": 33},
+    {"num_slice_groups": 2, "slice_group_map_type": 2,
+     "slice_group_rects": ((12, 58),)},
+    {"partition_mode": 1, "redundant_pics": True},
+    {"entropy": "cabac", "transform8x8": True, "b_frames": 1,
+     "fast": True, "slice_mode": 1, "slice_argument": 50}],
+    ids=["cavlc", "cabac_ipb", "slices", "fmo2", "dp_redundant",
+         "fast_slices_t8_ipb"])
+def test_host_path_encoder_on_card_matches_cpu(cuda, kw):
+    """The host-path encoder (K10 for the grids) on the card writes the
+    stream and recons it writes on the CPU, and K10 ran."""
+    frames = moving_frames(5, 176, 144, seed=8)
+    cfg = EncoderConfig(width=176, height=144, search_range=8, **kw)
+    before = K10.sad_grid_16x16.launches
+    card = H264Encoder(cfg)
+    cpu = H264Encoder(cfg, device="cpu")
+    assert card.encode_sequence(frames) == cpu.encode_sequence(frames)
+    assert K10.sad_grid_16x16.launches > before
+    for (_, a), (_, b) in zip(card.all_recons, cpu.all_recons):
+        for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
+            np.testing.assert_array_equal(x, y)
