@@ -13,7 +13,13 @@
    the card, bit for bit, on the real inputs of P pictures (1 I + 2 P) at
    CIF and 1280x720, QP 28 and 51, weighted prediction on and off, with 5
    reference frames and search range 28; times kernel and plain version
-   per P picture at both sizes (QP 28, WP on); holds K9 (``t8_decide``,
+   per P picture at both sizes (QP 28, WP on); holds every entry of the
+   tile-row path (``rd_rows``: the P entries but the coarse search, per
+   row slab) against its plain version on the real inputs of P pictures
+   in 3 rows (1 I + 2 P, CIF and 1280x720, QP 28, WP off, 5 reference
+   frames, search range 28) and on built CIF inputs whose motion reaches
+   +-28 up to every slab edge (tools/rows_cases.py), and times both per
+   rows P picture; holds K9 (``t8_decide``,
    the 8x8-transform decision) against its plain version on the real
    inputs of P pictures with the 8x8 transform (1 I + 2 P, CIF and
    1280x720, QP 28 and 51, WP on) and on built inputs (QP 0 with +-255
@@ -43,9 +49,16 @@
    CAVLC IPPP (3 CIF), CABAC IPB (5 CIF), and at 176x144 multi-slice
    (``slice_mode=1``), FMO map type 2, CAVLC data partitioning with
    redundant slices and the scaling matrices of the in-repo qmat stream
-   (3 frames each), through ``H264Encoder(..., device="cuda")
-   .encode_stream``, each with the kernels' launch counters set to 0 just
-   before and read just after; then holds K10 (``sad_grid_16x16``, the
+   (3 frames each), and the tile rows and the rate control: the IPPP
+   configuration in 3 tile rows (WP off; 6 CIF and 3 1280x720 frames),
+   CAVLC IPPP in 3 rows under rate control at 1.4 Mb/s (one reference,
+   search range 8, 6 CIF frames), the bench configuration without WP under
+   rate control at 1.0 Mb/s (9 CIF frames) and the host path's CAVLC IPPP
+   under rate control at 350 kb/s (3 176x144 frames), through
+   ``H264Encoder(..., device="cuda").encode_stream``, each with the
+   kernels' launch counters set to 0 just before and read just after (and
+   read around each picture: a tile-row P picture's launches); then holds
+   K10 (``sad_grid_16x16``, the
    host path's SAD grids) against its plain version on every input the
    host-path encodes gave it and on built ones (176x144, CIF, 1280x720;
    search ranges 0, 16 and 64; random and 0/255 planes), and times it per
@@ -54,11 +67,13 @@
    ``unfold``ed windows;
 6. encodes the same frames at CIF (the host path's 176x144 ones at
    176x144) through the kernels' plain versions on the card (the IPB-T8
-   path: its first 5 frames, encoded again through the kernels) and
-   requires the identical streams, recons and reference entries (the
-   1280x720 encodes are not repeated: steps 2-4 hold every entry on
-   recorded 720p inputs, and K1's plain version alone takes several
-   seconds per CIF picture);
+   path: its first 5 frames, encoded again through the kernels; not the
+   fixed-QP tile rows, whose entries step 3 holds on their inputs), each
+   path in a worker process of its own (6 at a time: the plain versions
+   are host-bound), and requires the identical streams, recons and
+   reference entries (the 1280x720 encodes are not repeated: steps 2-4
+   hold every entry on recorded 720p inputs, and K1's plain version alone
+   takes several seconds per CIF picture);
 7. the decoder: decodes the 17 in-repo streams (QCIF) and every stream
    of step 5 with ``H264Decoder(device="cuda")``, recording K8's
    (``decode_inter``) inputs, and requires each decode to be
@@ -77,12 +92,15 @@
    the decode per picture type, device and host path;
 8. prints per-picture times for I, P and B pictures (CUDA events and host
    clock around each ``encode_stream`` step, pipeline depth 1), their
-   means per type with sample counts, PSNR-Y, bytes and the mode mixes
-   (with the 8x8 transform, the share of 8x8-transform MBs among the P
-   MBs), a ``kernels`` JSON line (launches from the main path, the bench
-   configuration; K9's from the IPB-T8 path; K10's from the CIF host-path
-   IPPP and IPB encodes; K8's from the decode of step 7), the card's name
-   and power limit, and as its last line the result object.
+   means per type with sample counts, PSNR-Y, bytes, each slice's QP and
+   the mode mixes (with the 8x8 transform, the share of 8x8-transform MBs
+   among the P MBs), the achieved bitrate of each rate-controlled stream
+   against its target, a tile-row P picture's launches, a ``kernels``
+   JSON line (launches from the main path, the bench configuration; K9's
+   from the IPB-T8 path; K10's from the CIF host-path IPPP and IPB
+   encodes; K8's from the decode of step 7; and each entry's launches per
+   CIF tile-row P picture), the card's name and power limit, and as its
+   last line the result object.
 
 Inputs are seeded synthetic frames (h264_tpu_torch/tools/synthseq.py).
 Exits non-zero, printing no result, when no CUDA card is present or the
@@ -94,10 +112,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -110,7 +130,12 @@ N_HIER = 9  # hierarchical IPB at CIF: I, 2 x (P, stored B, 2 B)
 N_IPB_T8_PLAIN = 5  # the IPB-T8 path's frames held against the plain path
 QCIF = (176, 144)
 N_HOST = {"P": 3, "B": 5}  # host-path frames: I P P, I P B P B
+ROWS = 3  # tile-row slices per P picture (96 lines at CIF, 240 at 720p)
+# rate control targets (bits/s): the reference's QCIF test rate (350 kb/s)
+# scaled by pixels to CIF; the bench configuration; the QCIF host path
+RC_ROWS, RC_IPB, RC_HOST = 1.4e6, 1.0e6, 350e3
 SEED = 2026
+PLAIN_WORKERS = 6  # processes of step 6 (the card's host has 8 cores)
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and the
 # non-tensor float32 rate, used as the int32 rate (the card has half as
 # many INT32 lanes, so the operation bound below is optimistic)
@@ -189,6 +214,40 @@ SOURCES = {
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def plain_encode(job):
+    """Step 6's worker: encode `fr` under `cfg` through the kernels' plain
+    versions on the card (pipeline depth 1).  Returns the stream, the
+    recon planes, the reference entries as numpy arrays and the seconds
+    taken."""
+    import torch
+
+    from h264_tpu_torch.bitstream import write_annexb
+    from h264_tpu_torch.encoder import rd_b, rd_p
+    from h264_tpu_torch.encoder.encoder import H264Encoder
+    from h264_tpu_torch.kernels import intra_commit as K1
+    from h264_tpu_torch.kernels import ref_bank as K2
+    from h264_tpu_torch.kernels import sad_grid as K10
+
+    class PlainEncoder(H264Encoder):
+        _intra_step = staticmethod(K1.intra_commit_step_plain)
+        _ref_bank = staticmethod(K2.ref_bank_plain)
+        _sad_grid = staticmethod(K10.sad_grid_16x16_plain)
+        _p_kernels = rd_p.PLAIN
+        _b_kernels = rd_b.PLAIN
+
+    _, _, cfg, fr = job
+    t0 = time.perf_counter()
+    enc = PlainEncoder(cfg, device="cuda")
+    nalus = enc.headers()
+    for out in enc.encode_stream(fr, depth=1):
+        nalus.extend(out)
+    recons = [(p.Y, p.U, p.V) for _, p in enc.all_recons]
+    refs = [(e[0], [x.cpu().numpy() for x in (*e[1:3], *e[3])])
+            for e in enc._rd_refs]
+    torch.cuda.synchronize()
+    return write_annexb(nalus), recons, refs, time.perf_counter() - t0
 
 
 def luma_planes(mvx, mvy) -> int:
@@ -440,7 +499,7 @@ def main(argv=None) -> int:
     from h264_tpu_torch.bitstream import iter_annexb_nalus, write_annexb
     from h264_tpu_torch.decoder import device as DEV
     from h264_tpu_torch.decoder.decoder import H264Decoder
-    from h264_tpu_torch.encoder import rd, rd_b, rd_p
+    from h264_tpu_torch.encoder import rd, rd_b, rd_p, rd_rows
     from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
     from h264_tpu_torch.kernels import decode_inter as K8
     from h264_tpu_torch.kernels import intra_commit as K1
@@ -452,7 +511,9 @@ def main(argv=None) -> int:
     from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
     from h264_tpu_torch.tools.decode_cases import built_cases as dec_cases
     from h264_tpu_torch.tools.decode_cases import clip_sides
+    from h264_tpu_torch.syntax.slice_header import parse_slice_header
     from h264_tpu_torch.tools.profile_decode import mean_by_type, timed_decode
+    from h264_tpu_torch.tools.rows_cases import edge_motion
     from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                       strengths_b_inputs)
     from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
@@ -563,27 +624,48 @@ def main(argv=None) -> int:
                              weighted_pred=wp, **kw)
 
     kern = rd_p.default_kernels()
+
+    def hold_p(calls, what):
+        """Each recorded P entry call through its kernel and its plain
+        version; fail on any difference."""
+        torch.cuda.synchronize()
+        for name, cargs in calls:
+            got = getattr(kern, name)(*cargs)
+            want = getattr(rd_p.PLAIN, name)(*cargs)
+            if isinstance(want, torch.Tensor):
+                got, want = (got,), (want,)
+            for i, (g, w) in enumerate(zip(got, want)):
+                d = (g.long() - w.long()).abs()
+                e = int(d.max()) if d.numel() else 0
+                err[name] = max(err[name], e)
+                mismatches[name] += int((d > 0).sum())
+                if e or g.dtype != w.dtype:
+                    fail(f"{name} {what}: output {i} differs "
+                         f"({int((d > 0).sum())} elements)")
+
+    def time_p(calls, names):
+        """Kernel and plain time of each entry over `calls` (one
+        picture's), its launches and its work."""
+        tm = {}
+        for name in names:
+            mine = [a for n, a in calls if n == name]
+            fk, fp = getattr(kern, name), getattr(rd_p.PLAIN, name)
+            work = [p_work(name, a) for a in mine]
+            tm[name] = {
+                "ms": sum(cuda_ms(lambda a=a: fk(*a), 5) for a in mine),
+                "plain_ms": sum(cuda_ms(lambda a=a: fp(*a), 1)
+                                for a in mine),
+                "launches_per_picture": len(mine),
+                "work": (sum(w[0] for w in work), sum(w[1] for w in work))}
+        return tm
+
     for size in (CIF, HD):
         for qp in (28, 51):
             for wp in (True, False):
                 enc = H264Encoder(p_cfg(size, qp, wp), device="cuda")
                 enc._p_kernels, calls = rd_p.recording(kern)
                 list(enc.encode_stream(pframes[size][:3]))
-                torch.cuda.synchronize()
-                for name, cargs in calls:
-                    got = getattr(kern, name)(*cargs)
-                    want = getattr(rd_p.PLAIN, name)(*cargs)
-                    if isinstance(want, torch.Tensor):
-                        got, want = (got,), (want,)
-                    for i, (g, w) in enumerate(zip(got, want)):
-                        d = (g.long() - w.long()).abs()
-                        e = int(d.max()) if d.numel() else 0
-                        err[name] = max(err[name], e)
-                        mismatches[name] += int((d > 0).sum())
-                        if e or g.dtype != w.dtype:
-                            fail(f"{name} {size[0]}x{size[1]} QP {qp} WP "
-                                 f"{wp}: output {i} differs "
-                                 f"({int((d > 0).sum())} elements)")
+                hold_p(calls, f"{size[0]}x{size[1]} QP {qp} WP {wp}")
                 p_names = rd_p.entries_of(False)
                 if {n for n, _ in calls} != set(p_names):
                     fail("a P entry was not called")
@@ -593,24 +675,54 @@ def main(argv=None) -> int:
                       "bit-exact)")
                 if qp == 28 and wp:
                     # per P picture: the second P picture's calls
-                    last = [c for c in calls[len(calls) // 2:]]
                     tm = timing.setdefault(size, {})
-                    for name in p_names:
-                        mine = [a for n, a in last if n == name]
-                        fk, fp = getattr(kern, name), getattr(rd_p.PLAIN, name)
-                        work = [p_work(name, a) for a in mine]
-                        tm[name] = {
-                            "ms": sum(cuda_ms(lambda a=a: fk(*a), 5)
-                                      for a in mine),
-                            "plain_ms": sum(cuda_ms(lambda a=a: fp(*a), 1)
-                                            for a in mine),
-                            "launches_per_picture": len(mine),
-                            "work": (sum(w[0] for w in work),
-                                     sum(w[1] for w in work))}
+                    tm.update(time_p(calls[len(calls) // 2:], p_names))
                     print(f"time {size[0]}x{size[1]} per P picture (ms, "
                           "kernel / plain): " + ", ".join(
                               f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
                               for n in p_names))
+
+    # the tile-row path (rd_rows): its P entries (no coarse search) on the
+    # slab inputs of 1 I + 2 P pictures in ROWS rows, and on built inputs
+    # whose motion reaches every slab edge at R 28 (tools/rows_cases.py)
+    rows_names = tuple(n for n in rd_p.entries_of(False)
+                       if n != "coarse_search")
+    timing_rows = {}
+    for size in (CIF, HD):
+        enc = H264Encoder(p_cfg(size, wp=False, row_slices=ROWS),
+                          device="cuda")
+        enc._p_kernels, calls = rd_p.recording(kern)
+        list(enc.encode_stream(pframes[size][:3]))
+        hold_p(calls, f"rows {size[0]}x{size[1]}")
+        if {n for n, _ in calls} != set(rows_names):
+            fail("a P entry of the tile-row path was not called")
+        timing_rows[size] = time_p(calls[len(calls) // 2:], rows_names)
+        tm = timing_rows[size]
+        print(f"check rows {size[0]}x{size[1]} ({ROWS} rows): {len(calls)} "
+              f"calls of the {len(rows_names)} P entries of the tile-row "
+              "path equal to their plain versions (tolerance 0: bit-exact)")
+        print(f"time rows {size[0]}x{size[1]} per P picture (ms, kernel / "
+              "plain, launches): " + ", ".join(
+                  f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}/"
+                  f"{tm[n]['launches_per_picture']}" for n in rows_names))
+    ref_e, curs_e = edge_motion(CIF[1], CIF[0], 28)
+    bank_e, cpad_e = K2.ref_bank(*(torch.as_tensor(p, dtype=torch.int32,
+                                                   device=dev) for p in ref_e))
+    n_edge = 0
+    for cur in curs_e:
+        k_rec, calls = rd_p.recording(kern)
+        rd_rows.rd_p_rows_pipeline(
+            *cur, bank_e[None], cpad_e[None], H=CIF[1], W=CIF[0], R=28,
+            qp=28, qp_c=chroma_qp(28, 0), lam=lam_fx(28), lam_me=lam_fx(28),
+            G=ROWS, device=dev, k=k_rec)
+        hold_p(calls, "rows built R 28 slab-edge motion")
+        mvs = [int(a[4].abs().max()) for n, a in calls if n == "qpel_refine"]
+        if max(mvs) != 28:
+            fail(f"rows built inputs: the search reached {max(mvs)}, not 28")
+        n_edge += len(calls)
+    print(f"check rows built: {n_edge} calls on CIF content moved 28 pels "
+          "along each diagonal (mvs at +-28 up to the slab edges) equal to "
+          "their plain versions (tolerance 0: bit-exact)")
 
     # K9 on the real inputs of P pictures with the 8x8 transform (the other
     # entries of those pictures are the shapes held above) and on built ones
@@ -670,12 +782,12 @@ def main(argv=None) -> int:
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
     # ---- 4. the B entries vs plain versions on the inputs of B pictures ------
-    def b_cfg(size, qp=28, hier=False, **kw):
+    def b_cfg(size, qp=28, hier=False, wp=True, **kw):
         return EncoderConfig(width=size[0], height=size[1], qp=qp, fast=True,
                              rd=True, entropy=kw.pop("entropy", "cabac"),
                              b_frames=3 if hier else 1, b_hierarchy=hier,
                              num_ref_frames=5, search_range=28,
-                             weighted_pred=True, **kw)
+                             weighted_pred=wp, **kw)
 
     bkern = rd_b.default_kernels()
 
@@ -802,10 +914,21 @@ def main(argv=None) -> int:
     def read():
         return {n: fn.launches for n, fn in counters.items()}
 
+    def slice_qps(enc, out):
+        """The QP of each slice NAL of a picture (tile rows: one per
+        row)."""
+        return [26 + enc.pps.pic_init_qp_minus26 + parse_slice_header(
+            n.rbsp, {0: enc.sps}, {0: enc.pps}, n.nal_ref_idc,
+            n.nal_unit_type == 5)[0].slice_qp_delta
+            for n in out if n.nal_unit_type in (1, 5)]
+
     def encode(cls, cfg, fr):
         """Encode `fr` picture by picture (pipeline depth 1, so each step
-        dispatches and finishes one picture, timed alone); the encoder's
-        picture log gives each picture's type and host_out."""
+        dispatches and finishes one picture, timed alone; under rate
+        control an anchor and its B picture are dispatched together, so
+        the anchor's step carries the B picture's dispatch); the encoder's
+        picture log gives each picture's type and host_out, the launch
+        counters each step's launches."""
         enc = cls(cfg, device="cuda")
         enc.picture_log = log = []
         nalus = enc.headers()
@@ -815,12 +938,14 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            before = read()
             h0 = time.perf_counter()
             a.record()
             out = next(gen)
             b.record()
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - h0) * 1e3
+            step = {n: v - before[n] for n, v in read().items() if v != before[n]}
             nalus.extend(out)
             if len(log) != i + 1:
                 fail(f"step {i} finished {len(log) - i} pictures, not one")
@@ -832,6 +957,7 @@ def main(argv=None) -> int:
                          "event_ms": a.elapsed_time(b), "host_ms": host_ms,
                          "psnr_y": 10 * np.log10(255.0 ** 2 / max(mse, 1e-9)),
                          "bytes": sum(len(n.rbsp) for n in out),
+                         "qps": slice_qps(enc, out), "launches": step,
                          "row": row})
         return enc, write_annexb(nalus), pics
 
@@ -857,6 +983,7 @@ def main(argv=None) -> int:
     rd_names = tuple(n for n in counters if n != "sad_grid_16x16")
     b_names = tuple(n for n in rd_names if n != "t8_decide")
     h_names = ("intra_commit", "sad_grid_16x16")  # the device I picture
+    r_names = (*i_names, *rows_names)
     paths = {
         "all-intra": ({s: (intra_cfg(s), frames[s]) for s in N_INTRA},
                       i_names),
@@ -896,6 +1023,21 @@ def main(argv=None) -> int:
                                       qframes)}, h_names),
         "host-qmat": ({QCIF: (host_cfg(QCIF, scaling_lists=qmat), qframes)},
                       ("sad_grid_16x16",)),
+        # this slice: tile rows (rd_rows) and the rate control: the IPPP
+        # configuration in ROWS rows (no WP); the reference's rate-control
+        # test of tile rows at CIF (CAVLC, one reference, search range 8);
+        # the bench configuration under rate control (no WP); the host path
+        # under rate control
+        "rows": ({s: (p_cfg(s, wp=False, row_slices=ROWS), pframes[s])
+                  for s in N_IPPP}, r_names),
+        "rows-RC-CAVLC": ({CIF: (EncoderConfig(
+            width=CIF[0], height=CIF[1], fast=True, rd=True,
+            entropy="cavlc", num_ref_frames=1, search_range=8,
+            row_slices=ROWS, rc_bitrate=RC_ROWS), pframes[CIF])}, r_names),
+        "IPB-RC": ({CIF: (b_cfg(CIF, wp=False, rc_bitrate=RC_IPB),
+                          bframes[CIF])}, b_names),
+        "host-RC": ({QCIF: (host_cfg(QCIF, rc_bitrate=RC_HOST), qframes)},
+                    h_names),
     }
     runs, launches_of = {}, {}
     for tag, (sizes, needed) in paths.items():
@@ -959,9 +1101,27 @@ def main(argv=None) -> int:
                 print(f"{tag} {size[0]}x{size[1]} #{i} {p['type']} POC "
                       f"{p['poc']}: {p['event_ms']:.1f} ms (events) "
                       f"{p['host_ms']:.1f} ms (host), PSNR-Y "
-                      f"{p['psnr_y']:.2f} dB, {p['bytes']} bytes"
+                      f"{p['psnr_y']:.2f} dB, {p['bytes']} bytes, QP "
+                      f"{p['qps']}"
                       + (f", modes {p['mode_mix']}" if "mode_mix" in p
                          else ""))
+            if enc.rc is not None:
+                got = 8 * len(stream) / len(pics) * enc.cfg.rc_fps
+                report[f"bitrate {tag} {size[0]}x{size[1]}"] = {
+                    "target": enc.cfg.rc_bitrate, "achieved": got}
+                print(f"bitrate {tag} {size[0]}x{size[1]}: {got:.0f} b/s "
+                      f"achieved, {enc.cfg.rc_bitrate:.0f} b/s target "
+                      f"({got / enc.cfg.rc_bitrate:.4f}; {len(pics)} pictures"
+                      f" at {enc.cfg.rc_fps:g} fps)")
+            if enc.cfg.row_slices > 1:
+                rp = [p for p in pics if p["type"] == "P"]
+                if any(len(p["qps"]) != ROWS for p in rp):
+                    fail(f"{tag}: a P picture is not {ROWS} slices")
+                per = {n: float(np.mean([p["launches"].get(n, 0)
+                                         for p in rp])) for n in r_names}
+                report[f"rows_launches {tag} {size[0]}x{size[1]}"] = per
+                print(f"launches per rows P picture, {tag} {size[0]}x"
+                      f"{size[1]} (mean of {len(rp)}): {per}")
             t8s = [p["mode_mix"]["t8"] for p in pics
                    if p["type"] == "P" and "mode_mix" in p]
             if "T8" in tag and not max(t8s) > 0:
@@ -1061,39 +1221,53 @@ def main(argv=None) -> int:
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
     # ---- 6. the same frames through the plain versions on the card -----------
-    class PlainEncoder(H264Encoder):
-        _intra_step = staticmethod(K1.intra_commit_step_plain)
-        _ref_bank = staticmethod(K2.ref_bank_plain)
-        _sad_grid = staticmethod(K10.sad_grid_16x16_plain)
-        _p_kernels = rd_p.PLAIN
-        _b_kernels = rd_b.PLAIN
-
+    # the plain versions are host-bound (the card idles), so each path's
+    # plain encode runs in a worker process of its own, PLAIN_WORKERS at a
+    # time, the longest first; nothing else runs meanwhile
+    jobs = []
     for tag, (sizes, _) in paths.items():
+        if tag == "rows":  # its entries are held on its inputs in step 3
+            continue
         for size in [s for s in (CIF, QCIF) if s in sizes]:
             cfg, fr = sizes[size]
-            enc, stream, _ = runs[tag][size]
             if tag == "IPB-T8":  # a shorter stream, through both
                 fr = fr[:N_IPB_T8_PLAIN]
-                enc, stream, _ = encode(H264Encoder, cfg, fr)
-            penc, pstream, _ = encode(PlainEncoder, cfg, fr)
-            if pstream != stream:
-                fail(f"{tag} {size}: stream differs from the plain path's")
-            for (_, a), (_, b) in zip(enc.all_recons, penc.all_recons):
-                for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
-                    if not np.array_equal(x, y):
-                        fail(f"{tag} {size}: recon differs from the plain "
-                             "path's")
-            if len(enc._rd_refs) != len(penc._rd_refs):
-                fail(f"{tag} {size}: reference lists differ in length")
-            for ea, eb in zip(enc._rd_refs, penc._rd_refs):
-                if ea[0] != eb[0]:
-                    fail(f"{tag} {size}: reference POCs differ")
-                for x, y in zip((*ea[1:3], *ea[3]), (*eb[1:3], *eb[3])):
-                    if not torch.equal(x, y):
-                        fail(f"{tag} {size}: reference entry differs from "
-                             "the plain path's")
-            print(f"plain path {tag} {size[0]}x{size[1]} ({len(fr)} frames):"
-                  " stream, recon and reference entries identical")
+            jobs.append((tag, size, cfg, fr))
+    jobs.sort(key=lambda j: -j[1][0] * j[1][1] * len(j[3]))
+    torch.cuda.empty_cache()
+    t6 = time.perf_counter()
+    # (a worker that dies fails the map instead of hanging it)
+    with ProcessPoolExecutor(PLAIN_WORKERS, mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        plain = list(pool.map(plain_encode, jobs))
+    for (tag, size, cfg, fr), (pstream, precons, prefs, secs) in zip(jobs,
+                                                                      plain):
+        enc, stream, _ = runs[tag][size]
+        if tag == "IPB-T8":
+            enc, stream, _ = encode(H264Encoder, cfg, fr)
+        if pstream != stream:
+            fail(f"{tag} {size}: stream differs from the plain path's")
+        if len(enc.all_recons) != len(precons):
+            fail(f"{tag} {size}: recon counts differ")
+        for (_, a), b in zip(enc.all_recons, precons):
+            for x, y in zip((a.Y, a.U, a.V), b):
+                if not np.array_equal(x, y):
+                    fail(f"{tag} {size}: recon differs from the plain "
+                         "path's")
+        if len(enc._rd_refs) != len(prefs):
+            fail(f"{tag} {size}: reference lists differ in length")
+        for ea, (poc, eb) in zip(enc._rd_refs, prefs):
+            if ea[0] != poc:
+                fail(f"{tag} {size}: reference POCs differ")
+            for x, y in zip((*ea[1:3], *ea[3]), eb):
+                if not np.array_equal(x.cpu().numpy(), y):
+                    fail(f"{tag} {size}: reference entry differs from "
+                         "the plain path's")
+        print(f"plain path {tag} {size[0]}x{size[1]} ({len(fr)} frames, "
+              f"{secs:.0f} s in its worker): stream, recon and reference "
+              "entries identical")
+    print(f"plain paths: {len(jobs)} encodes in "
+          f"{time.perf_counter() - t6:.0f} s on {PLAIN_WORKERS} workers")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
@@ -1247,6 +1421,7 @@ def main(argv=None) -> int:
 
     # ---- 8. report -----------------------------------------------------------
     kernels = []
+    rows_per = report[f"rows_launches rows {CIF[0]}x{CIF[1]}"]
     for name, (source, replaces) in SOURCES.items():
         tm = (timing_d if name == "decode_inter" else timing_b
               if name in rd_b.B_OWN else timing)[CIF][name]
@@ -1259,8 +1434,11 @@ def main(argv=None) -> int:
             "max_abs_err": err[name], "mismatches": mismatches[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": tm.get("library_ms"),
+            # launches per CIF P picture of the tile-row path (step 5)
+            "rows_launches_per_picture": rows_per.get(name),
         })
-    for kind, tms in (("", timing), ("b_", timing_b), ("decode_", timing_d)):
+    for kind, tms in (("", timing), ("b_", timing_b), ("decode_", timing_d),
+                      ("rows_", timing_rows)):
         for size, tm in tms.items():
             report[f"timing_{kind}{size[0]}x{size[1]}"] = {
                 n: {**v, "bound_ms": bound_ms(*v["work"])[0]}

@@ -15,15 +15,19 @@ package.  It mirrors the reference package's layout:
                                   readers, CAVLC reader, recon, deblock)
   encoder/                        rd.py, rd_p.py, rd_b.py (the I, P and B
                                   pipelines, plain PyTorch beside the
-                                  kernels), encoder.py (H264Encoder),
+                                  kernels), rd_rows.py (tile-row P
+                                  slices), encoder.py (H264Encoder),
                                   fills.py, syntax_cabac.py
+  control/                        rate control (JVT-G012) and the
+                                  leaky-bucket parameters
   kernels/, csrc/                 hand-written CUDA kernels and wrappers
   device.py                       device policy and the kernel build
   convert.py                      reference entries and tables carried in
   ldecod.py                       the decoder CLI (``python -m``)
 
-Ported so far: the all-intra, IPPP and IPB CABAC encodes of the fast RD
-path, the bench configuration included, and the decoder (ROADMAP Queue 1).
+Ported so far: the all-intra, IPPP and IPB encodes of the fast RD path
+(CABAC and CAVLC, the bench configuration included, tile-row slices), the
+host-path encoder, rate control on both, and the decoder (ROADMAP Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -2,8 +2,9 @@
 default configuration, ``fast=False``) and its device RD pipelines
 (``fast=True``): IPB, IPPP and all-intra streams, CABAC or CAVLC, with or
 without the FRExt 8x8 transform and custom scaling matrices, in one slice
-or many (``slice_mode``, FMO slice groups), with CAVLC data partitioning
-and redundant slices.
+or many (``slice_mode``, FMO slice groups, tile-row slices), with CAVLC
+data partitioning and redundant slices, at a fixed QP or under the rate
+control (``rc_bitrate``).
 
 The PyTorch counterpart of the reference package's encoder/encoder.py,
 routed as it routes every configuration.
@@ -41,11 +42,20 @@ search and refinement, temporal direct, bi-prediction, the same residual,
 commit and filter stages), and its host tail adds the temporal direct
 fill from the anchor's parse state.  With ``fast=True`` and several slices
 the P and B pictures take the host path after the I picture, as in the
-reference.
+reference.  With ``row_slices`` G > 1 the device RD path codes each P
+picture as G tile-row slices (``rd_rows.rd_p_rows_pipeline``), every slice
+deblocked on its own (disable_deblocking_filter_idc 2); the host path only
+signals the filter-control fields then.
+
+Rate control (``control.ratectl``, JVT-G012) picks each picture's QP on
+the host from the bits and the MAD of the pictures before it, and a QP per
+tile row with ``row_slices``; it runs IPPP streams of the RD path at
+depth 1 and IPB streams in anchor groups (depth 2), as the reference does,
+so that every pick follows the same feedback.
 
 Every other configuration raises NotImplementedError naming its ROADMAP
-item: intra refresh, loss-aware RDO, tile-row slices, rate control, SEI
-and the legacy P16x16 path (``rd=False``).  No half-ported path runs.
+item: intra refresh, loss-aware RDO, SEI and the legacy P16x16 path
+(``rd=False``).  No half-ported path runs.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ import torch
 from ..bitstream import NalUnit, write_annexb
 from ..bitstream.writer import BitWriter
 from ..config import level_for, profile_check
+from ..control.ratectl import RateControl, qp_to_qstep, qstep_to_qp
 from ..decoder import mbtables as M
 from ..decoder.mv import (_pskip_mv, _spatial_direct, compute_moving_mask,
                           dist_scale_factor)
@@ -84,6 +95,7 @@ from . import me as ME
 from . import rd as RD
 from . import rd_b as RDB
 from . import rd_p as RDP
+from . import rd_rows as RDR
 from .syntax_cabac import CabacSliceWriter
 from .syntax_cavlc import CavlcSliceWriter
 
@@ -154,8 +166,6 @@ _NOT_PORTED = (
     (lambda c: not c.rd, "rd=False (legacy P16x16 path)", "Legacy P16x16 path"),
     (lambda c: c.intra_refresh > 0, "intra refresh", "Intra refresh"),
     (lambda c: c.loss_aware_k > 0, "loss-aware RDO", "Loss-aware RDO"),
-    (lambda c: c.row_slices > 1, "tile-row slices", "Tile-row slices"),
-    (lambda c: c.rc_bitrate > 0, "rate control", "Rate control"),
     (lambda c: bool(c.sei_text) or c.sei_tone_mapping is not None
      or c.sei_recovery_point, "SEI messages", "Config and CLIs"),
 )
@@ -194,9 +204,11 @@ class H264Encoder:
             raise ValueError("2-layer pyramid needs b_frames == 3")
         if cfg.b_hierarchy and not cfg.fast:
             raise ValueError("hierarchy runs on the RD pipeline (fast=True)")
-        if cfg.weighted_pred and (not cfg.fast or multi_slice):
-            raise ValueError("weighted_pred requires the fast RD path and "
-                             "one slice")
+        if cfg.weighted_pred and (not cfg.fast or multi_slice
+                                  or cfg.rc_bitrate != 0
+                                  or cfg.row_slices != 1):
+            raise ValueError("weighted_pred requires the fast RD path, one "
+                             "slice and no rate control")
         if cfg.fast and cfg.scaling_lists is not None:
             raise ValueError(
                 "scaling matrices run on the host path (fast=False)")
@@ -255,6 +267,11 @@ class H264Encoder:
             self.pps.weighted_pred_flag = True
         if cfg.redundant_pics:
             self.pps.redundant_pic_cnt_present_flag = True
+        if cfg.row_slices > 1:
+            # tile-row slices are deblocked independently (idc 2): the
+            # slice header carries the filter-control fields (on the host
+            # path too, where only these fields change)
+            self.pps.deblocking_filter_control_present_flag = True
         if cfg.num_slice_groups > 1:
             self._fmo_pps()
         self._multi_slice = multi_slice
@@ -283,6 +300,12 @@ class H264Encoder:
         self.lambda_me = int(np.sqrt(lam) * 65536 + 0.5)
         self.lambda_mode = lam
         self.lambda_mode_fx = int(lam * 65536 + 0.5)
+        self.rc = None
+        if cfg.rc_bitrate > 0:
+            self.rc = RateControl(cfg.rc_bitrate, cfg.rc_fps, cfg.width,
+                                  cfg.height, gop_size=cfg.idr_period,
+                                  n_b=cfg.b_frames)
+        self._prev_src = None  # the last RD P picture's source luma (MAD)
 
     def _fmo_pps(self) -> None:
         """The slice-group fields of the PPS for map types 0-6."""
@@ -307,6 +330,11 @@ class H264Encoder:
 
     def _lambda_base(self) -> float:
         return (0.68 if self.cfg.b_frames > 0 else 0.85) * 0.95
+
+    def _lambda_fx(self, qp: int) -> int:
+        """lambda_mode << 16 at `qp`, float64 on the host."""
+        return int(self._lambda_base() * 2.0 ** ((qp - 12) / 3.0) * 65536
+                   + 0.5)
 
     def _log_picture(self, kind: str, poc: int, fetched) -> None:
         if self.picture_log is not None:
@@ -343,12 +371,16 @@ class H264Encoder:
         pictures the pictures come out in decode order; on the RD path the
         groups hold at least 2 pictures unless `depth` is given (1 fetches
         and codes every picture as soon as it is dispatched: the same
-        stream)."""
+        stream).  Rate control needs each picture's bits before it picks
+        the next QP: it codes IPPP at depth 1 and IPB per anchor group,
+        whatever `depth` says, as the reference does."""
         if self.cfg.b_frames > 0:
             yield from self._encode_stream_b(frames, depth)
             return
         if depth is None:
             depth = self.cfg.pipeline_depth
+        if self.rc is not None:
+            depth = 1
         pend: list = []
         for idx, yuv in enumerate(frames):
             is_idr = idx == 0 or (
@@ -414,11 +446,13 @@ class H264Encoder:
         if not is_idr and rd_path and cfg.b_frames == 0:
             p = self._start_p_rd(yuv)
             return self._finish_p_rd(p, fetch_group([p[0]])[0])
-        if not is_idr and rd_path:
+        if not is_idr and rd_path and not (self.recon_pics and
+                                           self.recon_pics[-1][3] is not None):
             # the reference codes this picture on its host path, whose
             # motion compensation reads the padded planes that its RD
             # pictures do not keep (encoder.py:575-584, :914, :2024): it
-            # fails there, and so the port refuses it
+            # fails there, and so the port refuses it (the I picture of a
+            # rate-controlled stream keeps them)
             raise NotImplementedError(
                 "a lone P picture of a fast=True B configuration: the "
                 "reference package fails on it too (ROADMAP Queue 3)")
@@ -449,7 +483,10 @@ class H264Encoder:
             self._rd_refs.clear()
             self.frame_num = 0
         is_ref = stype != SliceType.B  # B pictures are disposable here
-        qp = cfg.qp + (cfg.qp_b_offset if stype == SliceType.B else 0)
+        if self.rc is not None:
+            qp = self.rc.pick_qp(stype.name)
+        else:
+            qp = cfg.qp + (cfg.qp_b_offset if stype == SliceType.B else 0)
 
         slices = self._partition_slices()
         for sid, addrs in enumerate(slices):
@@ -529,6 +566,11 @@ class H264Encoder:
                 wr = write_slice_header(shr, sps, pps)
                 self._write_slice_data(wr, st, shr, addrs)
                 nals.append(NalUnit(1, nal_ref, wr.get_bytes()))
+        if self.rc is not None:
+            # every NAL of the picture, partitions and redundant copies too
+            total_bytes = sum(len(n.rbsp) for n in nals)
+            mad = float(np.abs(Y - np.asarray(planes.Y)).mean())
+            self.rc.post_frame(stype.name, 8 * total_bytes, mad)
 
         self.all_recons.append((poc, planes))
         self._log_picture(stype.name, poc, None)
@@ -549,8 +591,9 @@ class H264Encoder:
                 self._rd_refs = ([(poc, bank, cpad, col)] + self._rd_refs)[
                     : sps.num_ref_frames]
                 self._anchor_ref_pocs[poc] = []
-            if not cfg.fast or self._multi_slice:
-                # the host path's P and B pictures read these
+            if not cfg.fast or self._multi_slice or self.rc is not None:
+                # the host path's P and B pictures read these (the
+                # reference keeps them under rate control too)
                 padded = (MC.pad_plane(planes.Y), MC.pad_plane(planes.U),
                           MC.pad_plane(planes.V))
             entry = (poc, planes, st, padded)
@@ -619,14 +662,19 @@ class H264Encoder:
     # ------------------------------------------------------------------
     def _start_p_rd(self, yuv, poc: int | None = None):
         """Dispatch the device RD pipeline for a P picture (partitions,
-        multi-ref, skip-RD, intra-in-P; rd_p.rd_p_pipeline); `poc` is
-        given in display order with B pictures, else the next one.
+        multi-ref, skip-RD, intra-in-P; rd_p.rd_p_pipeline, or with
+        ``row_slices`` the tile rows of rd_rows.rd_p_rows_pipeline); `poc`
+        is given in display order with B pictures, else the next one.
         Returns the pending state ``_finish_p_rd`` completes; nothing here
-        waits for the card."""
+        waits for the card (but the rate control's pick, on the host)."""
         cfg, sps, pps = self.cfg, self.sps, self.pps
         H, W = sps.height, sps.width
-        qp = cfg.qp
-        lam_fx = self.lambda_mode_fx
+        if self.rc is not None:
+            qp = self.rc.pick_qp("P")
+            lam_fx = self._lambda_fx(qp)
+        else:
+            qp = cfg.qp
+            lam_fx = self.lambda_mode_fx
         cb_off, _ = pps.chroma_qp_offset
         qp_c = chroma_qp(qp, cb_off)
         dev = self.device
@@ -682,11 +730,27 @@ class H264Encoder:
             wpad = wp_weights + [wp_weights[-1]] * (nr_max - len(wp_weights))
             wp_w = np.asarray([p[0] for p in wpad], np.int32)
             wp_o = np.asarray([p[1] for p in wpad], np.int32)
-        host_out, recon, new_entry = RDP.rd_p_pipeline(
-            *cur, banks, cpads, H=H, W=W, R=min(cfg.search_range, 28),
-            qp=qp, qp_c=qp_c, lam=lam_fx, lam_me=2 * lam_fx,
-            nref=len(refs), wp_w=wp_w, wp_o=wp_o, device=dev,
-            k=self._p_kernels, use_t8=bool(cfg.transform8x8))
+        if cfg.row_slices > 1:
+            if self.rc is not None:
+                # a QP per tile row (the basic unit), its chroma QP and
+                # its lambda (float64, as the reference)
+                qp = self._rc_row_qps(qp, np.asarray(yuv[0], np.int16))
+                qp_c = np.asarray([chroma_qp(int(q), cb_off) for q in qp],
+                                  np.int32)
+                lam_fx = np.asarray([self._lambda_fx(int(q)) for q in qp],
+                                    np.int32)
+            host_out, recon, new_entry = RDR.rd_p_rows_pipeline(
+                *cur, banks, cpads, H=H, W=W, R=min(cfg.search_range, 28),
+                qp=qp, qp_c=qp_c, lam=lam_fx, lam_me=lam_fx,
+                G=cfg.row_slices, nref=len(refs), device=dev,
+                k=self._p_kernels)
+        else:
+            host_out, recon, new_entry = RDP.rd_p_pipeline(
+                *cur, banks, cpads, H=H, W=W, R=min(cfg.search_range, 28),
+                qp=qp, qp_c=qp_c, lam=lam_fx, lam_me=2 * lam_fx,
+                nref=len(refs), wp_w=wp_w, wp_o=wp_o, device=dev,
+                k=self._p_kernels, use_t8=bool(cfg.transform8x8),
+                use_cme=True)
         frame_num = self.frame_num
         self.frame_num += 1
         if poc is None:
@@ -698,26 +762,77 @@ class H264Encoder:
         self._src_dc[poc] = float(np.asarray(yuv[0], np.float64).mean())
         self._src_sd[poc] = float(np.asarray(yuv[0], np.float64).std())
         self._src_ds[poc] = np.asarray(yuv[0], np.float64)[::8, ::8]
-        return (host_out, recon, frame_num, poc, ref_pocs, qp, wp_weights)
+        # the source MAD against the previous P picture's source: the rate
+        # control's measure of this picture (1.0 for the first)
+        cur_y = np.asarray(yuv[0], np.int16)
+        mad = (float(np.abs(cur_y - self._prev_src).mean())
+               if self._prev_src is not None else 1.0)
+        self._prev_src = cur_y
+        return (host_out, recon, frame_num, poc, ref_pocs, qp, wp_weights,
+                mad)
+
+    def _rc_row_qps(self, frame_qp: int, cur_y) -> np.ndarray:
+        """Per-tile-row basic-unit QPs (the reference's encoder.py:762-795):
+        the picture's target split over the rows in proportion to their
+        MAD against the previous P source (the colocated-BU MAD prediction
+        of rc_quadratic.c:1106), each row's Qstep solved from the shared
+        quadratic model, clipped to +-2 around the picture's QP."""
+        G = self.cfg.row_slices
+        Hg = cur_y.shape[0] // G
+        prev = self._prev_src
+        if prev is None:
+            return np.full(G, frame_qp, np.int32)
+        mads = np.maximum(
+            np.abs(cur_y.astype(np.int32) - prev).reshape(
+                G, Hg, -1).mean((1, 2)),
+            1e-3,
+        )
+        T = max(self.rc._last_target, 1.0)
+        t_rows = T * mads / mads.sum()
+        qps = np.empty(G, np.int32)
+        for g in range(G):
+            x1, x2 = self.rc.x1, self.rc.x2
+            # the row target in picture-equivalent units for the model
+            m, t = float(mads[g]), float(t_rows[g]) * G / 1.0
+            t = max(t, 1.0)
+            if x2 == 0.0:
+                qstep = x1 * m / t
+            else:
+                a, b, c = t, -x1 * m, -x2 * m
+                disc = b * b - 4 * a * c
+                qstep = ((-b + np.sqrt(disc)) / (2 * a)
+                         if disc >= 0 else x1 * m / t)
+                if qstep <= 0:
+                    qstep = x1 * m / t
+            qps[g] = qstep_to_qp(float(max(qstep, qp_to_qstep(0))))
+        return np.clip(qps, frame_qp - 2, frame_qp + 2).astype(np.int32)
 
     def _finish_p_rd(self, pending, fetched) -> list[NalUnit]:
         """Host tail of a dispatched P picture: split its fetched flat
-        outputs (`fetched`, numpy), fill the parse state and entropy-code
-        the slice."""
-        (_, recon, frame_num, poc, ref_pocs, qp, wp_weights) = pending
+        outputs (`fetched`, numpy: one row, or (G, L_g) for G tile-row
+        slices), fill the parse state and entropy-code the slices."""
+        (_, recon, frame_num, poc, ref_pocs, qp, wp_weights,
+         src_mad) = pending
         sps, pps = self.sps, self.pps
         W, H = sps.pic_width_in_mbs, sps.frame_height_in_mbs
         n_mb = W * H
         st = PictureParseState(W, H)
         planes = Planes(sps)
-        st.slice_id[:] = 0
+        G = max(1, self.cfg.row_slices)
+        n_g = n_mb // G
+        if fetched.ndim == 2:  # tile rows: (G, L_g), one buffer per slice
+            fetched = RDR.merge_host_out(fetched)
+        qp_rows = np.broadcast_to(np.asarray(qp, np.int32).reshape(-1), (G,))
         cb_off, cr_off = pps.chroma_qp_offset
-        st.qp[:] = qp
-        st.qpc[:, 0] = chroma_qp(qp, cb_off)
-        st.qpc[:, 1] = chroma_qp(qp, cr_off)
-        sizes = [n_mb, 4 * n_mb, 4 * n_mb, n_mb, 16 * n_mb, 16 * n_mb,
-                 n_mb, n_mb, 256 * n_mb, 256 * n_mb, 16 * n_mb,
-                 128 * n_mb, 8 * n_mb, 16 * n_mb]
+        for g in range(G):
+            rows = slice(g * n_g, (g + 1) * n_g)
+            st.slice_id[rows] = g
+            st.qp[rows] = qp_rows[g]
+            st.qpc[rows, 0] = chroma_qp(int(qp_rows[g]), cb_off)
+            st.qpc[rows, 1] = chroma_qp(int(qp_rows[g]), cr_off)
+        if G > 1:
+            st.lf_disable[:] = 2  # no filtering across slice edges
+        sizes = [n_mb * k for k in RDR.P_PARTS]
         parts = np.split(fetched[: sum(sizes)], np.cumsum(sizes)[:-1])
         win = parts[0]
         ref8 = parts[1].reshape(n_mb, 4)
@@ -738,32 +853,40 @@ class H264Encoder:
                               cip, lev, dc, levc, dcc, ref_pocs, ipm_plane,
                               t8, lev8)
         nr = len(ref_pocs)
-        sh = SliceHeader(
-            first_mb_in_slice=0,
-            slice_type_code=SliceType.P.value,
-            frame_num=frame_num % sps.max_frame_num,
-            is_idr=False,
-            nal_ref_idc=3,
-            pic_order_cnt_lsb=self._poc_lsb(poc),
-            num_ref_idx_active_override_flag=nr - 1
-            != pps.num_ref_idx_l0_default_active_minus1,
-            num_ref_idx_l0_active_minus1=nr - 1,
-            disable_deblocking_filter_idc=0,
-            slice_qp_delta=qp - (26 + pps.pic_init_qp_minus26),
-        )
-        if wp_weights is not None:
-            # chroma is never weighted: weight 32, offset 0 (logWD 5)
-            sh.luma_log2_weight_denom = 5
-            sh.chroma_log2_weight_denom = 5
-            sh.pred_weights[0] = [PredWeight(wv, ov, [32, 32], [0, 0])
-                                  for (wv, ov) in wp_weights]
-        w = write_slice_header(sh, sps, pps)
-        self._write_slice_data(w, st, sh, list(range(n_mb)))
+        nals = []
+        for g in range(G):
+            sh = SliceHeader(
+                first_mb_in_slice=g * n_g,
+                slice_type_code=SliceType.P.value,
+                frame_num=frame_num % sps.max_frame_num,
+                is_idr=False,
+                nal_ref_idc=3,
+                pic_order_cnt_lsb=self._poc_lsb(poc),
+                num_ref_idx_active_override_flag=nr - 1
+                != pps.num_ref_idx_l0_default_active_minus1,
+                num_ref_idx_l0_active_minus1=nr - 1,
+                disable_deblocking_filter_idc=2 if G > 1 else 0,
+                slice_qp_delta=(int(qp_rows[g])
+                                - (26 + pps.pic_init_qp_minus26)),
+            )
+            if wp_weights is not None:
+                # chroma is never weighted: weight 32, offset 0 (logWD 5)
+                sh.luma_log2_weight_denom = 5
+                sh.chroma_log2_weight_denom = 5
+                sh.pred_weights[0] = [PredWeight(wv, ov, [32, 32], [0, 0])
+                                      for (wv, ov) in wp_weights]
+            w = write_slice_header(sh, sps, pps)
+            self._write_slice_data(w, st, sh, list(range(g * n_g,
+                                                         (g + 1) * n_g)))
+            nals.append(NalUnit(1, 3, w.get_bytes()))
+        if self.rc is not None:
+            self.rc.post_frame("P", 8 * sum(len(n.rbsp) + 5 for n in nals),
+                               src_mad)
         self.all_recons.append((poc, planes))
         self._log_picture("P", poc, fetched)
         self.recon_pics = (self.recon_pics + [(poc, planes, st, None)])[
             -sps.num_ref_frames:]
-        return [NalUnit(1, 3, w.get_bytes())]
+        return nals
 
     def _write_slice_data(self, w, st, sh, addrs) -> None:
         """Entropy-code one slice's data after its header: CABAC slices
@@ -880,11 +1003,17 @@ class H264Encoder:
         anchor P is dispatched before the B pictures that reference it;
         POC is twice the display index since the last IDR.  Pictures go
         to the card up to `depth` (default max(2, pipeline_depth)) ahead
-        of the host, and each group comes back in one copy."""
+        of the host, and each group comes back in one copy.  Under rate
+        control a group is fetched only whole: once an anchor and its B
+        pictures make it 2 long, so every anchor group is coded before the
+        next anchor picks its QP, as in the reference (encoder.py:1087-1088,
+        :1138-1146)."""
         nb = self.cfg.b_frames
         idr_p = self.cfg.idr_period
         depth = (max(2, self.cfg.pipeline_depth) if depth is None
                  else max(1, depth))
+        if self.rc is not None:
+            depth = 2
         pend_src: list = []  # display frames awaiting their anchor
         pend_dev: list = []  # dispatched pictures, decode order
         base = 0
@@ -899,7 +1028,8 @@ class H264Encoder:
 
         def dispatch(tag, pending):
             pend_dev.append((tag, pending))
-            return drain() if len(pend_dev) >= depth else iter(())
+            full = self.rc is None and len(pend_dev) >= depth
+            return drain() if full else iter(())
 
         for idx, yuv in enumerate(frames):
             is_idr = idx == 0 or (idr_p and idx % idr_p == 0)
@@ -929,6 +1059,8 @@ class H264Encoder:
                     yield from dispatch("b", self._start_b_rd(
                         b_yuv, 2 * (b_idx - base), is_ref=is_ref))
                 pend_src = []
+                if self.rc is not None and len(pend_dev) >= depth:
+                    yield from drain()
         for b_yuv, b_idx in pend_src:
             yield from dispatch("p", self._start_p_rd(
                 b_yuv, poc=2 * (b_idx - base)))
@@ -942,7 +1074,9 @@ class H264Encoder:
         also makes its reference entry."""
         cfg, sps, pps = self.cfg, self.sps, self.pps
         H, W = sps.height, sps.width
-        if is_ref:
+        if self.rc is not None:
+            qp = self.rc.pick_qp("B")  # clipped to 0..51
+        elif is_ref:
             # stored mid-B of the pyramid: smaller offset than leaf Bs
             qp = cfg.qp + max(1, cfg.qp_b_offset - 1)
         else:
@@ -1082,9 +1216,12 @@ class H264Encoder:
             # stored B: later Bs read its parse state as colocated
             self.recon_pics = (self.recon_pics + [(poc, planes, st, None)])[
                 -sps.num_ref_frames:]
+        nal = NalUnit(1, 3 if is_ref else 0, w.get_bytes())
+        if self.rc is not None:
+            self.rc.post_frame("B", 8 * (len(nal.rbsp) + 5), 1.0)
         self.all_recons.append((poc, planes))
         self._log_picture("B", poc, fetched)
-        return [NalUnit(1, 3 if is_ref else 0, w.get_bytes())]
+        return [nal]
 
     def _fill_b_state_rd(self, st, win, pdir8, idx0, m0x, m0y, m1x, m1y,
                          i16mode, cip, lev, dc, levc, dcc, poc, pocs0,
@@ -1200,8 +1337,7 @@ class H264Encoder:
         """Device RD coding of a whole I picture (rd.rd_i_pipeline):
         full-RD I16/I4 mode decisions run on the device; the host keeps
         only the state fill + entropy tail."""
-        lam_fx = int(self._lambda_base() * 2.0 ** ((qp - 12) / 3.0) * 65536
-                     + 0.5)
+        lam_fx = self._lambda_fx(qp)
         out = RD.rd_i_pipeline(
             np.ascontiguousarray(Y, np.uint8),
             np.ascontiguousarray(U, np.uint8),
@@ -2013,14 +2149,23 @@ def b_lambda_fx(qp: int, is_ref: bool) -> int:
 
 def fetch_group(flats) -> np.ndarray:
     """Flat int32 device outputs of a group of pictures -> one
-    (len(flats), max_len) numpy array, zero-padded: one copy into one
-    (pinned, on a card) host buffer, so the copy latency is paid once per
-    group (the reference's rd.py:1895 `fetch_group`)."""
-    n = max(int(f.shape[0]) for f in flats)
+    (len(flats), max_len) numpy array, zero-padded, or (len(flats), G,
+    L_g) for tile-row pictures: one copy into one (pinned, on a card) host
+    buffer, so the copy latency is paid once per group (the reference's
+    rd.py:1895 `fetch_group` and fast.py:86 `stack_outputs`).  Like them it
+    refuses a group that mixes tile-row and one-slice buffers (a tile-row
+    anchor with its B pictures): ValueError."""
+    if len({f.dim() for f in flats}) > 1:
+        raise ValueError(
+            "tile-row P buffers (G, L_g) and one-slice buffers cannot be "
+            "fetched in one group: the reference fails here too, stacking "
+            "them (ValueError: All input arrays must have the same shape)")
+    shape = tuple(max(int(s) for s in d) for d in zip(*(f.shape for f in flats)))
     on_card = flats[0].is_cuda
-    out = torch.zeros((len(flats), n), dtype=torch.int32, pin_memory=on_card)
+    out = torch.zeros((len(flats),) + shape, dtype=torch.int32,
+                      pin_memory=on_card)
     for row, f in zip(out, flats):
-        row[: f.shape[0]].copy_(f, non_blocking=on_card)
+        row[tuple(slice(0, d) for d in f.shape)].copy_(f, non_blocking=on_card)
     if on_card:
         torch.cuda.current_stream(flats[0].device).synchronize()
     return out.numpy()

@@ -1,9 +1,10 @@
 """Device RD coding of P pictures: the port of the reference package's
 ``rd_p_pipeline`` (encoder/rd.py:329-1180) on PyTorch tensors.
 
-Per picture, on the device: the coarse-to-fine motion search (a +-48-pel
-SAD search on 4x-decimated planes picks each (ref, MB) centre, then dense
-per-8x8 SSD grids +-R around it), partition argmins priced against a
+Per picture, on the device: the coarse-to-fine motion search (with
+``use_cme``, a +-48-pel SAD search on 4x-decimated planes picks each (ref,
+MB) centre; without it every centre is zero; then dense per-8x8 SSD grids
++-R around it), partition argmins priced against a
 two-pass PMV field, the 49-point quarter-pel SATD refinement of every
 partition and sub-8x8 unit, the P_Skip field and prediction, residual
 coding of six candidate predictions with RDOQ-lite and JM coefficient
@@ -20,19 +21,23 @@ The plain PyTorch version of every kernel entry is the ``*_plain``
 function of the same name below: the CPU runs it, and the card compares
 the kernels with it.
 
-The pipeline always runs the reference's coarse stage (``use_cme``, as
-its encoder does), the FRExt 8x8-transform decision when asked
-(``use_t8``), and neither forced intra refresh nor loss-aware RDO
+The pipeline runs the reference's coarse stage when asked (``use_cme``:
+its encoder asks for it on one-slice P pictures; its tile-row slices,
+``rd_rows.py``, run without it), the FRExt 8x8-transform decision when
+asked (``use_t8``), and neither forced intra refresh nor loss-aware RDO
 (ROADMAP Queue 1).  The reference's trace-time
 experiment switches (``H264_NO_SUB8`` ...) are not carried: at their
 defaults they are the identity.  Its ``stage=`` early returns are not
 carried either; the stages are the ``p_*`` functions, each filling in a
 ``PFrame``.
 
-Bank coordinates: the reference widens every bank by E = 64 samples of
-edge replication before it searches; here every read clamps its
-coordinates to the unwidened (NR, 4, Hp, Wp) bank instead, which is the
-same sample, and no widened copy is made.
+Bank coordinates: with ``use_cme`` the reference widens every bank by
+E = 64 samples of edge replication before it searches; here every read
+clamps its coordinates to the unwidened (NR, 4, Hp, Wp) bank instead,
+which is the same sample, and no widened copy is made.  Without
+``use_cme`` the reference reads the unwidened bank through windows whose
+starts it clamps; none of them starts outside the bank at R <= 28, so the
+per-sample clamps here read the same samples there too.
 """
 
 from __future__ import annotations
@@ -571,7 +576,8 @@ class PFrame:
 
     def __init__(self, cur_y, cur_u, cur_v, banks, cpads, H: int, W: int,
                  R: int, qp: int, qp_c: int, lam: int, lam_me: int, nref: int,
-                 wp=None, k: PKernels | None = None, use_t8: bool = False):
+                 wp=None, k: PKernels | None = None, use_t8: bool = False,
+                 use_cme: bool = True):
         self.cur_y, self.cur_u, self.cur_v = cur_y, cur_u, cur_v
         self.banks, self.cpads = banks, cpads
         self.H, self.W, self.R = H, W, R
@@ -580,6 +586,7 @@ class PFrame:
         self.nref = int(nref)
         self.wp = wp
         self.use_t8 = bool(use_t8)
+        self.use_cme = bool(use_cme)
         self.w_lev8 = None  # the 8x8 levels, made by p_t8 when use_t8
         self.k = k if k is not None else default_kernels()
         self.dev = cur_y.device
@@ -633,8 +640,13 @@ def _part_argmin(f: PFrame, grids, mvb):
 
 
 def p_search(f: PFrame) -> None:
-    """Stages 0-1: the coarse centres and the dense per-8x8 SSD grids."""
-    f.cen_x, f.cen_y = f.k.coarse_search(f.banks, f.cur_y, f.wp, f.lam_me)
+    """Stages 0-1: the coarse centres (zero without ``use_cme``,
+    rd.py:416-418) and the dense per-8x8 SSD grids."""
+    if f.use_cme:
+        f.cen_x, f.cen_y = f.k.coarse_search(f.banks, f.cur_y, f.wp, f.lam_me)
+    else:
+        f.cen_x = torch.zeros((f.NR, f.n_my, f.n_mx), dtype=I32, device=f.dev)
+        f.cen_y = torch.zeros_like(f.cen_x)
     f.ssd8 = f.k.ssd_grid8(f.banks, f.cur_y, f.cen_x, f.cen_y, f.wp, f.R)
 
 
@@ -724,7 +736,8 @@ def p_sub8(f: PFrame) -> None:
     f.u_py = f.pmvy.reshape(-1)[u_mb]
     RS = min(f.R, 10)
     DS = 2 * RS + 1
-    CMAX = PADW - RS - 5
+    # sub-block centres stay RS + 5 inside the (widened) padding
+    CMAX = (PADW if f.use_cme else PAD) - RS - 5
     u_cy = (f.u_qy >> 2).clamp(-CMAX, CMAX)
     u_cx = (f.u_qx >> 2).clamp(-CMAX, CMAX)
     s44 = f.k.ssd_grid4(f.banks, f.cur_y, f.u_ref, u_cy, u_cx, f.wp, RS)
@@ -1039,21 +1052,24 @@ def p_deblock(f: PFrame) -> None:
         BSV, BSH, f.qp, f.qp_c)
 
 
-def p_outputs(f: PFrame):
-    """The next reference entry (K2), the flat host_out in the
-    reference's layout, and the colocated snapshot for B pictures."""
-    n_mb, dev = f.n_mb, f.dev
-    bank, cpad = f.k.ref_bank(f.dy, f.du, f.dv)
+def p_host_out(f: PFrame):
+    """The flat host_out in the reference's layout."""
     lev8 = (f.w_lev8 if f.w_lev8 is not None
-            else torch.zeros(256 * n_mb, dtype=I32, device=dev))
-    host_out = torch.cat([
+            else torch.zeros(256 * f.n_mb, dtype=I32, device=f.dev))
+    return torch.cat([
         f.win.reshape(-1), f.w_ref8.reshape(-1), f.w_sub.reshape(-1),
         f.w_t8.reshape(-1), f.w_mv4x.reshape(-1), f.w_mv4y.reshape(-1),
         f.i16mode.reshape(-1), f.cip.reshape(-1), f.w_lev.reshape(-1),
         lev8.reshape(-1), f.lum_dc.reshape(-1), f.levc.reshape(-1), f.dcc.reshape(-1),
         f.ipm.reshape(-1)]).to(I32)
+
+
+def p_outputs(f: PFrame):
+    """The flat host_out, the recon, and the next reference entry: the
+    bank (K2) and the colocated snapshot for B pictures."""
+    bank, cpad = f.k.ref_bank(f.dy, f.du, f.dv)
     col = (f.intra4, f.ref4, f.mvx4, f.mvy4)
-    return host_out, (f.dy, f.du, f.dv), (bank, cpad, col)
+    return p_host_out(f), (f.dy, f.du, f.dv), (bank, cpad, col)
 
 
 P_STAGES = (p_search, p_partitions, p_refine, p_sub8, p_decide, p_winner,
@@ -1063,14 +1079,16 @@ P_STAGES = (p_search, p_partitions, p_refine, p_sub8, p_decide, p_winner,
 def rd_p_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int, R: int,
                   qp: int, qp_c: int, lam: int, lam_me: int, nref=None,
                   wp_w=None, wp_o=None, device=None, k: PKernels | None = None,
-                  use_t8: bool = False):
+                  use_t8: bool = False, use_cme: bool = True):
     """Whole-picture RD P coding.  cur_*: uint8 or int32 planes (host or
     device); banks (NR, 4, Hp, Wp), cpads (NR, 2, Hcp, Wcp) int32 on the
     device; lam / lam_me: lambda_mode / lambda_me << 16; nref: the active
     references (the rest of `banks` is padding that never wins); wp_w /
     wp_o: (NR,) explicit luma weights and offsets, or None; use_t8: the
-    FRExt 8x8-transform decision (High profile).  ``k`` picks the kernel
-    entries (the CUDA wrappers by default).
+    FRExt 8x8-transform decision (High profile); use_cme: the coarse
+    stage (on by default, as the reference's encoder calls it for one
+    slice; its own default is off, the tile-row path).  ``k`` picks the
+    kernel entries (the CUDA wrappers by default).
 
     Returns (host_out flat int32, recon (Y, U, V), next reference entry
     (bank, cpad, col)), all on the device."""
@@ -1081,7 +1099,7 @@ def rd_p_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int, R: int,
         wp = (RD._to_i32(wp_w, dev), RD._to_i32(wp_o, dev))
     f = PFrame(RD._to_i32(cur_y, dev), RD._to_i32(cur_u, dev),
                RD._to_i32(cur_v, dev), banks, cpads, H, W, R, qp, qp_c, lam,
-               lam_me, NR if nref is None else nref, wp, k, use_t8)
+               lam_me, NR if nref is None else nref, wp, k, use_t8, use_cme)
     for stage in P_STAGES:
         stage(f)
     return p_outputs(f)

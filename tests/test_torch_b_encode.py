@@ -248,7 +248,7 @@ def test_b_frames_configurations():
     with pytest.raises(ValueError, match="b_frames == 3"):
         H264Encoder(cfg(EncoderConfig, b_hierarchy=True), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        H264Encoder(cfg(EncoderConfig, rc_bitrate=1e5), device="cpu")
+        H264Encoder(cfg(EncoderConfig, intra_refresh=2), device="cpu")
     enc = H264Encoder(cfg(EncoderConfig), device="cpu")
     assert enc.sps.num_ref_frames == 3 and enc.sps.pic_order_cnt_type == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -217,6 +217,13 @@ def test_port_encode_imports_no_jax():
         "s = H264Encoder(cfg, device='cpu').encode_sequence("
         "synthetic_frames(3, 48, 32))\n"
         "assert len(decode_annexb(s, device='cpu')) == 3\n"
+        "cfg = EncoderConfig(width=48, height=32, fast=True, entropy='cavlc',"
+        " search_range=4, row_slices=2, rc_bitrate=2e5)\n"
+        "enc = H264Encoder(cfg, device='cpu')\n"
+        "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
+        "assert enc.rc.n_coded == 3\n"
+        "assert [p.to_yuv_bytes() for p in decode_annexb(s, device='cpu')]"
+        " == [p.to_yuv_bytes() for p in decode_annexb(s, use_device=False)]\n"
         "d = open('tests/streams/wp_b_expl.264', 'rb').read()\n"
         "a = decode_annexb(d, device='cpu')\n"
         "b = decode_annexb(d, use_device=False)\n"
@@ -243,12 +250,21 @@ def test_default_device_raises_without_card(monkeypatch):
 
 # configurations ported since this test listed them (the cases keep
 # their names): what the encoder now signals for each (profile, CABAC,
-# transform_8x8_mode_flag, several slices, host path)
-_PORTED_SINCE = {"entropy=cavlc": (66, False, False, False, False),
-                 "transform8x8=True": (100, True, True, False, False),
-                 "fast=False": (77, True, False, False, True),
+# transform_8x8_mode_flag, several slices, host path, a rate controller,
+# deblocking_filter_control_present_flag)
+_PORTED_SINCE = {"entropy=cavlc": (66, False, False, False, False, False,
+                                   False),
+                 "transform8x8=True": (100, True, True, False, False, False,
+                                       False),
+                 "fast=False": (77, True, False, False, True, False, False),
                  "slice_mode=1-slice_argument=11": (77, True, False, True,
-                                                    False)}
+                                                    False, False, False),
+                 "b_frames=1-rc_bitrate=100000.0": (77, True, False, False,
+                                                    False, True, False),
+                 "rc_bitrate=100000.0": (77, True, False, False, False, True,
+                                         False),
+                 "row_slices=2": (77, True, False, False, False, False,
+                                  True)}
 
 
 @pytest.mark.parametrize("kw", [
@@ -262,11 +278,13 @@ _PORTED_SINCE = {"entropy=cavlc": (66, False, False, False, False),
                            for k, v in kw.items()))
 def test_unported_configuration_raises(kw):
     """Each unported configuration raises naming its ROADMAP item; CAVLC,
-    the 8x8 transform, the host path (fast=False) and multi-slice are
-    ported and set the profile (Baseline, High), the PPS entropy flag and
-    transform_8x8_mode_flag, the multi-slice flag and the path instead;
-    scaling matrices with fast=True raise where the reference asserts
-    (they run on the host path)."""
+    the 8x8 transform, the host path (fast=False), multi-slice, rate
+    control (with and without B pictures) and tile-row slices are ported
+    and set the profile (Baseline, High), the PPS entropy flag and
+    transform_8x8_mode_flag, the multi-slice flag, the path, the rate
+    controller and the PPS filter-control flag (tile rows are deblocked
+    on their own) instead; scaling matrices with fast=True raise where
+    the reference asserts (they run on the host path)."""
     base = dict(width=W, height=H, fast=True, rd=True, entropy="cabac",
                 idr_period=1)
     base.update(kw)
@@ -275,7 +293,9 @@ def test_unported_configuration_raises(kw):
         enc = H264Encoder(EncoderConfig(**base), device="cpu")
         assert (enc.sps.profile_idc, enc.pps.entropy_coding_mode_flag,
                 enc.pps.transform_8x8_mode_flag, enc._multi_slice,
-                not enc.cfg.fast) == _PORTED_SINCE[key]
+                not enc.cfg.fast, enc.rc is not None,
+                enc.pps.deblocking_filter_control_present_flag
+                ) == _PORTED_SINCE[key]
         return
     if "scaling_lists" in kw:
         with pytest.raises(AssertionError, match="host path"):

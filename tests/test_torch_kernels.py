@@ -11,8 +11,9 @@ port is installed:
 test_torch_intra.py, test_torch_bank.py, test_torch_encode.py, the
 test_torch_p_*.py, test_torch_t8_*.py and test_torch_b_*.py files, for
 K9 also test_torch_ops.py, for K8 test_torch_decode_ops.py and
-test_torch_decode.py, and for K10 test_torch_me.py and the
-test_torch_host_*.py files)."""
+test_torch_decode.py, for K10 test_torch_me.py and the
+test_torch_host_*.py files, and on the tile-row path test_torch_rows*.py
+and test_torch_ratectl.py)."""
 
 import pathlib
 
@@ -22,7 +23,7 @@ import torch
 
 from h264_tpu_torch.decoder import device as DEV
 from h264_tpu_torch.decoder.decoder import decode_annexb
-from h264_tpu_torch.encoder import rd, rd_b, rd_p
+from h264_tpu_torch.encoder import rd, rd_b, rd_p, rd_rows
 from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
 from h264_tpu_torch.kernels import b_direct as K7
 from h264_tpu_torch.kernels import deblock as K6
@@ -37,6 +38,7 @@ from h264_tpu_torch.kernels import t8 as K9
 from h264_tpu_torch.ops.exact import chroma_qp
 from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
 from h264_tpu_torch.tools.decode_cases import built_cases
+from h264_tpu_torch.tools.rows_cases import edge_motion
 from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                   strengths_b_inputs)
 from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
@@ -571,6 +573,81 @@ def test_host_path_encoder_on_card_matches_cpu(cuda, kw):
     cpu = H264Encoder(cfg, device="cpu")
     assert card.encode_sequence(frames) == cpu.encode_sequence(frames)
     assert K10.sad_grid_16x16.launches > before
+    for (_, a), (_, b) in zip(card.all_recons, cpu.all_recons):
+        for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
+            np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# tile rows (rd_rows) and rate control
+# ---------------------------------------------------------------------------
+
+ROWS_ENTRIES = set(rd_p.entries_of(False)) - {"coarse_search"}
+
+
+def _hold_p(kern, name, args):
+    before = getattr(kern, name).launches
+    got = getattr(kern, name)(*args)
+    assert getattr(kern, name).launches == before + 1, name
+    want = getattr(rd_p.PLAIN, name)(*args)
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), f"{name} out {i}"
+
+
+@pytest.mark.parametrize("W,H,G", [(176, 144, 3), (352, 288, 3),
+                                   (352, 288, 6)], ids=lambda v: str(v))
+def test_rows_p_kernels_match_plain(cuda, W, H, G):
+    """Every P entry of the tile-row path (no coarse search) on the slab
+    inputs of a 1 I + 2 P encode with G rows, through the plain path on
+    the card, against the kernel."""
+    enc = H264Encoder(_ippp_cfg(W, H, 28, False, row_slices=G), device=cuda)
+    enc._p_kernels, calls = rd_p.recording(rd_p.PLAIN)
+    list(enc.encode_stream(moving_frames(3, W, H, seed=W + G)))
+    kern = rd_p.default_kernels()
+    for name, args in calls:
+        _hold_p(kern, name, args)
+    assert {n for n, _ in calls} == ROWS_ENTRIES
+
+
+def test_rows_p_kernels_at_the_slab_edges_match_plain(cuda):
+    """R 28 and content moved 28 pels along each diagonal
+    (tools/rows_cases.py): the windows reach every slab edge."""
+    H, W, G, R = 96, 176, 3, 28
+    ref, curs = edge_motion(H, W, R)
+    bank, cpad = K2.ref_bank(*(torch.as_tensor(p, dtype=torch.int32,
+                                               device=cuda) for p in ref))
+    kern = rd_p.default_kernels()
+    for cur in curs:
+        k, calls = rd_p.recording(rd_p.PLAIN)
+        rd_rows.rd_p_rows_pipeline(*cur, bank[None], cpad[None], H=H, W=W,
+                                   R=R, qp=28, qp_c=chroma_qp(28, 0),
+                                   lam=_lam(28), lam_me=_lam(28), G=G,
+                                   device=cuda, k=k)
+        for name, args in calls:
+            _hold_p(kern, name, args)
+        assert {n for n, _ in calls} == ROWS_ENTRIES
+
+
+@pytest.mark.parametrize("kw", [
+    {"row_slices": 3},
+    {"row_slices": 3, "entropy": "cavlc", "rc_bitrate": 350e3,
+     "num_ref_frames": 1},
+    {"rc_bitrate": 350e3},
+    {"rc_bitrate": 700e3, "b_frames": 1},
+    {"rc_bitrate": 350e3, "fast": False, "entropy": "cavlc"}],
+    ids=["rows", "rows_rc_cavlc", "rc_ippp", "rc_ipb", "rc_host"])
+def test_rows_and_rate_control_encoders_on_card_match_cpu(cuda, kw):
+    """Tile rows and rate control on the card write the streams and recons
+    they write on the CPU (the QP picks follow the same bits)."""
+    frames = moving_frames(5, 176, 144, seed=8)
+    cfg = EncoderConfig(**{**dict(width=176, height=144, qp=28, fast=True,
+                                  rd=True, entropy="cabac", num_ref_frames=2,
+                                  search_range=8), **kw})
+    card = H264Encoder(cfg)
+    cpu = H264Encoder(cfg, device="cpu")
+    assert card.encode_sequence(frames) == cpu.encode_sequence(frames)
     for (_, a), (_, b) in zip(card.all_recons, cpu.all_recons):
         for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
             np.testing.assert_array_equal(x, y)

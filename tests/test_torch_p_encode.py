@@ -128,8 +128,8 @@ def check_p_from_jax_state(snaps, cfg_):
             tenc, [(p, _np(b), _np(c), tuple(_np(x) for x in col))
                    for p, b, c, col in snap["refs"]], src=snap["src"])
         tenc.frame_num, tenc._prev_poc = snap["frame_num"], snap["prev_poc"]
-        host_out, recon, frame_num, poc, ref_pocs, _, wpw = tenc._start_p_rd(
-            snap["yuv"], **snap["kw"])
+        (host_out, recon, frame_num, poc, ref_pocs, _, wpw,
+         _) = tenc._start_p_rd(snap["yuv"], **snap["kw"])
         jp = snap["pending"]
         assert (frame_num, poc, ref_pocs, wpw) == (jp[3], jp[4], jp[5], jp[7])
         np.testing.assert_array_equal(host_out.numpy(), _np(jp[1]))
