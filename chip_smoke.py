@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-1. builds the CUDA kernels K1-K10 (nvcc, sm_90a, one process per source,
+1. builds the CUDA kernels K1-K11 (nvcc, sm_90a, one process per source,
    all at once) and the host C runtime (gcc);
 2. holds K1 (intra commit) and K2 (reference bank) against their plain
    PyTorch versions on the card, bit for bit, at CIF and 1280x720, QP 28
@@ -54,7 +54,12 @@
    CAVLC IPPP in 3 rows under rate control at 1.4 Mb/s (one reference,
    search range 8, 6 CIF frames), the bench configuration without WP under
    rate control at 1.0 Mb/s (9 CIF frames) and the host path's CAVLC IPPP
-   under rate control at 350 kb/s (3 176x144 frames), through
+   under rate control at 350 kb/s (3 176x144 frames), and the
+   error-resilient paths: the bench configuration with loss-aware RDO
+   (JM's defaults NumberOfDecoders 30 and LossRateA 10 %) and intra refresh
+   (22 MBs per P picture), ``IPB-ER`` (9 CIF and 5 1280x720 frames), and
+   the same without B pictures, ``IPPP-ER`` (6 CIF frames: drift penalties
+   on 4 consecutive P pictures), through
    ``H264Encoder(..., device="cuda").encode_stream``, each with the
    kernels' launch counters set to 0 just before and read just after (and
    read around each picture: a tile-row P picture's launches); then holds
@@ -64,7 +69,13 @@
    search ranges 0, 16 and 64; random and 0/255 planes), and times it per
    call at CIF and 1280x720, R 16 (events, mean of 20) beside its plain
    version and ``torch.cdist`` (p=1, float32, exact below 2^24) on the
-   ``unfold``ed windows;
+   ``unfold``ed windows; holds K11 (``propagate_drift``, the simulated
+   decoders' drift step) against its plain version on every step of the
+   error-resilient encodes (CIF, 1280x720) and on the built inputs of
+   tools/drift_cases.py (|drift| to 4095 and 60000, all / none lost, all
+   intra, gathers clipped on every side; K 1, 3 and 30; CIF, 1280x720),
+   and times both per P picture at CIF and 1280x720 with K 30 (events,
+   mean of 20);
 6. encodes the same frames at CIF (the host path's 176x144 ones at
    176x144) through the kernels' plain versions on the card (the IPB-T8
    path: its first 5 frames, encoded again through the kernels; not the
@@ -89,18 +100,28 @@
    for bit on every recorded input and on built inputs (far mvs, WP, T8,
    QP 0/51, wrapping dequant; tools/decode_cases.py) at QCIF, CIF and
    1280x720; times K8 and its plain version per CIF and 720p picture and
-   the decode per picture type, device and host path;
-8. prints per-picture times for I, P and B pictures (CUDA events and host
+   the decode per picture type, device and host path; drops the slice of
+   the second P picture of the IPPP-ER stream and decodes what is left
+   with concealment (frame copy and motion copy) on both decoder paths,
+   byte-identical;
+8. runs the command-line chain in a temporary directory: ``python -m
+   h264_tpu_torch.lencod`` on 3 seeded 176x144 frames with ``-p``
+   overrides (a text SEI, RTP output), ``tools.rtp_loss`` and
+   ``tools.rtpdump`` on its output and ``h264_tpu_torch.ldecod`` on it,
+   each exit code 0 and the decode equal to the recon file;
+9. prints per-picture times for I, P and B pictures (CUDA events and host
    clock around each ``encode_stream`` step, pipeline depth 1), their
    means per type with sample counts, PSNR-Y, bytes, each slice's QP and
    the mode mixes (with the 8x8 transform, the share of 8x8-transform MBs
    among the P MBs), the achieved bitrate of each rate-controlled stream
-   against its target, a tile-row P picture's launches, a ``kernels``
-   JSON line (launches from the main path, the bench configuration; K9's
-   from the IPB-T8 path; K10's from the CIF host-path IPPP and IPB
-   encodes; K8's from the decode of step 7; and each entry's launches per
-   CIF tile-row P picture), the card's name and power limit, and as its
-   last line the result object.
+   against its target, a tile-row P picture's launches, the intra-MB share
+   of the P pictures of the error-resilient paths beside their paths
+   without it and the largest |drift| of their simulated decoders, a
+   ``kernels`` JSON line (launches from the main path, the bench
+   configuration; K9's from the IPB-T8 path; K10's from the CIF host-path
+   IPPP and IPB encodes; K8's from the decode of step 7; K11's from the
+   IPB-ER path; and each entry's launches per CIF tile-row P picture), the
+   card's name and power limit, and as its last line the result object.
 
 Inputs are seeded synthetic frames (h264_tpu_torch/tools/synthseq.py).
 Exits non-zero, printing no result, when no CUDA card is present or the
@@ -114,8 +135,10 @@ import argparse
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -134,6 +157,9 @@ ROWS = 3  # tile-row slices per P picture (96 lines at CIF, 240 at 720p)
 # rate control targets (bits/s): the reference's QCIF test rate (350 kb/s)
 # scaled by pixels to CIF; the bench configuration; the QCIF host path
 RC_ROWS, RC_IPB, RC_HOST = 1.4e6, 1.0e6, 350e3
+# error-resilient paths: JM's NumberOfDecoders and LossRateA defaults
+# (lencod's encoder.cfg), forced intra MBs per P picture
+ER = dict(loss_aware_k=30, loss_rate=0.1, intra_refresh=22)
 SEED = 2026
 PLAIN_WORKERS = 6  # processes of step 6 (the card's host has 8 cores)
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and the
@@ -165,6 +191,9 @@ OPS_BS_B = 40
 # operations each, every thread computing its row's or column's), quant,
 # dequant, recon, two SSD terms, the bit counts and the shared sums
 OPS_T8 = 230
+# per sample and decoder of csrc/propagate_drift.cu: the select, the
+# lost-picture add, the square, its conversion and its float32 addition
+OPS_DRIFT = 6
 # per sample of csrc/decode_inter.cu: a luma prediction per list (two
 # reads, their rounded mean), a chroma one per list (four taps, weights,
 # rounding), and per inter sample the weighting and select, dequant,
@@ -209,6 +238,8 @@ SOURCES = {
     "t8_decide": ("h264_tpu_torch/csrc/t8.cu", "h264_tpu/encoder/rd.py:1071"),
     "sad_grid_16x16": ("h264_tpu_torch/csrc/sad_grid.cu",
                        "h264_tpu/encoder/me.py:25"),
+    "propagate_drift": ("h264_tpu_torch/csrc/propagate_drift.cu",
+                        "h264_tpu/encoder/lossaware.py:35"),
 }
 
 
@@ -219,13 +250,15 @@ def fail(msg: str):
 def plain_encode(job):
     """Step 6's worker: encode `fr` under `cfg` through the kernels' plain
     versions on the card (pipeline depth 1).  Returns the stream, the
-    recon planes, the reference entries as numpy arrays and the seconds
+    recon planes, the reference entries and the simulated decoders' drift
+    (None without loss-aware RDO) as numpy arrays and the seconds
     taken."""
     import torch
 
     from h264_tpu_torch.bitstream import write_annexb
     from h264_tpu_torch.encoder import rd_b, rd_p
     from h264_tpu_torch.encoder.encoder import H264Encoder
+    from h264_tpu_torch.encoder.lossaware import propagate_drift_plain
     from h264_tpu_torch.kernels import intra_commit as K1
     from h264_tpu_torch.kernels import ref_bank as K2
     from h264_tpu_torch.kernels import sad_grid as K10
@@ -234,6 +267,7 @@ def plain_encode(job):
         _intra_step = staticmethod(K1.intra_commit_step_plain)
         _ref_bank = staticmethod(K2.ref_bank_plain)
         _sad_grid = staticmethod(K10.sad_grid_16x16_plain)
+        _propagate_drift = staticmethod(propagate_drift_plain)
         _p_kernels = rd_p.PLAIN
         _b_kernels = rd_b.PLAIN
 
@@ -246,8 +280,9 @@ def plain_encode(job):
     recons = [(p.Y, p.U, p.V) for _, p in enc.all_recons]
     refs = [(e[0], [x.cpu().numpy() for x in (*e[1:3], *e[3])])
             for e in enc._rd_refs]
+    drift = None if enc._lsim is None else enc._lsim.drift.cpu().numpy()
     torch.cuda.synchronize()
-    return write_annexb(nalus), recons, refs, time.perf_counter() - t0
+    return write_annexb(nalus), recons, refs, drift, time.perf_counter() - t0
 
 
 def luma_planes(mvx, mvy) -> int:
@@ -480,6 +515,16 @@ def sad_cdist(cur, ref_p, R: int):
     return d.reshape(n_my, n_mx, D, D).permute(2, 3, 0, 1)
 
 
+def drift_work(K: int, H: int, W: int):
+    """(bytes, int32 operations) of one K11 call: the drift read and the
+    new drift written, the delta, mv4, intra and lost read once, the
+    penalty written."""
+    n4 = (H // 4) * (W // 4)
+    nbytes = (2 * K + 1) * H * W * 4 + n4 * (8 + 1) + K + (H // 16) * (
+        W // 16) * 4
+    return nbytes, OPS_DRIFT * K * H * W
+
+
 def bound_ms(nbytes: int, ops: int):
     tb, to = nbytes / HBM_BPS * 1e3, ops / INT32_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -501,8 +546,10 @@ def main(argv=None) -> int:
     from h264_tpu_torch.decoder.decoder import H264Decoder
     from h264_tpu_torch.encoder import rd, rd_b, rd_p, rd_rows
     from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
+    from h264_tpu_torch.encoder.lossaware import propagate_drift_plain
     from h264_tpu_torch.kernels import decode_inter as K8
     from h264_tpu_torch.kernels import intra_commit as K1
+    from h264_tpu_torch.kernels import propagate_drift as K11
     from h264_tpu_torch.kernels import ref_bank as K2
     from h264_tpu_torch.kernels import sad_grid as K10
     from h264_tpu_torch.kernels import t8 as K9
@@ -511,6 +558,9 @@ def main(argv=None) -> int:
     from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
     from h264_tpu_torch.tools.decode_cases import built_cases as dec_cases
     from h264_tpu_torch.tools.decode_cases import clip_sides
+    from h264_tpu_torch.tools.drift_cases import CASES as DRIFT_CASES
+    from h264_tpu_torch.tools.drift_cases import built_case as drift_case
+    from h264_tpu_torch.tools.drift_cases import clipped_sides
     from h264_tpu_torch.syntax.slice_header import parse_slice_header
     from h264_tpu_torch.tools.profile_decode import mean_by_type, timed_decode
     from h264_tpu_torch.tools.rows_cases import edge_motion
@@ -527,7 +577,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     D.build_cuda(["intra_commit", "ref_bank", "search_grid", "qpel",
                   "inter_tq", "deblock", "b_direct", "decode_inter", "t8",
-                  "sad_grid"])
+                  "sad_grid", "propagate_drift"])
     t_nvcc = time.perf_counter() - t0
     for stem in ("cabac_engine", "cabac_writer", "cavlc_writer", "deblock",
                  "cabac_reader", "cavlc_reader", "recon"):
@@ -896,8 +946,10 @@ def main(argv=None) -> int:
     counters = {"intra_commit": K1.intra_commit_step, "ref_bank": K2.ref_bank,
                 **{n: getattr(kern, n) for n in rd_p.P_ENTRIES},
                 **{n: getattr(bkern, n) for n in rd_b.B_OWN},
-                "sad_grid_16x16": K10.sad_grid_16x16}
+                "sad_grid_16x16": K10.sad_grid_16x16,
+                "propagate_drift": K11.propagate_drift}
     k10_calls = []  # (path, (cur, ref_padded, R)) of every host-path K10 call
+    k11_calls = []  # (path, size, args) of every step of the ER paths
 
     class HostEncoder(H264Encoder):
         """The encoder, with every K10 call's inputs recorded."""
@@ -906,6 +958,14 @@ def main(argv=None) -> int:
         def _sad_grid(cur, ref_p, R):
             k10_calls.append((host_tag, (cur, ref_p, R)))
             return K10.sad_grid_16x16(cur, ref_p, R)
+
+    class DriftEncoder(H264Encoder):
+        """The encoder, with every K11 call's inputs recorded."""
+
+        @staticmethod
+        def _propagate_drift(*a):
+            k11_calls.append((host_tag, tuple(a[0].shape[1:]), a))
+            return K11.propagate_drift(*a)
 
     def reset():
         for fn in counters.values():
@@ -980,8 +1040,10 @@ def main(argv=None) -> int:
     i_names = ("intra_commit", "ref_bank")
     p_names = (*i_names, *rd_p.entries_of(False))
     t8_names = (*i_names, *rd_p.entries_of(True))
-    rd_names = tuple(n for n in counters if n != "sad_grid_16x16")
+    rd_names = tuple(n for n in counters
+                     if n not in ("sad_grid_16x16", "propagate_drift"))
     b_names = tuple(n for n in rd_names if n != "t8_decide")
+    er_names = (*b_names, "propagate_drift")
     h_names = ("intra_commit", "sad_grid_16x16")  # the device I picture
     r_names = (*i_names, *rows_names)
     paths = {
@@ -1038,12 +1100,19 @@ def main(argv=None) -> int:
                           bframes[CIF])}, b_names),
         "host-RC": ({QCIF: (host_cfg(QCIF, rc_bitrate=RC_HOST), qframes)},
                     h_names),
+        # this slice: error resilience, the bench configuration with
+        # loss-aware RDO and intra refresh, and the same without B pictures
+        "IPB-ER": ({s: (b_cfg(s, **ER), bframes[s]) for s in N_IPB},
+                   er_names),
+        "IPPP-ER": ({CIF: (p_cfg(CIF, **ER), pframes[CIF])},
+                    (*p_names, "propagate_drift")),
     }
     runs, launches_of = {}, {}
     for tag, (sizes, needed) in paths.items():
         reset()
         host_tag = tag
-        cls = HostEncoder if tag.startswith("host") else H264Encoder
+        cls = (HostEncoder if tag.startswith("host") else DriftEncoder
+               if tag.endswith("-ER") else H264Encoder)
         runs[tag] = {s: encode(cls, c, f) for s, (c, f) in sizes.items()}
         launches_of[tag] = read()
         print(f"{tag} path launches: "
@@ -1057,7 +1126,8 @@ def main(argv=None) -> int:
                 "t8_decide": launches_of["IPB-T8"]["t8_decide"],
                 "sad_grid_16x16": sum(
                     launches_of[t]["sad_grid_16x16"]
-                    for t in ("host-IPPP-CAVLC", "host-IPB-CABAC"))}
+                    for t in ("host-IPPP-CAVLC", "host-IPB-CABAC")),
+                "propagate_drift": launches_of["IPB-ER"]["propagate_drift"]}
     n_k10 = {t: sum(1 for c in k10_calls if c[0] == t) for t in runs}
     if any(n_k10[t] != launches_of[t]["sad_grid_16x16"] for t in runs):
         fail(f"K10 calls {n_k10} differ from its launch counts")
@@ -1218,6 +1288,75 @@ def main(argv=None) -> int:
               f"({bound_ms(*tm['sad_grid_16x16']['work'])[1]})")
     torch.cuda.empty_cache()
 
+    # K11 against its plain version on every recorded and built input
+    max_drift = {}  # path -> the largest |drift| its decoders reached
+
+    def hold_k11(cargs, what):
+        got = K11.propagate_drift(*cargs)
+        want = propagate_drift_plain(*cargs)
+        for g, w, part in zip(got, want, ("drift", "pen")):
+            d = (g.long() - w.long()).abs()
+            e = int(d.max())
+            err["propagate_drift"] = max(err["propagate_drift"], e)
+            mismatches["propagate_drift"] += int((d > 0).sum())
+            if e or g.dtype != w.dtype or g.shape != w.shape:
+                idx = np.unravel_index(int(d.argmax()), tuple(d.shape))
+                fail(f"propagate_drift {what}: {part} differs from its plain "
+                     f"version ({int((d > 0).sum())} elements, first max at "
+                     f"{idx}: kernel {int(g[idx])} plain {int(w[idx])})")
+        return got
+
+    for tag, size, cargs in k11_calls:
+        new, _ = hold_k11(cargs, f"recorded {tag} {size}")
+        max_drift[tag] = max(max_drift.get(tag, 0), int(new.abs().max()))
+    n_built = 0
+    for (W, H) in (CIF, HD):
+        for K in (1, 3, 30):
+            for case in DRIFT_CASES:
+                arrs = drift_case(case, H, W, K, seed=SEED)
+                if case == "edges" and min(clipped_sides(
+                        arrs[2], H, W).values()) == 0:
+                    fail(f"propagate_drift built {W}x{H}: a side is not "
+                         "clipped")
+                hold_k11(tuple(torch.as_tensor(a, device=dev) for a in arrs),
+                         f"built {W}x{H} K {K} {case}")
+                n_built += 1
+    print(f"check propagate_drift: {len(k11_calls)} recorded steps of the "
+          f"error-resilient encodes (CIF, 1280x720) and {n_built} built "
+          "inputs (|drift| to 4095 and 60000, all / none lost, all intra, "
+          "gathers clipped on every side; K 1/3/30) equal to the plain "
+          "version (tolerance 0: bit-exact); largest |drift| reached: "
+          f"{max_drift}")
+    report["max_abs_drift"] = max_drift
+    for size in (CIF, HD):
+        W, H = size
+        cargs = next(a for t, s, a in k11_calls
+                     if t == "IPB-ER" and s == (H, W))
+        K = cargs[0].shape[0]
+        tm = timing.setdefault(size, {})
+        tm["propagate_drift"] = {
+            "ms": cuda_ms(lambda: K11.propagate_drift(*cargs), 20),
+            "plain_ms": cuda_ms(lambda: propagate_drift_plain(*cargs), 20),
+            "launches_per_picture": "1 (RD P)",
+            "work": drift_work(K, H, W)}
+        b_ms, b_by = bound_ms(*tm["propagate_drift"]["work"])
+        print(f"time {W}x{H} K {K} propagate_drift per P picture: "
+              f"{tm['propagate_drift']['ms']:.4f} ms (events, mean of 20), "
+              f"plain {tm['propagate_drift']['plain_ms']:.3f} ms (mean of "
+              f"20), bound {b_ms:.5f} ms ({b_by}, "
+              f"{tm['propagate_drift']['work'][0]} B); no single PyTorch "
+              "call computes it")
+    for tag, base in (("IPB-ER", "IPB"), ("IPPP-ER", "IPPP")):
+        for size in runs[tag]:
+            shares = [
+                float(np.mean([p["mode_mix"]["intra"]
+                               for p in runs[t][size][2]
+                               if p["type"] == "P" and "mode_mix" in p]))
+                for t in (tag, base)]
+            report[f"intra_share {tag} {size[0]}x{size[1]}"] = shares
+            print(f"intra-MB share of the P pictures, {tag} {size[0]}x"
+                  f"{size[1]}: {shares[0]:.4f} ({base}: {shares[1]:.4f})")
+
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
     # ---- 6. the same frames through the plain versions on the card -----------
@@ -1240,8 +1379,8 @@ def main(argv=None) -> int:
     with ProcessPoolExecutor(PLAIN_WORKERS, mp_context=multiprocessing
                              .get_context("spawn")) as pool:
         plain = list(pool.map(plain_encode, jobs))
-    for (tag, size, cfg, fr), (pstream, precons, prefs, secs) in zip(jobs,
-                                                                      plain):
+    for (tag, size, cfg, fr), (pstream, precons, prefs, pdrift,
+                               secs) in zip(jobs, plain):
         enc, stream, _ = runs[tag][size]
         if tag == "IPB-T8":
             enc, stream, _ = encode(H264Encoder, cfg, fr)
@@ -1263,6 +1402,11 @@ def main(argv=None) -> int:
                 if not np.array_equal(x.cpu().numpy(), y):
                     fail(f"{tag} {size}: reference entry differs from "
                          "the plain path's")
+        if (enc._lsim is None) != (pdrift is None) or (
+                pdrift is not None and not np.array_equal(
+                    enc._lsim.drift.cpu().numpy(), pdrift)):
+            fail(f"{tag} {size}: simulated decoders' drift differs from the "
+                 "plain path's")
         print(f"plain path {tag} {size[0]}x{size[1]} ({len(fr)} frames, "
               f"{secs:.0f} s in its worker): stream, recon and reference "
               "entries identical")
@@ -1360,6 +1504,28 @@ def main(argv=None) -> int:
                   for k, poc, dy, dc in rows))
     report["decode_vs_recon"] = b_diff
 
+    # a lost slice: the IPPP-ER stream without its second P picture's slice
+    # (its frame_num gap concealed), on both decoder paths
+    er_stream = runs["IPPP-ER"][CIF][1]
+    nals = list(iter_annexb_nalus(er_stream))
+    slices = [i for i, n in enumerate(nals) if n.nal_unit_type == 1]
+    lossy = write_annexb([n for i, n in enumerate(nals) if i != slices[1]])
+    for mode in (1, 2):
+        dpics = list(H264Decoder(conceal_mode=mode, device="cuda")
+                     .decode_stream(lossy))
+        hpics = list(H264Decoder(conceal_mode=mode, use_device=False)
+                     .decode_stream(lossy))
+        if [p.to_yuv_bytes() for p in dpics] != [p.to_yuv_bytes()
+                                                 for p in hpics]:
+            fail(f"IPPP-ER with a lost slice, conceal mode {mode}: the card's "
+                 "decode differs from the host decode")
+        if len(dpics) != N_IPPP[CIF] or not any(
+                getattr(p, "concealed", False) for p in dpics):
+            fail(f"IPPP-ER with a lost slice, conceal mode {mode}: "
+                 f"{len(dpics)} pictures, none concealed")
+    print("decode of IPPP-ER CIF without its second P slice, conceal modes "
+          "1 and 2: the card's decode byte-identical to the host decode")
+
     # K8 against its plain version on every recorded and built input
     def hold_k8(args, H, W, ns, what):
         got = K8.decode_inter(*args, H=H, W=W, NS=ns)
@@ -1419,7 +1585,53 @@ def main(argv=None) -> int:
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
-    # ---- 8. report -----------------------------------------------------------
+    # ---- 8. the command-line chain --------------------------------------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        with open(os.path.join(work, "in.yuv"), "wb") as f:
+            for fr in moving_frames(3, *QCIF, seed=SEED + 4):
+                for pl in fr:
+                    f.write(np.ascontiguousarray(pl, np.uint8).tobytes())
+        with open(os.path.join(work, "enc.cfg"), "w") as f:
+            f.write(f"InputFile = in.yuv\nSourceWidth = {QCIF[0]}\n"
+                    f"SourceHeight = {QCIF[1]}\nFramesToBeEncoded = 3\n"
+                    "QPISlice = 28\nQPPSlice = 28\nSearchRange = 16\n"
+                    "OutputFile = out.rtp\nReconFile = rec.yuv\n")
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        chain = [
+            ["h264_tpu_torch.lencod", "-d", "enc.cfg", "-p",
+             "GenerateSEIMessage=1", "-p", "SEIMessageText=chip smoke", "-p",
+             "OutFileMode=1"],
+            ["h264_tpu_torch.tools.rtp_loss", "out.rtp", "lossy.rtp", "20",
+             "2"],  # (seed 2 drops the last picture's packet)
+            ["h264_tpu_torch.tools.rtpdump", "lossy.rtp"],
+            ["h264_tpu_torch.ldecod", "out.rtp", "dec.yuv"],
+        ]
+        t8c = time.perf_counter()
+        for cmd in chain:
+            r = subprocess.run([sys.executable, "-m", *cmd], cwd=work, env=env,
+                               capture_output=True, text=True, timeout=300)
+            if r.returncode != 0:
+                fail(f"{' '.join(cmd)}: exit {r.returncode}\n{r.stdout}"
+                     f"{r.stderr}")
+            print(f"cli {cmd[0]}: exit 0, last line: "
+                  f"{r.stdout.strip().splitlines()[-1]}")
+        with open(os.path.join(work, "dec.yuv"), "rb") as f:
+            dec = f.read()
+        with open(os.path.join(work, "rec.yuv"), "rb") as f:
+            rec = f.read()
+        if dec != rec or len(rec) != 3 * QCIF[0] * QCIF[1] * 3 // 2:
+            fail("cli: the ldecod output differs from lencod's recon file")
+        print(f"cli chain lencod (RTP, text SEI) -> rtp_loss -> rtpdump -> "
+              f"ldecod: exit codes 0, decode equal to the recon file "
+              f"({time.perf_counter() - t8c:.0f} s)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+
+    # ---- 9. report -----------------------------------------------------------
     kernels = []
     rows_per = report[f"rows_launches rows {CIF[0]}x{CIF[1]}"]
     for name, (source, replaces) in SOURCES.items():

@@ -16,18 +16,26 @@ package.  It mirrors the reference package's layout:
   encoder/                        rd.py, rd_p.py, rd_b.py (the I, P and B
                                   pipelines, plain PyTorch beside the
                                   kernels), rd_rows.py (tile-row P
-                                  slices), encoder.py (H264Encoder),
-                                  fills.py, syntax_cabac.py
+                                  slices), lossaware.py (the simulated
+                                  lossy decoders), encoder.py
+                                  (H264Encoder), fills.py, syntax_cabac.py
   control/                        rate control (JVT-G012) and the
                                   leaky-bucket parameters
   kernels/, csrc/                 hand-written CUDA kernels and wrappers
   device.py                       device policy and the kernel build
   convert.py                      reference entries and tables carried in
-  ldecod.py                       the decoder CLI (``python -m``)
+  config.py                       the JM .cfg parser, the encoder's and
+                                  decoder's run configurations
+  lencod.py, ldecod.py            the encoder and decoder CLIs
+                                  (``python -m``)
+  tools/                          rtp_loss, rtpdump, benchseq (copies),
+                                  profilers and built kernel inputs
 
 Ported so far: the all-intra, IPPP and IPB encodes of the fast RD path
-(CABAC and CAVLC, the bench configuration included, tile-row slices), the
-host-path encoder, rate control on both, and the decoder (ROADMAP Queue 1).
+(CABAC and CAVLC, the bench configuration included, tile-row slices, intra
+refresh and loss-aware RDO), the host-path encoder, rate control on both,
+the sequence SEI, the decoder and the CLIs (ROADMAP Queue 1); not the
+legacy P16x16 path (``rd=False``).
 """
 
 __version__ = "0.1.0"

@@ -53,9 +53,20 @@ tile row with ``row_slices``; it runs IPPP streams of the RD path at
 depth 1 and IPB streams in anchor groups (depth 2), as the reference does,
 so that every pick follows the same feedback.
 
-Every other configuration raises NotImplementedError naming its ROADMAP
-item: intra refresh, loss-aware RDO, SEI and the legacy P16x16 path
-(``rd=False``).  No half-ported path runs.
+Error resilience on the device RD path (``fast=True``): forced intra
+refresh (``intra_refresh`` MBs of every P picture, lencod's
+RandomIntraMBRefresh, in a seeded permutation of the MBs that starts anew
+when the picture has been covered) and loss-aware RDO (``loss_aware_k``
+simulated lossy decoders, ``lossaware.LossSimulator``, whose drift step
+after every RD P picture is kernel K11; from the second P picture after
+an IDR each MB's mean drift energy is added to every inter candidate's
+cost).  Both are decided in the one-slice P pipeline; with tile rows the
+schedule and the decoders advance but the rows do not use them, as in the
+reference.  The sequence's SEI messages (user data text, tone mapping, a
+recovery point) go out after the parameter sets (``headers``).
+
+The legacy P16x16 path (``rd=False``) raises NotImplementedError naming its
+ROADMAP item.  No half-ported path runs.
 """
 
 from __future__ import annotations
@@ -79,6 +90,7 @@ from ..decoder.recon import Planes, _add_residual
 from ..decoder.state import PictureParseState
 from ..device import resolve_device
 from ..kernels.intra_commit import intra_commit_step
+from ..kernels.propagate_drift import propagate_drift
 from ..kernels.ref_bank import ref_bank
 from ..kernels.sad_grid import sad_grid_16x16
 from ..ops import interp as MC
@@ -88,6 +100,7 @@ from ..ops import transforms as TR
 from ..ops.deblock import deblock_picture
 from ..ops.exact import chroma_qp
 from ..syntax.parsets import PPS, SPS, write_pps, write_sps
+from ..syntax.sei import RecoveryPoint, UserDataUnregistered, write_sei
 from ..syntax.slice_header import (PredWeight, SliceHeader, SliceType,
                                    write_slice_header)
 from . import fills as FL
@@ -96,6 +109,7 @@ from . import rd as RD
 from . import rd_b as RDB
 from . import rd_p as RDP
 from . import rd_rows as RDR
+from .lossaware import LossSimulator
 from .syntax_cabac import CabacSliceWriter
 from .syntax_cavlc import CavlcSliceWriter
 
@@ -164,10 +178,6 @@ class EncoderConfig:
 # configuration -> the ROADMAP Queue 1 item that brings it
 _NOT_PORTED = (
     (lambda c: not c.rd, "rd=False (legacy P16x16 path)", "Legacy P16x16 path"),
-    (lambda c: c.intra_refresh > 0, "intra refresh", "Intra refresh"),
-    (lambda c: c.loss_aware_k > 0, "loss-aware RDO", "Loss-aware RDO"),
-    (lambda c: bool(c.sei_text) or c.sei_tone_mapping is not None
-     or c.sei_recovery_point, "SEI messages", "Config and CLIs"),
 )
 
 
@@ -181,11 +191,13 @@ class H264Encoder:
     # the kernel wrappers the pictures go through (a subclass may name
     # their plain versions to run the plain path on the card): the I
     # picture's commit step and reference entry, the host path's SAD
-    # grids, and every entry of the P and B pipelines (rd_p.PKernels,
-    # rd_b.BKernels; None means their default_kernels())
+    # grids, the loss-aware RDO's drift step, and every entry of the P and
+    # B pipelines (rd_p.PKernels, rd_b.BKernels; None means their
+    # default_kernels())
     _intra_step = staticmethod(intra_commit_step)
     _ref_bank = staticmethod(ref_bank)
     _sad_grid = staticmethod(sad_grid_16x16)
+    _propagate_drift = staticmethod(propagate_drift)
     _p_kernels = None
     _b_kernels = None
 
@@ -212,6 +224,8 @@ class H264Encoder:
         if cfg.fast and cfg.scaling_lists is not None:
             raise ValueError(
                 "scaling matrices run on the host path (fast=False)")
+        if cfg.loss_aware_k > 0 and not cfg.fast:
+            raise ValueError("loss-aware RDO runs on the RD path (fast=True)")
         if cfg.b_frames > 0 and not 0 <= cfg.qp + cfg.qp_b_offset <= 51:
             raise ValueError(f"B picture QP {cfg.qp} + {cfg.qp_b_offset} "
                              "outside 0..51")
@@ -306,6 +320,17 @@ class H264Encoder:
                                   cfg.height, gop_size=cfg.idr_period,
                                   n_b=cfg.b_frames)
         self._prev_src = None  # the last RD P picture's source luma (MAD)
+        # loss-aware RDO: the simulated decoders (reset at every IDR)
+        self._lsim = None
+        if cfg.loss_aware_k > 0:
+            self._lsim = LossSimulator(cfg.loss_aware_k, cfg.loss_rate,
+                                       cfg.height, cfg.width,
+                                       device=self.device,
+                                       step=self._propagate_drift)
+        # intra refresh: the permutation of the MBs being walked and the
+        # position in it (made at the first RD P picture, never reset)
+        self._refresh_perm = None
+        self._refresh_pos = 0
 
     def _fmo_pps(self) -> None:
         """The slice-group fields of the PPS for map types 0-6."""
@@ -349,10 +374,32 @@ class H264Encoder:
 
     # ------------------------------------------------------------------
     def headers(self) -> list[NalUnit]:
-        return [
+        out = [
             NalUnit(7, 3, write_sps(self.sps)),
             NalUnit(8, 3, write_pps(self.pps)),
         ]
+        sei = self._sequence_sei()
+        if sei:
+            out.append(sei)
+        return out
+
+    def _sequence_sei(self) -> NalUnit | None:
+        """One SEI NAL after the parameter sets (the lencod stream layout
+        for tone mapping and text SEI, lencod/src/image.c:1398 and the
+        sei.c write paths): tone mapping, user data text, a recovery
+        point, in that order, or None without any."""
+        cfg = self.cfg
+        msgs = []
+        if cfg.sei_tone_mapping is not None:
+            msgs.append(cfg.sei_tone_mapping)
+        if cfg.sei_text:
+            msgs.append(UserDataUnregistered(uuid=bytes(16),
+                                             data=cfg.sei_text.encode()))
+        if cfg.sei_recovery_point:
+            msgs.append(RecoveryPoint(recovery_frame_cnt=0))
+        if not msgs:
+            return None
+        return NalUnit(6, 0, write_sei(msgs, {0: self.sps}))
 
     def encode_sequence(self, frames) -> bytes:
         """frames: list of (Y, U, V) uint8 arrays. Returns Annex-B bytes."""
@@ -482,6 +529,8 @@ class H264Encoder:
             self.recon_pics.clear()
             self._rd_refs.clear()
             self.frame_num = 0
+            if self._lsim is not None:
+                self._lsim.reset()
         is_ref = stype != SliceType.B  # B pictures are disposable here
         if self.rc is not None:
             qp = self.rc.pick_qp(stype.name)
@@ -688,6 +737,7 @@ class H264Encoder:
         banks = torch.stack([e[1] for e in refs + pad])
         cpads = torch.stack([e[2] for e in refs + pad])
         ref_pocs = [e[0] for e in refs]
+        force_intra = self._refresh_mask() if cfg.intra_refresh > 0 else None
         wp_weights = None
         wp_w = wp_o = None
         if cfg.weighted_pred:
@@ -745,12 +795,19 @@ class H264Encoder:
                 G=cfg.row_slices, nref=len(refs), device=dev,
                 k=self._p_kernels)
         else:
+            # (the tile rows above take neither the refresh mask nor the
+            # drift penalty: the reference passes them to this call only)
             host_out, recon, new_entry = RDP.rd_p_pipeline(
                 *cur, banks, cpads, H=H, W=W, R=min(cfg.search_range, 28),
                 qp=qp, qp_c=qp_c, lam=lam_fx, lam_me=2 * lam_fx,
                 nref=len(refs), wp_w=wp_w, wp_o=wp_o, device=dev,
                 k=self._p_kernels, use_t8=bool(cfg.transform8x8),
-                use_cme=True)
+                use_cme=True, force_intra=force_intra,
+                drift_pen=None if self._lsim is None else self._lsim.pen)
+        if self._lsim is not None:
+            intra4, _ref4, mvx4, mvy4 = new_entry[2]
+            self._lsim.after_frame(recon[0], torch.stack([mvx4, mvy4], -1),
+                                   intra4)
         frame_num = self.frame_num
         self.frame_num += 1
         if poc is None:
@@ -770,6 +827,27 @@ class H264Encoder:
         self._prev_src = cur_y
         return (host_out, recon, frame_num, poc, ref_pocs, qp, wp_weights,
                 mad)
+
+    def _refresh_mask(self) -> np.ndarray:
+        """The (n_mb,) bool mask of the MBs this P picture must code intra
+        (lencod RandomIntraMBRefresh, intrarefresh.c:97; the reference's
+        encoder.py:651-665): the next ``intra_refresh`` MBs of a
+        permutation of all MBs (``RandomState(13)``), a new permutation
+        (``RandomState(13 + the number of source POCs seen)``) each time
+        one is used up."""
+        n_mb = (self.sps.width // 16) * (self.sps.height // 16)
+        if self._refresh_perm is None:
+            self._refresh_perm = np.random.RandomState(13).permutation(n_mb)
+            self._refresh_pos = 0
+        mask = np.zeros(n_mb, bool)
+        for _ in range(min(self.cfg.intra_refresh, n_mb)):
+            if self._refresh_pos >= n_mb:
+                self._refresh_perm = np.random.RandomState(
+                    13 + len(self._src_dc)).permutation(n_mb)
+                self._refresh_pos = 0
+            mask[self._refresh_perm[self._refresh_pos]] = True
+            self._refresh_pos += 1
+        return mask
 
     def _rc_row_qps(self, frame_qp: int, cur_y) -> np.ndarray:
         """Per-tile-row basic-unit QPs (the reference's encoder.py:762-795):

@@ -770,6 +770,12 @@ def _intra_commit_scan(cur_y, cur_u, cur_v, w_rec, recc, is_intra, w_lev,
             s.ipm[1:, 1:])
 
 
+def wrap_i32(x) -> torch.Tensor:
+    """An int64 tensor as int32 with two's-complement wrap (XLA's int32
+    arithmetic)."""
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).to(I32)
+
+
 def _to_i32(x, dev: torch.device) -> torch.Tensor:
     """A host array or tensor as a contiguous int32 tensor on `dev`."""
     if not isinstance(x, torch.Tensor):

@@ -577,7 +577,7 @@ class PFrame:
     def __init__(self, cur_y, cur_u, cur_v, banks, cpads, H: int, W: int,
                  R: int, qp: int, qp_c: int, lam: int, lam_me: int, nref: int,
                  wp=None, k: PKernels | None = None, use_t8: bool = False,
-                 use_cme: bool = True):
+                 use_cme: bool = True, force_intra=None, drift_pen=None):
         self.cur_y, self.cur_u, self.cur_v = cur_y, cur_u, cur_v
         self.banks, self.cpads = banks, cpads
         self.H, self.W, self.R = H, W, R
@@ -587,6 +587,9 @@ class PFrame:
         self.wp = wp
         self.use_t8 = bool(use_t8)
         self.use_cme = bool(use_cme)
+        # intra refresh: (n_mb,) bool, MBs that must code intra; loss-aware
+        # RDO: (n_mb,) int32 drift penalty on every inter candidate
+        self.force_intra, self.drift_pen = force_intra, drift_pen
         self.w_lev8 = None  # the 8x8 levels, made by p_t8 when use_t8
         self.k = k if k is not None else default_kernels()
         self.dev = cur_y.device
@@ -954,10 +957,23 @@ def p_decide(f: PFrame) -> None:
     R_pmv = (1 + f.rbits[0] + _mv_bits(f.pskx - pmvx_f)
              + _mv_bits(f.psky - pmvy_f) + cb_i[4])
     J_pmv = D_i[4] + _lam_cost(lam, R_pmv)
+    if f.drift_pen is not None:
+        # loss-aware RDO (rd.py:978-982): the expected drift distortion of
+        # inter prediction under the simulated losses, int32 wrapping
+        pen = f.drift_pen.to(torch.int64)
+        J_inter = RD.wrap_i32(J_inter.to(torch.int64) + pen[None, :])
+        J_pmv = RD.wrap_i32(J_pmv.to(torch.int64) + pen)
     # I16 from original neighbours (the decision's approximation)
     f.rec16, D16, cb16 = f.k.i16_candidate(f.cur_y, f.qp)
     J_i16 = D16 + _lam_cost(lam, cb16 + 8)
     J_all = torch.cat([J_inter, J_pmv[None], J_i16[None]], 0)
+    if f.force_intra is not None:
+        # forced intra refresh (rd.py:1005-1010, lencod intrarefresh.c:97):
+        # every candidate but I16 of a scheduled MB costs 1 << 29
+        inter = torch.arange(J_all.shape[0], device=dev)[:, None] < C_I16
+        J_all = torch.where(f.force_intra[None, :] & inter,
+                            torch.tensor(1 << 29, dtype=I32, device=dev),
+                            J_all)
     f.win = J_all.argmin(0).to(I32)
 
 
@@ -1079,7 +1095,8 @@ P_STAGES = (p_search, p_partitions, p_refine, p_sub8, p_decide, p_winner,
 def rd_p_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int, R: int,
                   qp: int, qp_c: int, lam: int, lam_me: int, nref=None,
                   wp_w=None, wp_o=None, device=None, k: PKernels | None = None,
-                  use_t8: bool = False, use_cme: bool = True):
+                  use_t8: bool = False, use_cme: bool = True,
+                  force_intra=None, drift_pen=None):
     """Whole-picture RD P coding.  cur_*: uint8 or int32 planes (host or
     device); banks (NR, 4, Hp, Wp), cpads (NR, 2, Hcp, Wcp) int32 on the
     device; lam / lam_me: lambda_mode / lambda_me << 16; nref: the active
@@ -1087,8 +1104,11 @@ def rd_p_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int, R: int,
     wp_o: (NR,) explicit luma weights and offsets, or None; use_t8: the
     FRExt 8x8-transform decision (High profile); use_cme: the coarse
     stage (on by default, as the reference's encoder calls it for one
-    slice; its own default is off, the tile-row path).  ``k`` picks the
-    kernel entries (the CUDA wrappers by default).
+    slice; its own default is off, the tile-row path); force_intra:
+    (n_mb,) bool MBs coded intra whatever their cost (intra refresh), or
+    None; drift_pen: (n_mb,) int32 added to every inter candidate's J
+    (loss-aware RDO), or None.  ``k`` picks the kernel entries (the CUDA
+    wrappers by default).
 
     Returns (host_out flat int32, recon (Y, U, V), next reference entry
     (bank, cpad, col)), all on the device."""
@@ -1099,7 +1119,10 @@ def rd_p_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int, R: int,
         wp = (RD._to_i32(wp_w, dev), RD._to_i32(wp_o, dev))
     f = PFrame(RD._to_i32(cur_y, dev), RD._to_i32(cur_u, dev),
                RD._to_i32(cur_v, dev), banks, cpads, H, W, R, qp, qp_c, lam,
-               lam_me, NR if nref is None else nref, wp, k, use_t8, use_cme)
+               lam_me, NR if nref is None else nref, wp, k, use_t8, use_cme,
+               None if force_intra is None
+               else RD._to_i32(force_intra, dev) != 0,
+               None if drift_pen is None else RD._to_i32(drift_pen, dev))
     for stage in P_STAGES:
         stage(f)
     return p_outputs(f)

@@ -229,6 +229,23 @@ def test_port_encode_imports_no_jax():
         "b = decode_annexb(d, use_device=False)\n"
         "assert len(a) == len(b) > 0 and all(\n"
         "    x.to_yuv_bytes() == y.to_yuv_bytes() for x, y in zip(a, b))\n"
+        "cfg = EncoderConfig(width=48, height=32, fast=True, entropy='cabac',"
+        " search_range=4, loss_aware_k=2, loss_rate=0.5, intra_refresh=2,"
+        " sei_text='x')\n"
+        "enc = H264Encoder(cfg, device='cpu')\n"
+        "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
+        "assert enc._lsim.pen is not None and len(enc.headers()) == 3\n"
+        "assert len(decode_annexb(s, device='cpu')) == 3\n"
+        "import contextlib, io, os, tempfile\n"
+        "from h264_tpu_torch import lencod\n"
+        "os.chdir(tempfile.mkdtemp())\n"
+        "open('in.yuv', 'wb').write(bytes(range(256)) * 18)\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert lencod.main(['--device', 'cpu', '-p', 'InputFile=in.yuv',"
+        " '-p', 'SourceWidth=48', '-p', 'SourceHeight=32', '-p',"
+        " 'FramesToBeEncoded=2', '-p', 'SearchRange=4', '-p',"
+        " 'ReconFile=rec.yuv']) == 0\n"
+        "assert os.path.getsize('rec.yuv') == 2 * 48 * 32 * 3 // 2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "(m.split('.')[0].startswith('h264_tpu') and "
@@ -251,20 +268,30 @@ def test_default_device_raises_without_card(monkeypatch):
 # configurations ported since this test listed them (the cases keep
 # their names): what the encoder now signals for each (profile, CABAC,
 # transform_8x8_mode_flag, several slices, host path, a rate controller,
-# deblocking_filter_control_present_flag)
+# deblocking_filter_control_present_flag, simulated lossy decoders, the
+# header NALs: SPS, PPS and an SEI when there are messages)
 _PORTED_SINCE = {"entropy=cavlc": (66, False, False, False, False, False,
-                                   False),
+                                   False, 0, 2),
                  "transform8x8=True": (100, True, True, False, False, False,
-                                       False),
-                 "fast=False": (77, True, False, False, True, False, False),
+                                       False, 0, 2),
+                 "fast=False": (77, True, False, False, True, False, False,
+                                0, 2),
                  "slice_mode=1-slice_argument=11": (77, True, False, True,
-                                                    False, False, False),
+                                                    False, False, False, 0,
+                                                    2),
                  "b_frames=1-rc_bitrate=100000.0": (77, True, False, False,
-                                                    False, True, False),
+                                                    False, True, False, 0,
+                                                    2),
                  "rc_bitrate=100000.0": (77, True, False, False, False, True,
-                                         False),
+                                         False, 0, 2),
                  "row_slices=2": (77, True, False, False, False, False,
-                                  True)}
+                                  True, 0, 2),
+                 "intra_refresh=2": (77, True, False, False, False, False,
+                                     False, 0, 2),
+                 "sei_text=x": (77, True, False, False, False, False, False,
+                                0, 3),
+                 "loss_aware_k=2": (77, True, False, False, False, False,
+                                    False, 2, 2)}
 
 
 @pytest.mark.parametrize("kw", [
@@ -277,14 +304,16 @@ _PORTED_SINCE = {"entropy=cavlc": (66, False, False, False, False, False,
 ], ids=lambda kw: "-".join(f"{k}={v}" if k != "scaling_lists" else k
                            for k, v in kw.items()))
 def test_unported_configuration_raises(kw):
-    """Each unported configuration raises naming its ROADMAP item; CAVLC,
-    the 8x8 transform, the host path (fast=False), multi-slice, rate
-    control (with and without B pictures) and tile-row slices are ported
-    and set the profile (Baseline, High), the PPS entropy flag and
+    """Each unported configuration (rd=False) raises naming its ROADMAP
+    item; CAVLC, the 8x8 transform, the host path (fast=False),
+    multi-slice, rate control (with and without B pictures), tile-row
+    slices, intra refresh, SEI and loss-aware RDO are ported and set the
+    profile (Baseline, High), the PPS entropy flag and
     transform_8x8_mode_flag, the multi-slice flag, the path, the rate
-    controller and the PPS filter-control flag (tile rows are deblocked
-    on their own) instead; scaling matrices with fast=True raise where
-    the reference asserts (they run on the host path)."""
+    controller, the PPS filter-control flag (tile rows are deblocked on
+    their own), the simulated decoders and the SEI NAL instead; scaling
+    matrices with fast=True raise where the reference asserts (they run on
+    the host path)."""
     base = dict(width=W, height=H, fast=True, rd=True, entropy="cabac",
                 idr_period=1)
     base.update(kw)
@@ -294,7 +323,8 @@ def test_unported_configuration_raises(kw):
         assert (enc.sps.profile_idc, enc.pps.entropy_coding_mode_flag,
                 enc.pps.transform_8x8_mode_flag, enc._multi_slice,
                 not enc.cfg.fast, enc.rc is not None,
-                enc.pps.deblocking_filter_control_present_flag
+                enc.pps.deblocking_filter_control_present_flag,
+                0 if enc._lsim is None else enc._lsim.k, len(enc.headers())
                 ) == _PORTED_SINCE[key]
         return
     if "scaling_lists" in kw:

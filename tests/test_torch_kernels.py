@@ -12,8 +12,9 @@ test_torch_intra.py, test_torch_bank.py, test_torch_encode.py, the
 test_torch_p_*.py, test_torch_t8_*.py and test_torch_b_*.py files, for
 K9 also test_torch_ops.py, for K8 test_torch_decode_ops.py and
 test_torch_decode.py, for K10 test_torch_me.py and the
-test_torch_host_*.py files, and on the tile-row path test_torch_rows*.py
-and test_torch_ratectl.py)."""
+test_torch_host_*.py files, on the tile-row path test_torch_rows*.py
+and test_torch_ratectl.py, and for K11 test_torch_lossaware.py and
+test_torch_er.py)."""
 
 import pathlib
 
@@ -28,7 +29,9 @@ from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
 from h264_tpu_torch.kernels import b_direct as K7
 from h264_tpu_torch.kernels import deblock as K6
 from h264_tpu_torch.kernels import decode_inter as K8
+from h264_tpu_torch.encoder.lossaware import propagate_drift_plain
 from h264_tpu_torch.kernels import inter_tq as K5
+from h264_tpu_torch.kernels import propagate_drift as K11
 from h264_tpu_torch.kernels import intra_commit as K1
 from h264_tpu_torch.kernels import qpel as K4
 from h264_tpu_torch.kernels import ref_bank as K2
@@ -38,6 +41,8 @@ from h264_tpu_torch.kernels import t8 as K9
 from h264_tpu_torch.ops.exact import chroma_qp
 from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
 from h264_tpu_torch.tools.decode_cases import built_cases
+from h264_tpu_torch.tools.drift_cases import CASES as DRIFT_CASES
+from h264_tpu_torch.tools.drift_cases import built_case as drift_case
 from h264_tpu_torch.tools.rows_cases import edge_motion
 from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                   strengths_b_inputs)
@@ -651,3 +656,81 @@ def test_rows_and_rate_control_encoders_on_card_match_cpu(cuda, kw):
     for (_, a), (_, b) in zip(card.all_recons, cpu.all_recons):
         for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
             np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# K11 (propagate_drift, the loss-aware RDO's simulated decoders)
+# ---------------------------------------------------------------------------
+
+def _hold_k11(args):
+    before = K11.propagate_drift.launches
+    got = K11.propagate_drift(*args)
+    assert K11.propagate_drift.launches == before + 1
+    want = propagate_drift_plain(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", DRIFT_CASES)
+@pytest.mark.parametrize("K", [1, 3, 30])
+@pytest.mark.parametrize("W,H", [(176, 144), (352, 288)], ids=lambda v: str(v))
+def test_propagate_drift_matches_plain_built(cuda, W, H, K, case):
+    _hold_k11(tuple(torch.as_tensor(a, device=cuda)
+                    for a in drift_case(case, H, W, K, seed=11)))
+
+
+def test_propagate_drift_matches_plain_recorded(cuda):
+    """Every step of a loss-aware encode on the card (30 decoders)."""
+    calls = []
+
+    class Recording(H264Encoder):
+        @staticmethod
+        def _propagate_drift(*a):
+            calls.append(a)
+            return K11.propagate_drift(*a)
+
+    cfg = EncoderConfig(width=176, height=144, qp=28, fast=True,
+                        entropy="cabac", num_ref_frames=2, search_range=8,
+                        loss_aware_k=30, loss_rate=0.1, intra_refresh=22)
+    Recording(cfg, device=cuda).encode_sequence(moving_frames(5, 176, 144,
+                                                              seed=8))
+    assert len(calls) == 4
+    for a in calls:
+        _hold_k11(a)
+
+
+def test_propagate_drift_rejects_bad_input(cuda):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in drift_case("seeded", 32, 48, 2)]
+    bad = [(0, args[0][:, :20]), (0, args[0].to(torch.int64)),
+           (1, args[1][:16]), (2, args[2][..., :1]),
+           (3, args[3].to(torch.int32)), (4, args[4][:1]),
+           (2, args[2].transpose(0, 1))]
+    for i, x in bad:
+        with pytest.raises(ValueError, match="propagate_drift"):
+            K11.propagate_drift(*args[:i], x, *args[i + 1:])
+
+
+@pytest.mark.parametrize("kw", [
+    {"loss_aware_k": 30, "loss_rate": 0.1, "intra_refresh": 22},
+    {"loss_aware_k": 3, "loss_rate": 0.5, "b_frames": 1, "idr_period": 4,
+     "weighted_pred": True, "intra_refresh": 30},
+    {"loss_aware_k": 3, "loss_rate": 0.5, "intra_refresh": 40,
+     "row_slices": 3}],
+    ids=["ippp_er", "ipb_er", "rows_er"])
+def test_error_resilient_encoders_on_card_match_cpu(cuda, kw):
+    """Loss-aware RDO and intra refresh on the card write the streams and
+    recons they write on the CPU."""
+    frames = moving_frames(6, 176, 144, seed=8)
+    cfg = EncoderConfig(**{**dict(width=176, height=144, qp=28, fast=True,
+                                  rd=True, entropy="cabac", num_ref_frames=2,
+                                  search_range=8, sei_text="er"), **kw})
+    card = H264Encoder(cfg)
+    cpu = H264Encoder(cfg, device="cpu")
+    before = K11.propagate_drift.launches
+    assert card.encode_sequence(frames) == cpu.encode_sequence(frames)
+    assert K11.propagate_drift.launches > before
+    for (_, a), (_, b) in zip(card.all_recons, cpu.all_recons):
+        for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
+            np.testing.assert_array_equal(x, y)
+    assert torch.equal(card._lsim.drift.cpu(), cpu._lsim.drift)

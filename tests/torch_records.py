@@ -1,14 +1,20 @@
 """Outputs of the reference package (h264_tpu) recorded for the port's
-tests whose live run would cost the tier-1 run one more compiled program
-of the reference: the tile-row pipeline with one QP for every row (its
-scalar-QP program; the per-row-QP one runs live in test_torch_rows.py).
+tests whose live run would cost the tier-1 run more compiled programs of
+the reference: the tile-row pipeline with one QP for every row (its
+scalar-QP program; the per-row-QP one runs live in test_torch_rows.py),
+and the P pipeline's intra-refresh and loss-aware branches (each a static
+specialization of rd_p_pipeline) with the encodes that take them.
 ROADMAP's "Tier-1 budget" allows one new program per slice.
 
-test_torch_rows_qp.py holds the port's outputs equal to these records,
-digest for digest: the sha256 of each integer array (with its shape) and
-of each stream, on the same seeded inputs, which this module makes for
-both sides.  Regenerate the records after a change to h264_tpu or to the
-inputs (a few minutes on a CPU, most of it the reference's compile):
+test_torch_rows_qp.py and test_torch_er.py hold the port's outputs equal
+to these records, digest for digest: the sha256 of each integer array
+(with its shape) and of each stream, on the same seeded inputs, which this
+module makes for both sides.  The encodes also record, for every P
+pipeline call, the refresh mask and the drift penalty it was given, and
+for every step of the simulated decoders the losses drawn, the new drift
+and penalty and the largest |drift|.  Regenerate the records after a
+change to h264_tpu or to the inputs (about half an hour on a CPU, most of
+it the reference's compiles):
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_records.py
 """
@@ -30,6 +36,34 @@ ROWS = dict(width=W, height=H, entropy="cabac", fast=True, num_ref_frames=1,
 ROWS_QP = {"cabac": ROWS, "t8": dict(ROWS, transform8x8=True)}
 # the pipeline with one QP for every row, called as the encoder calls it
 PIPE = dict(H=H, W=W, R=8, qp=28, qp_c=chroma_qp(28, 0), G=3)
+# error resilience (fast RD path, CABAC, R 8): loss-aware RDO (3 simulated
+# decoders losing half the pictures, one reference, 6 frames); the same with
+# intra refresh in an IPB stream with explicit WP and an IDR at frame 4 (its
+# decoders reset there); intra refresh alone, 40 of the 99 MBs per P
+# picture over 5 frames, so that its permutation runs out and is re-seeded
+ER = dict(width=W, height=H, entropy="cabac", fast=True, search_range=8)
+ER_ENC = {
+    "er_loss": (dict(ER, num_ref_frames=1, loss_aware_k=3, loss_rate=0.5), 6),
+    "er_ipb": (dict(ER, num_ref_frames=2, b_frames=1, weighted_pred=True,
+                    idr_period=4, loss_aware_k=3, loss_rate=0.5,
+                    intra_refresh=30), 7),
+    "er_refresh": (dict(ER, num_ref_frames=1, intra_refresh=40), 5),
+}
+# the one-slice P pipeline as the encoder calls it (R 8, one reference, the
+# coarse stage on), with a refresh mask and with a drift penalty
+PIPE_P = dict(H=H, W=W, R=8, qp=28, qp_c=chroma_qp(28, 0))
+
+
+def er_inputs(seed: int = 19):
+    """(refresh mask (99,) bool, drift penalty (99,) int32) of the
+    pipeline pair: a third of the MBs forced intra, penalties up to the
+    2^30 clip."""
+    rng = np.random.default_rng(seed)
+    n_mb = (H // 16) * (W // 16)
+    mask = rng.random(n_mb) < 1 / 3
+    pen = rng.integers(0, 1 << 16, n_mb).astype(np.int32)
+    pen[rng.random(n_mb) < 0.1] = 1 << 30
+    return mask, pen
 
 
 def lam(qp: int) -> int:
@@ -72,6 +106,20 @@ def encode_record(enc, stream: bytes) -> dict:
                        for poc, p in enc.all_recons]}
 
 
+def call_record(force_intra, drift_pen) -> dict:
+    """What one P pipeline call of an encode was given."""
+    return {"refresh": (None if force_intra is None else
+                        [int(i) for i in np.nonzero(np.asarray(force_intra))[0]]),
+            "pen": None if drift_pen is None else digest(drift_pen)}
+
+
+def step_record(lost, new, pen) -> dict:
+    """One step of the simulated decoders."""
+    new = np.asarray(new)
+    return {"lost": [bool(x) for x in np.asarray(lost)], "drift": digest(new),
+            "pen": digest(pen), "max_abs_drift": int(np.abs(new).max())}
+
+
 def load() -> dict:
     return json.loads(PATH.read_text())
 
@@ -92,6 +140,50 @@ def record() -> dict:
     for name, kw in ROWS_QP.items():
         enc = H264Encoder(EncoderConfig(**kw))
         recs[name] = encode_record(enc, enc.encode_sequence(frames()))
+    mask, pen = er_inputs()
+    for name, kw in (("pipeline_refresh", dict(force_intra=jnp.asarray(mask),
+                                               use_refresh=True)),
+                     ("pipeline_drift", dict(drift_pen=jnp.asarray(pen),
+                                             use_drift=True))):
+        out = JRD.rd_p_pipeline(
+            *(jnp.asarray(c) for c in cur), jnp.stack([bank]),
+            jnp.stack([cpad]), lam=lam(28), lam_me=2 * lam(28),
+            nref=jnp.int32(1), use_cme=True, **PIPE_P, **kw)
+        recs[name] = pipe_record(out)
+    recs.update(record_er())
+    return recs
+
+
+def record_er() -> dict:
+    """The error-resilient encodes of ER_ENC, with their pipeline calls and
+    decoder steps."""
+    from h264_tpu.encoder import lossaware as JLA
+    from h264_tpu.encoder import rd as JRD
+    from h264_tpu.encoder.encoder import EncoderConfig, H264Encoder
+
+    pipe, step = JRD.rd_p_pipeline, JLA.propagate_drift
+    recs = {}
+    for name, (kw, n) in ER_ENC.items():
+        calls, steps = [], []
+
+        def rec_pipe(*a, **k):
+            calls.append(call_record(k.get("force_intra"),
+                                     k.get("drift_pen")))
+            return pipe(*a, **k)
+
+        def rec_step(drift, delta, mv4, intra4, lost, H, W):
+            new, pen = step(drift, delta, mv4, intra4, lost, H=H, W=W)
+            steps.append(step_record(lost, new, pen))
+            return new, pen
+
+        JRD.rd_p_pipeline, JLA.propagate_drift = rec_pipe, rec_step
+        try:
+            enc = H264Encoder(EncoderConfig(**kw))
+            stream = enc.encode_sequence(frames(n))
+        finally:
+            JRD.rd_p_pipeline, JLA.propagate_drift = pipe, step
+        recs[name] = {**encode_record(enc, stream), "calls": calls,
+                      "steps": steps, "src_pocs": len(enc._src_dc)}
     return recs
 
 
