@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-1. builds the CUDA kernels K1-K11 (nvcc, sm_90a, one process per source,
+1. builds the CUDA kernels K1-K13 (nvcc, sm_90a, one process per source,
    all at once) and the host C runtime (gcc);
 2. holds K1 (intra commit) and K2 (reference bank) against their plain
    PyTorch versions on the card, bit for bit, at CIF and 1280x720, QP 28
@@ -59,7 +59,11 @@
    (JM's defaults NumberOfDecoders 30 and LossRateA 10 %) and intra refresh
    (22 MBs per P picture), ``IPB-ER`` (9 CIF and 5 1280x720 frames), and
    the same without B pictures, ``IPPP-ER`` (6 CIF frames: drift penalties
-   on 4 consecutive P pictures), through
+   on 4 consecutive P pictures), and the legacy P16x16 path (``rd=False``:
+   ``IPPP-legacy``, CAVLC at the default pipeline depth 8, so the P
+   pictures' outputs come back in one stacked fetch, 6 CIF and 3 1280x720
+   frames; ``IPPP-legacy-cabac``, 6 CIF frames at depth 1; QP 28, search
+   range 28), through
    ``H264Encoder(..., device="cuda").encode_stream``, each with the
    kernels' launch counters set to 0 just before and read just after (and
    read around each picture: a tile-row P picture's launches); then holds
@@ -75,7 +79,17 @@
    tools/drift_cases.py (|drift| to 4095 and 60000, all / none lost, all
    intra, gathers clipped on every side; K 1, 3 and 30; CIF, 1280x720),
    and times both per P picture at CIF and 1280x720 with K 30 (events,
-   mean of 20);
+   mean of 20); holds K12 (``p16_search``) and K13 (``p16_refine``) against
+   their plain versions on every call of the legacy encodes (QP 28, and 1
+   I + 2 P at QP 0 and 51, CIF and 1280x720) and on the built inputs of
+   tools/p16_cases.py (0/255 and flat planes, motion to +-28 at every
+   picture edge; QP 0, 28, 51; CIF and 1280x720), and K2 and K6 on every
+   call the legacy encodes made of them; times K12 and K13 per P picture at
+   CIF and 1280x720 beside their plain versions, K12 also beside the
+   reference's own route through library calls (``conv2d`` for the cross
+   term, in float32 with TF32 off, exact, and in bfloat16, whose output is
+   rounded; box sums for the energies), and K2 and K6 on the legacy
+   inputs;
 6. encodes the same frames at CIF (the host path's 176x144 ones at
    176x144) through the kernels' plain versions on the card (the IPB-T8
    path: its first 5 frames, encoded again through the kernels; not the
@@ -90,7 +104,8 @@
    (``decode_inter``) inputs, and requires each decode to be
    byte-identical to the native host decode (``use_device=False``) and
    the I and P pictures of the all-intra, IPPP and IPB streams and every
-   picture of the host-path streams to equal the encoder's recons (B
+   picture of the host-path and legacy streams to equal the encoder's
+   recons (B
    pictures of the RD path and the hierarchical stream: the count of
    samples that differ is printed, not checked; the FMO stream: the
    reference's decoder, and so the port's, decodes each of its pictures
@@ -120,8 +135,10 @@
    ``kernels`` JSON line (launches from the main path, the bench
    configuration; K9's from the IPB-T8 path; K10's from the CIF host-path
    IPPP and IPB encodes; K8's from the decode of step 7; K11's from the
-   IPB-ER path; and each entry's launches per CIF tile-row P picture), the
-   card's name and power limit, and as its last line the result object.
+   IPB-ER path; K12's and K13's from the IPPP-legacy path; and each
+   entry's launches per CIF tile-row P picture), the P_Skip share of the
+   legacy P pictures, the seconds the run took, the card's name and power
+   limit, and as its last line the result object.
 
 Inputs are seeded synthetic frames (h264_tpu_torch/tools/synthseq.py).
 Exits non-zero, printing no result, when no CUDA card is present or the
@@ -194,6 +211,10 @@ OPS_T8 = 230
 # per sample and decoder of csrc/propagate_drift.cu: the select, the
 # lost-picture add, the square, its conversion and its float32 addition
 OPS_DRIFT = 6
+# per candidate sample of csrc/p16_refine.cu: up to two window reads (each
+# with its clamped start), their rounded mean, the error and its square
+# added; per chroma sample its four taps and weights
+OPS_P16_CAND, OPS_P16_CHROMA = 12, 12
 # per sample of csrc/decode_inter.cu: a luma prediction per list (two
 # reads, their rounded mean), a chroma one per list (four taps, weights,
 # rounding), and per inter sample the weighting and select, dequant,
@@ -240,11 +261,29 @@ SOURCES = {
                        "h264_tpu/encoder/me.py:25"),
     "propagate_drift": ("h264_tpu_torch/csrc/propagate_drift.cu",
                         "h264_tpu/encoder/lossaware.py:35"),
+    "p16_search": ("h264_tpu_torch/csrc/p16_search.cu",
+                   "h264_tpu/encoder/fast.py:117"),
+    "p16_refine": ("h264_tpu_torch/csrc/p16_refine.cu",
+                   "h264_tpu/encoder/fast.py:160"),
 }
+# the legacy path's entries (fast.LKernels) and its encodes' pipeline depth
+LEGACY = ("p16_search", "p16_refine", "strengths", "deblock", "ref_bank")
+DEPTH = {"IPPP-legacy": 8}
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def ref_state(enc):
+    """The reference state an encoder keeps on the card, as numpy: each RD
+    reference entry (POC, bank, cpad and colocated fields) and the legacy
+    path's (Ypad, b, h, j, Upad, Vpad)."""
+    out = [(e[0], [x.cpu().numpy() for x in (*e[1:3], *e[3])])
+           for e in enc._rd_refs]
+    if enc._dev_ref is not None:
+        out.append(("legacy", [x.cpu().numpy() for x in enc._dev_ref]))
+    return out
 
 
 def plain_encode(job):
@@ -256,7 +295,7 @@ def plain_encode(job):
     import torch
 
     from h264_tpu_torch.bitstream import write_annexb
-    from h264_tpu_torch.encoder import rd_b, rd_p
+    from h264_tpu_torch.encoder import fast, rd_b, rd_p
     from h264_tpu_torch.encoder.encoder import H264Encoder
     from h264_tpu_torch.encoder.lossaware import propagate_drift_plain
     from h264_tpu_torch.kernels import intra_commit as K1
@@ -270,6 +309,7 @@ def plain_encode(job):
         _propagate_drift = staticmethod(propagate_drift_plain)
         _p_kernels = rd_p.PLAIN
         _b_kernels = rd_b.PLAIN
+        _legacy_kernels = fast.PLAIN
 
     _, _, cfg, fr = job
     t0 = time.perf_counter()
@@ -278,8 +318,7 @@ def plain_encode(job):
     for out in enc.encode_stream(fr, depth=1):
         nalus.extend(out)
     recons = [(p.Y, p.U, p.V) for _, p in enc.all_recons]
-    refs = [(e[0], [x.cpu().numpy() for x in (*e[1:3], *e[3])])
-            for e in enc._rd_refs]
+    refs = ref_state(enc)
     drift = None if enc._lsim is None else enc._lsim.drift.cpu().numpy()
     torch.cuda.synchronize()
     return write_annexb(nalus), recons, refs, drift, time.perf_counter() - t0
@@ -525,6 +564,76 @@ def drift_work(K: int, H: int, W: int):
     return nbytes, OPS_DRIFT * K * H * W
 
 
+def p16_search_work(H: int, W: int, R: int):
+    """(bytes, int32 ops) of one K12 call: the picture and the search area
+    of the padded reference read once, three int32 per MB written; per
+    offset and MB 256 terms of subtract, multiply and add."""
+    D = 2 * R + 1
+    n_mb = (H // 16) * (W // 16)
+    return (H * W + (H + 2 * R) * (W + 2 * R) + 3 * n_mb) * 4, (
+        D * D * H * W * 3)
+
+
+def p16_refine_work(H: int, W: int):
+    """(bytes, int32 ops) of one K13 call: the current planes, the integer
+    vectors, and the windows the candidates read (per MB at most 18 x 18
+    samples of each of G, b, h and j and 9 x 9 of each chroma pad; no more
+    than the planes), the outputs written once; per MB 49 candidates of
+    256 samples, the luma and chroma coding per sample."""
+    n_mb = (H // 16) * (W // 16)
+    Hp, Wp = H + 64, W + 64
+    luma = min(n_mb * 4 * 18 * 18, Hp * Wp + 3 * (Hp - 5) * (Wp - 5))
+    chroma = min(n_mb * 2 * 81, 2 * (H // 2 + 64) * (W // 2 + 64))
+    inputs = H * W * 3 // 2 + 2 * n_mb + luma + chroma
+    outputs = 2 * n_mb + 2 * H * W + 2 * (H * W // 2) + 8 * n_mb
+    ops = n_mb * (49 * 256 * OPS_P16_CAND + 256 * OPS_TQ
+                  + 128 * (OPS_P16_CHROMA + OPS_TQ))
+    return (inputs + outputs) * 4, ops
+
+
+def ssd_conv(cur, ref_pad, R: int, lam: int, dtype):
+    """The integer search by the reference's own route through library
+    calls (fast.py:117-158; a yardstick, not a path): the cross term of
+    every MB against the whole search area by one ``conv2d`` (`dtype`
+    float32 with TF32 off is exact: every partial sum is an integer below
+    2^24; PyTorch's bfloat16 ``conv2d`` rounds its output to bfloat16),
+    the window energies by box sums, each MB's (2R+1)^2 window gathered,
+    the rate added and the first minimum taken.  Returns (int_mvx, int_mvy,
+    grid0) as K12 does."""
+    import torch
+    import torch.nn.functional as F
+
+    from h264_tpu_torch.encoder.fast import mv_bits
+    from h264_tpu_torch.encoder.rd import _lam_cost
+
+    H, W = cur.shape
+    n_my, n_mx, D, P = H // 16, W // 16, 2 * R + 1, 32
+    refw = ref_pad[P - R: P + H + R, P - R: P + W + R]
+    curb = cur.reshape(n_my, 16, n_mx, 16).permute(0, 2, 1, 3).reshape(
+        -1, 1, 16, 16)
+    cross = F.conv2d(refw[None, None].to(dtype), curb.to(dtype))[0].float()
+    r2 = (refw * refw).long()
+    vc = F.pad(r2, (0, 0, 1, 0)).cumsum(0)
+    vbox = vc[16:] - vc[:-16]
+    hc = F.pad(vbox, (1, 0)).cumsum(1)
+    ref2 = (hc[:, 16:] - hc[:, :-16]).float()
+    cur2 = (curb.float() ** 2).sum((1, 2, 3))
+    i = torch.arange(n_my * n_mx, device=cur.device)
+    a = torch.arange(D, device=cur.device)
+    iy = ((i // n_mx) * 16)[:, None] + a
+    ix = ((i % n_mx) * 16)[:, None] + a
+    cw = cross[i[:, None, None], iy[:, :, None], ix[:, None, :]]
+    rw = ref2[iy[:, :, None], ix[:, None, :]]
+    ssd = (rw - 2.0 * cw + cur2[:, None, None]).round().int()
+    bits = mv_bits(torch.arange(-R, R + 1, device=cur.device,
+                                dtype=torch.int32) * 4)
+    cost = ssd + _lam_cost(lam, bits[:, None] + bits[None, :])
+    best = cost.reshape(-1, D * D).argmin(1).int()
+    return ((best % D - R).reshape(n_my, n_mx),
+            (best // D - R).reshape(n_my, n_mx),
+            ssd[:, R, R].reshape(n_my, n_mx))
+
+
 def bound_ms(nbytes: int, ops: int):
     tb, to = nbytes / HBM_BPS * 1e3, ops / INT32_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -544,11 +653,12 @@ def main(argv=None) -> int:
     from h264_tpu_torch.bitstream import iter_annexb_nalus, write_annexb
     from h264_tpu_torch.decoder import device as DEV
     from h264_tpu_torch.decoder.decoder import H264Decoder
-    from h264_tpu_torch.encoder import rd, rd_b, rd_p, rd_rows
+    from h264_tpu_torch.encoder import fast, rd, rd_b, rd_p, rd_rows
     from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
     from h264_tpu_torch.encoder.lossaware import propagate_drift_plain
     from h264_tpu_torch.kernels import decode_inter as K8
     from h264_tpu_torch.kernels import intra_commit as K1
+    from h264_tpu_torch.kernels import p16 as P16
     from h264_tpu_torch.kernels import propagate_drift as K11
     from h264_tpu_torch.kernels import ref_bank as K2
     from h264_tpu_torch.kernels import sad_grid as K10
@@ -563,6 +673,9 @@ def main(argv=None) -> int:
     from h264_tpu_torch.tools.drift_cases import clipped_sides
     from h264_tpu_torch.syntax.slice_header import parse_slice_header
     from h264_tpu_torch.tools.profile_decode import mean_by_type, timed_decode
+    from h264_tpu_torch.tools.p16_cases import CASES as P16_CASES
+    from h264_tpu_torch.tools.p16_cases import built_case as p16_case
+    from h264_tpu_torch.tools.p16_cases import reached_sides
     from h264_tpu_torch.tools.rows_cases import edge_motion
     from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                       strengths_b_inputs)
@@ -577,7 +690,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     D.build_cuda(["intra_commit", "ref_bank", "search_grid", "qpel",
                   "inter_tq", "deblock", "b_direct", "decode_inter", "t8",
-                  "sad_grid", "propagate_drift"])
+                  "sad_grid", "propagate_drift", "p16_search", "p16_refine"])
     t_nvcc = time.perf_counter() - t0
     for stem in ("cabac_engine", "cabac_writer", "cavlc_writer", "deblock",
                  "cabac_reader", "cavlc_reader", "recon"):
@@ -947,9 +1060,12 @@ def main(argv=None) -> int:
                 **{n: getattr(kern, n) for n in rd_p.P_ENTRIES},
                 **{n: getattr(bkern, n) for n in rd_b.B_OWN},
                 "sad_grid_16x16": K10.sad_grid_16x16,
-                "propagate_drift": K11.propagate_drift}
+                "propagate_drift": K11.propagate_drift,
+                "p16_search": P16.p16_search, "p16_refine": P16.p16_refine}
     k10_calls = []  # (path, (cur, ref_padded, R)) of every host-path K10 call
     k11_calls = []  # (path, size, args) of every step of the ER paths
+    # (path, size, entry, args) of every call of the legacy entries
+    legacy_calls = []
 
     class HostEncoder(H264Encoder):
         """The encoder, with every K10 call's inputs recorded."""
@@ -967,6 +1083,21 @@ def main(argv=None) -> int:
             k11_calls.append((host_tag, tuple(a[0].shape[1:]), a))
             return K11.propagate_drift(*a)
 
+    class LegacyEncoder(H264Encoder):
+        """The encoder, with every call of the legacy P entries recorded
+        (``calls``) and each legacy P picture's P_Skip share kept
+        (``skips``)."""
+
+        def __init__(self, cfg, device=None):
+            super().__init__(cfg, device)
+            self._legacy_kernels, self.calls = fast.recording(
+                fast.default_kernels())
+            self.skips = []
+
+        def _fill_p_state(self, st, *a):
+            super()._fill_p_state(st, *a)
+            self.skips.append(float(st.skip_flag.mean()))
+
     def reset():
         for fn in counters.values():
             fn.launches = 0
@@ -982,18 +1113,19 @@ def main(argv=None) -> int:
             n.nal_unit_type == 5)[0].slice_qp_delta
             for n in out if n.nal_unit_type in (1, 5)]
 
-    def encode(cls, cfg, fr):
+    def encode(cls, cfg, fr, depth=1):
         """Encode `fr` picture by picture (pipeline depth 1, so each step
         dispatches and finishes one picture, timed alone; under rate
         control an anchor and its B picture are dispatched together, so
-        the anchor's step carries the B picture's dispatch); the encoder's
-        picture log gives each picture's type and host_out, the launch
-        counters each step's launches."""
+        the anchor's step carries the B picture's dispatch; at a larger
+        depth the step that finishes a group carries its dispatches and
+        its one fetch); the encoder's picture log gives each picture's
+        type and host_out, the launch counters each step's launches."""
         enc = cls(cfg, device="cuda")
         enc.picture_log = log = []
         nalus = enc.headers()
         pics = []
-        gen = enc.encode_stream(fr, depth=1)
+        gen = enc.encode_stream(fr, depth=depth)
         for i in range(len(fr)):
             torch.cuda.synchronize()
             a = torch.cuda.Event(enable_timing=True)
@@ -1007,10 +1139,10 @@ def main(argv=None) -> int:
             host_ms = (time.perf_counter() - h0) * 1e3
             step = {n: v - before[n] for n, v in read().items() if v != before[n]}
             nalus.extend(out)
-            if len(log) != i + 1:
-                fail(f"step {i} finished {len(log) - i} pictures, not one")
-            kind, poc, row = log[-1]
-            rec = enc.all_recons[-1][1]
+            if len(log) < i + 1 or (depth == 1 and len(log) != i + 1):
+                fail(f"step {i} finished {len(log) - i} pictures")
+            kind, poc, row = log[i]
+            rec = enc.all_recons[i][1]
             src = fr[poc // 2 if cfg.idr_period == 0 else i][0]
             mse = ((rec.Y - src.astype(np.float64)) ** 2).mean()
             pics.append({"type": kind, "poc": poc,
@@ -1018,7 +1150,7 @@ def main(argv=None) -> int:
                          "psnr_y": 10 * np.log10(255.0 ** 2 / max(mse, 1e-9)),
                          "bytes": sum(len(n.rbsp) for n in out),
                          "qps": slice_qps(enc, out), "launches": step,
-                         "row": row})
+                         "row": row if cfg.rd else None})
         return enc, write_annexb(nalus), pics
 
     def intra_cfg(size, entropy="cabac"):
@@ -1027,6 +1159,10 @@ def main(argv=None) -> int:
 
     def host_cfg(size, **kw):
         return EncoderConfig(width=size[0], height=size[1], qp=28, **kw)
+
+    def legacy_cfg(size, entropy="cavlc", qp=28):
+        return EncoderConfig(width=size[0], height=size[1], qp=qp, fast=True,
+                             rd=False, entropy=entropy, search_range=28)
 
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "tests", "streams", "qmat_sps.264"),
@@ -1041,7 +1177,8 @@ def main(argv=None) -> int:
     p_names = (*i_names, *rd_p.entries_of(False))
     t8_names = (*i_names, *rd_p.entries_of(True))
     rd_names = tuple(n for n in counters
-                     if n not in ("sad_grid_16x16", "propagate_drift"))
+                     if n not in ("sad_grid_16x16", "propagate_drift",
+                                  "p16_search", "p16_refine"))
     b_names = tuple(n for n in rd_names if n != "t8_decide")
     er_names = (*b_names, "propagate_drift")
     h_names = ("intra_commit", "sad_grid_16x16")  # the device I picture
@@ -1106,14 +1243,23 @@ def main(argv=None) -> int:
                    er_names),
         "IPPP-ER": ({CIF: (p_cfg(CIF, **ER), pframes[CIF])},
                     (*p_names, "propagate_drift")),
+        # this slice: the legacy P16x16 path (rd=False), CAVLC at the
+        # default pipeline depth 8 (DEPTH), and CABAC at depth 1
+        "IPPP-legacy": ({s: (legacy_cfg(s), pframes[s]) for s in N_IPPP},
+                        ("intra_commit", *LEGACY)),
+        "IPPP-legacy-cabac": ({CIF: (legacy_cfg(CIF, "cabac"),
+                                     pframes[CIF])},
+                              ("intra_commit", *LEGACY)),
     }
     runs, launches_of = {}, {}
     for tag, (sizes, needed) in paths.items():
         reset()
         host_tag = tag
         cls = (HostEncoder if tag.startswith("host") else DriftEncoder
-               if tag.endswith("-ER") else H264Encoder)
-        runs[tag] = {s: encode(cls, c, f) for s, (c, f) in sizes.items()}
+               if tag.endswith("-ER") else LegacyEncoder if "legacy" in tag
+               else H264Encoder)
+        runs[tag] = {s: encode(cls, c, f, DEPTH.get(tag, 1))
+                     for s, (c, f) in sizes.items()}
         launches_of[tag] = read()
         print(f"{tag} path launches: "
               f"{ {n: launches_of[tag][n] for n in needed} }")
@@ -1127,7 +1273,17 @@ def main(argv=None) -> int:
                 "sad_grid_16x16": sum(
                     launches_of[t]["sad_grid_16x16"]
                     for t in ("host-IPPP-CAVLC", "host-IPB-CABAC")),
-                "propagate_drift": launches_of["IPB-ER"]["propagate_drift"]}
+                "propagate_drift": launches_of["IPB-ER"]["propagate_drift"],
+                **{n: launches_of["IPPP-legacy"][n]
+                   for n in ("p16_search", "p16_refine")}}
+    for tag, by_size in runs.items():
+        for size, (enc, _, pics) in by_size.items():
+            if "legacy" not in tag:
+                continue
+            legacy_calls.extend((tag, size, n, a) for n, a in enc.calls)
+            for p, share in zip([p for p in pics if p["type"] == "P"],
+                                enc.skips):
+                p["p_skip"] = share
     n_k10 = {t: sum(1 for c in k10_calls if c[0] == t) for t in runs}
     if any(n_k10[t] != launches_of[t]["sad_grid_16x16"] for t in runs):
         fail(f"K10 calls {n_k10} differ from its launch counts")
@@ -1174,6 +1330,8 @@ def main(argv=None) -> int:
                       f"{p['psnr_y']:.2f} dB, {p['bytes']} bytes, QP "
                       f"{p['qps']}"
                       + (f", modes {p['mode_mix']}" if "mode_mix" in p
+                         else "")
+                      + (f", P_Skip share {p['p_skip']:.4f}" if "p_skip" in p
                          else ""))
             if enc.rc is not None:
                 got = 8 * len(stream) / len(pics) * enc.cfg.rc_fps
@@ -1357,6 +1515,124 @@ def main(argv=None) -> int:
             print(f"intra-MB share of the P pictures, {tag} {size[0]}x"
                   f"{size[1]}: {shares[0]:.4f} ({base}: {shares[1]:.4f})")
 
+    # K12 and K13, and K2 and K6 where the legacy path runs them, against
+    # their plain versions: every call of the legacy encodes (QP 28 above;
+    # 1 I + 2 P at QP 0 and 51 here), and the built inputs at R 28
+    lk = fast.default_kernels()
+
+    def hold_l(name, cargs, what):
+        got = getattr(lk, name)(*cargs)
+        want = getattr(fast.PLAIN, name)(*cargs)
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        for i, (g, w) in enumerate(zip(got, want)):
+            d = (g.long() - w.long()).abs()
+            e = int(d.max()) if d.numel() else 0
+            err[name] = max(err[name], e)
+            mismatches[name] += int((d > 0).sum())
+            if e or g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{name} {what}: output {i} differs from its plain "
+                     f"version ({int((d > 0).sum())} elements)")
+        return got
+
+    for size in (CIF, HD):
+        for qp in (0, 51):
+            enc = LegacyEncoder(legacy_cfg(size, qp=qp), device="cuda")
+            list(enc.encode_stream(pframes[size][:3]))
+            legacy_calls.extend((f"legacy QP {qp}", size, n, a)
+                                for n, a in enc.calls)
+    for tag, size, name, cargs in legacy_calls:
+        hold_l(name, cargs, f"recorded {tag} {size[0]}x{size[1]}")
+    if {n for _, _, n, _ in legacy_calls} != set(LEGACY):
+        fail("a legacy entry was not called")
+    n_built = 0
+    for (W, H) in (CIF, HD):
+        for case in P16_CASES:
+            cur, ref = p16_case(case, H, W, 28, seed=SEED + W)
+            cur = tuple(torch.as_tensor(x, device=dev) for x in cur)
+            ref = tuple(torch.as_tensor(np.ascontiguousarray(x), device=dev)
+                        for x in ref)
+            for qp in (0, 28, 51):
+                what = f"built {W}x{H} {case} QP {qp}"
+                mx, my, g0 = hold_l("p16_search",
+                                    (cur[0], ref[0], 28, lam_fx(qp)), what)
+                if case == "edges" and min(reached_sides(
+                        mx.cpu(), my.cpu(), 28).values()) == 0:
+                    fail(f"p16_search {what}: a picture edge's motion does "
+                         "not reach 28")
+                if case == "0_255" and int(g0.min()) != 256 * 255 ** 2:
+                    fail(f"p16_search {what}: the SSD misses 256 * 255^2")
+                hold_l("p16_refine", (*cur, *ref, mx, my, qp, qp,
+                                      lam_fx(qp)), what)
+                n_built += 1
+    print(f"check legacy path: {len(legacy_calls)} recorded calls of "
+          f"{', '.join(LEGACY)} (legacy IPPP, CIF and 1280x720, QP 0/28/51) "
+          f"and {n_built} built inputs of p16_search and p16_refine (0/255, "
+          "flat, motion to +-28 at every edge; QP 0/28/51) equal to the "
+          "plain versions (tolerance 0: bit-exact)")
+    timing_l = {}  # K2 and K6 on the legacy path's inputs
+    for size in (CIF, HD):
+        W, H = size
+        # the last legacy P picture of step 5's IPPP-legacy encode
+        mine = {n: a for t, s, n, a in legacy_calls
+                if t == "IPPP-legacy" and s == size}
+        tm = timing.setdefault(size, {})
+        for name in ("p16_search", "p16_refine"):
+            fk, fp, a = getattr(lk, name), getattr(fast.PLAIN, name), mine[name]
+            tm[name] = {"ms": cuda_ms(lambda: fk(*a), 20),
+                        "plain_ms": cuda_ms(lambda: fp(*a), 3),
+                        "launches_per_picture": 1,
+                        "work": (p16_search_work(H, W, 28)
+                                 if name == "p16_search"
+                                 else p16_refine_work(H, W))}
+        a = mine["p16_search"]
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib = ssd_conv(*a, torch.float32)
+            if not all(torch.equal(x, y) for x, y in zip(
+                    lib, P16.p16_search(*a))):
+                fail(f"conv2d search {W}x{H}: differs from p16_search")
+            del lib
+            tm["p16_search"]["library_ms"] = cuda_ms(
+                lambda: ssd_conv(*a, torch.float32), 3)
+            tm["p16_search"]["library_bf16_ms"] = cuda_ms(
+                lambda: ssd_conv(*a, torch.bfloat16), 3)
+        except torch.cuda.OutOfMemoryError:
+            tm["p16_search"]["library_ms"] = None
+            tm["p16_search"]["library_bf16_ms"] = "not measured (memory)"
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+            torch.cuda.empty_cache()
+        tl = timing_l.setdefault(size, {})
+        for name in ("strengths", "deblock", "ref_bank"):
+            fk, fp, a = getattr(lk, name), getattr(fast.PLAIN, name), mine[name]
+            tl[name] = {"ms": cuda_ms(lambda: fk(*a), 20),
+                        "plain_ms": cuda_ms(lambda: fp(*a), 1),
+                        "launches_per_picture": 1,
+                        "work": (k2_work(H, W) if name == "ref_bank"
+                                 else p_work(name, a))}
+        for name, v in (*((n, tm[n]) for n in ("p16_search", "p16_refine")),
+                        *tl.items()):
+            b_ms, b_by = bound_ms(*v["work"])
+            lib = (f", conv2d route {v['library_ms']:.3f} ms (float32, "
+                   f"exact), {v['library_bf16_ms']} ms (bfloat16)"
+                   if v.get("library_ms") is not None else "")
+            print(f"time {W}x{H} legacy {name} per P picture: "
+                  f"{v['ms']:.4f} ms (events, mean of 20), plain "
+                  f"{v['plain_ms']:.3f} ms, bound {b_ms:.5f} ms ({b_by}, "
+                  f"{v['work'][0]} B, {v['work'][1]} ops){lib}")
+    report["timing_legacy"] = {
+        f"{s[0]}x{s[1]}": {n: {**v, "bound_ms": bound_ms(*v["work"])[0]}
+                           for n, v in t.items()}
+        for s, t in timing_l.items()}
+    for size, (enc, _, pics) in runs["IPPP-legacy"].items():
+        sk = [p["p_skip"] for p in pics if "p_skip" in p]
+        report[f"p_skip IPPP-legacy {size[0]}x{size[1]}"] = sk
+        print(f"P_Skip share of the legacy P pictures, {size[0]}x{size[1]}: "
+              f"{np.mean(sk):.4f} (mean of {len(sk)})")
+    del legacy_calls[:]
+    torch.cuda.empty_cache()
+
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
     # ---- 6. the same frames through the plain versions on the card -----------
@@ -1393,13 +1669,14 @@ def main(argv=None) -> int:
                 if not np.array_equal(x, y):
                     fail(f"{tag} {size}: recon differs from the plain "
                          "path's")
-        if len(enc._rd_refs) != len(prefs):
+        mine = ref_state(enc)
+        if len(mine) != len(prefs):
             fail(f"{tag} {size}: reference lists differ in length")
-        for ea, (poc, eb) in zip(enc._rd_refs, prefs):
-            if ea[0] != poc:
+        for (pa, ea), (pb, eb) in zip(mine, prefs):
+            if pa != pb:
                 fail(f"{tag} {size}: reference POCs differ")
-            for x, y in zip((*ea[1:3], *ea[3]), eb):
-                if not np.array_equal(x.cpu().numpy(), y):
+            for x, y in zip(ea, eb):
+                if not np.array_equal(x, y):
                     fail(f"{tag} {size}: reference entry differs from "
                          "the plain path's")
         if (enc._lsim is None) != (pdrift is None) or (

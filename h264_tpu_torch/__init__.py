@@ -17,7 +17,8 @@ package.  It mirrors the reference package's layout:
                                   pipelines, plain PyTorch beside the
                                   kernels), rd_rows.py (tile-row P
                                   slices), lossaware.py (the simulated
-                                  lossy decoders), encoder.py
+                                  lossy decoders), fast.py (the legacy
+                                  P16x16 picture), encoder.py
                                   (H264Encoder), fills.py, syntax_cabac.py
   control/                        rate control (JVT-G012) and the
                                   leaky-bucket parameters
@@ -33,9 +34,10 @@ package.  It mirrors the reference package's layout:
 
 Ported so far: the all-intra, IPPP and IPB encodes of the fast RD path
 (CABAC and CAVLC, the bench configuration included, tile-row slices, intra
-refresh and loss-aware RDO), the host-path encoder, rate control on both,
-the sequence SEI, the decoder and the CLIs (ROADMAP Queue 1); not the
-legacy P16x16 path (``rd=False``).
+refresh and loss-aware RDO), the legacy P16x16 path (``rd=False``), the
+host-path encoder, rate control on both RD and host paths, the sequence
+SEI, the decoder and the CLIs (ROADMAP Queue 1); not the sharded
+pipelines of several devices.
 """
 
 __version__ = "0.1.0"

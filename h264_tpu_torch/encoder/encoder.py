@@ -65,8 +65,17 @@ schedule and the decoders advance but the rows do not use them, as in the
 reference.  The sequence's SEI messages (user data text, tone mapping, a
 recovery point) go out after the parameter sets (``headers``).
 
-The legacy P16x16 path (``rd=False``) raises NotImplementedError naming its
-ROADMAP item.  No half-ported path runs.
+The legacy P16x16 path (``rd=False``, ``fast=True``): every P picture of
+an IPPP stream of one slice without rate control is one call of
+``fast.p_frame_pipeline`` (kernels K12 and K13: a 16x16 integer search and
+a quarter-pel refinement of one vector per MB, the 4x4 residual coding of
+luma and chroma; then the K6 filter and the K2 next reference, which stays
+on the card), up to ``pipeline_depth`` pictures ahead of the host, whose
+tail derives P_Skip and the vector differences MB by MB and entropy-codes
+the slice; the recon planes stay on the card until read.  With B pictures
+the stream takes the host path, as in the reference, and with several
+slices or rate control its P pictures fail there as the reference's do
+(its host path reads the legacy reference state as padded chroma planes).
 """
 
 from __future__ import annotations
@@ -103,6 +112,7 @@ from ..syntax.parsets import PPS, SPS, write_pps, write_sps
 from ..syntax.sei import RecoveryPoint, UserDataUnregistered, write_sei
 from ..syntax.slice_header import (PredWeight, SliceHeader, SliceType,
                                    write_slice_header)
+from . import fast as FAST
 from . import fills as FL
 from . import me as ME
 from . import rd as RD
@@ -175,48 +185,58 @@ class EncoderConfig:
     scaling_lists: object = None  # (ws4 (6,4,4), ws8 (2,8,8)) raster or None
 
 
-# configuration -> the ROADMAP Queue 1 item that brings it
-_NOT_PORTED = (
-    (lambda c: not c.rd, "rd=False (legacy P16x16 path)", "Legacy P16x16 path"),
-)
+class _DevicePlanes(Planes):
+    """The recon planes of a legacy P picture, left on the card (the
+    reference leaves them as device arrays) until first read: Y, U and V
+    are then fetched together as int32 numpy arrays."""
+
+    def __init__(self, recon):
+        self._dev, self._host = tuple(recon), None
+
+    def _get(self, i: int):
+        if self._host is None:
+            self._host = tuple(x.cpu().numpy() for x in self._dev)
+        return self._host[i]
+
+    Y = property(lambda self: self._get(0))
+    U = property(lambda self: self._get(1))
+    V = property(lambda self: self._get(2))
 
 
 class H264Encoder:
     """IPB / IPPP / all-intra encoder (CABAC or CAVLC, 4x4 or 4x4/8x8
     transforms, one slice or many), on the host path (``fast=False``, the
-    default) or the device RD pipelines (``fast=True``); ``device`` is
-    where the SAD grids, the picture decisions, the P and B pipelines and
-    the reference banks run (CUDA unless told otherwise)."""
+    default), the device RD pipelines (``fast=True``) or the legacy P16x16
+    pipeline (``fast=True, rd=False``); ``device`` is where the SAD grids,
+    the picture decisions, the P and B pipelines and the reference banks
+    run (CUDA unless told otherwise)."""
 
     # the kernel wrappers the pictures go through (a subclass may name
     # their plain versions to run the plain path on the card): the I
     # picture's commit step and reference entry, the host path's SAD
     # grids, the loss-aware RDO's drift step, and every entry of the P and
-    # B pipelines (rd_p.PKernels, rd_b.BKernels; None means their
-    # default_kernels())
+    # B pipelines and of the legacy P picture (rd_p.PKernels,
+    # rd_b.BKernels, fast.LKernels; None means their default_kernels())
     _intra_step = staticmethod(intra_commit_step)
     _ref_bank = staticmethod(ref_bank)
     _sad_grid = staticmethod(sad_grid_16x16)
     _propagate_drift = staticmethod(propagate_drift)
     _p_kernels = None
     _b_kernels = None
+    _legacy_kernels = None
 
     def __init__(self, cfg: EncoderConfig, device=None):
         if cfg.width % 16 or cfg.height % 16:
             raise ValueError(
                 f"picture size {cfg.width}x{cfg.height} is not a multiple "
                 "of 16")
-        for test, what, item in _NOT_PORTED:
-            if test(cfg):
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP Queue 1: {item})")
         multi_slice = cfg.slice_mode != 0 or cfg.num_slice_groups > 1
         # the reference asserts these (encoder.py:138-139, :160-163, :173)
         if cfg.b_hierarchy and cfg.b_frames != 3:
             raise ValueError("2-layer pyramid needs b_frames == 3")
-        if cfg.b_hierarchy and not cfg.fast:
+        if cfg.b_hierarchy and not (cfg.fast and cfg.rd):
             raise ValueError("hierarchy runs on the RD pipeline (fast=True)")
-        if cfg.weighted_pred and (not cfg.fast or multi_slice
+        if cfg.weighted_pred and (not (cfg.fast and cfg.rd) or multi_slice
                                   or cfg.rc_bitrate != 0
                                   or cfg.row_slices != 1):
             raise ValueError("weighted_pred requires the fast RD path, one "
@@ -224,7 +244,7 @@ class H264Encoder:
         if cfg.fast and cfg.scaling_lists is not None:
             raise ValueError(
                 "scaling matrices run on the host path (fast=False)")
-        if cfg.loss_aware_k > 0 and not cfg.fast:
+        if cfg.loss_aware_k > 0 and not (cfg.fast and cfg.rd):
             raise ValueError("loss-aware RDO runs on the RD path (fast=True)")
         if cfg.b_frames > 0 and not 0 <= cfg.qp + cfg.qp_b_offset <= 51:
             raise ValueError(f"B picture QP {cfg.qp} + {cfg.qp_b_offset} "
@@ -300,6 +320,9 @@ class H264Encoder:
         # path's motion compensation or None)
         self.recon_pics: list = []
         self._rd_refs: list = []  # [(poc, bank, cpad, col)] newest-first
+        # the legacy P path's reference state on the card: (Ypad, b, h, j,
+        # Upad, Vpad) of the newest reference
+        self._dev_ref = None
         self._anchor_ref_pocs: dict = {}  # ref poc -> its col index space
         # set to a list to have every finished picture appended as (type
         # "I"/"P"/"B", poc, its fetched host_out or None for a picture
@@ -410,8 +433,8 @@ class H264Encoder:
 
     def encode_stream(self, frames, depth: int | None = None):
         """Pipelined encode: yields a list of NalUnits per frame.  On the
-        device RD path P pictures are dispatched to the card up to `depth`
-        frames ahead of the host tail (the reference chain stays on the
+        device path (RD or, with ``rd=False``, legacy) P pictures are
+        dispatched to the card up to `depth` frames ahead of the host tail (the reference chain stays on the
         card); each group is fetched in one copy and then entropy-coded in
         order.  IDR pictures, every picture of the host path and every
         picture of a multi-slice stream are coded one at a time.  With B
@@ -433,12 +456,13 @@ class H264Encoder:
             is_idr = idx == 0 or (
                 self.cfg.idr_period and idx % self.cfg.idr_period == 0
             )
-            if is_idr or not self.cfg.fast or self._multi_slice:
+            if (is_idr or not self.cfg.fast or self._multi_slice
+                    or (self.rc is not None and not self.cfg.rd)):
                 yield from self._drain(pend)
                 pend = []
                 yield self.encode_frame(yuv, is_idr)
             else:
-                pend.append(self._start_p_rd(yuv))
+                pend.append(self._start_p_fast(yuv))
                 if len(pend) >= depth:
                     yield from self._drain(pend)
                     pend = []
@@ -448,7 +472,7 @@ class H264Encoder:
         if group:
             rows = fetch_group([p[0] for p in group])
             for row, p in zip(rows, group):
-                yield self._finish_p_rd(p, row)
+                yield self._finish_p_fast(p, row)
 
     def _encode_stream_b(self, frames, depth: int | None = None):
         """Decode-order emission I (B^n P)* of a GOP with B pictures
@@ -457,7 +481,7 @@ class H264Encoder:
         it; POC is twice the display index since the last IDR.  The device
         RD path (``_encode_stream_b_rd``) takes it with ``fast`` and one
         slice, the host path otherwise."""
-        if self.cfg.fast and not self._multi_slice:
+        if self.cfg.fast and self.cfg.rd and not self._multi_slice:
             yield from self._encode_stream_b_rd(frames, depth)
             return
         nb = self.cfg.b_frames
@@ -490,9 +514,10 @@ class H264Encoder:
     def encode_frame(self, yuv, is_idr: bool) -> list[NalUnit]:
         cfg = self.cfg
         rd_path = cfg.fast and not self._multi_slice
-        if not is_idr and rd_path and cfg.b_frames == 0:
-            p = self._start_p_rd(yuv)
-            return self._finish_p_rd(p, fetch_group([p[0]])[0])
+        if (not is_idr and rd_path and cfg.b_frames == 0
+                and (self.rc is None or cfg.rd)):
+            p = self._start_p_fast(yuv)
+            return self._finish_p_fast(p, fetch_group([p[0]])[0])
         if not is_idr and rd_path and not (self.recon_pics and
                                            self.recon_pics[-1][3] is not None):
             # the reference codes this picture on its host path, whose
@@ -515,6 +540,17 @@ class H264Encoder:
         one NAL per slice (or its data partitions, and a redundant copy
         of each P slice when asked); then the reference bookkeeping."""
         cfg = self.cfg
+        if (stype != SliceType.I and cfg.fast and not cfg.rd
+                and cfg.b_frames == 0):
+            # the reference keeps the legacy reference state (Ypad, b, h,
+            # j, Upad, Vpad) as this path's padded planes (encoder.py:548,
+            # :577-579) and reads b and h as the chroma pads (:2073,
+            # :2166): its first such picture raises TypeError in
+            # _chroma_residual (:1961)
+            raise NotImplementedError(
+                "a host-path P picture of a fast=True, rd=False IPPP stream "
+                "(several slices or rate control): the reference package "
+                "fails on it too (ROADMAP Queue 3)")
         Y = np.asarray(yuv[0], np.int32)
         U = np.asarray(yuv[1], np.int32)
         V = np.asarray(yuv[2], np.int32)
@@ -625,7 +661,7 @@ class H264Encoder:
         self._log_picture(stype.name, poc, None)
         if is_ref:
             padded = None
-            if cfg.fast:
+            if cfg.fast and cfg.rd:
                 bank, cpad = RD.ref_entry_from_planes(
                     planes.Y, planes.U, planes.V, device=self.device,
                     impl=self._ref_bank)
@@ -640,7 +676,13 @@ class H264Encoder:
                 self._rd_refs = ([(poc, bank, cpad, col)] + self._rd_refs)[
                     : sps.num_ref_frames]
                 self._anchor_ref_pocs[poc] = []
-            if not cfg.fast or self._multi_slice or self.rc is not None:
+            if cfg.fast and not cfg.rd and cfg.b_frames == 0:
+                # the legacy P pictures' reference state, on the card
+                padded = self._dev_ref = FAST.ref_resources(
+                    planes.Y, planes.U, planes.V, device=self.device,
+                    impl=self._lkernels().ref_bank)
+            elif (not cfg.fast or not cfg.rd or self._multi_slice
+                  or self.rc is not None):
                 # the host path's P and B pictures read these (the
                 # reference keeps them under rate control too)
                 padded = (MC.pad_plane(planes.Y), MC.pad_plane(planes.U),
@@ -827,6 +869,145 @@ class H264Encoder:
         self._prev_src = cur_y
         return (host_out, recon, frame_num, poc, ref_pocs, qp, wp_weights,
                 mad)
+
+    def _start_p_fast(self, yuv):
+        """Dispatch a P picture of the device path: the RD pipeline, or
+        with ``rd=False`` the legacy one.  ``_finish_p_fast`` completes
+        it."""
+        if self.cfg.rd:
+            return self._start_p_rd(yuv)
+        return self._start_p_legacy(yuv)
+
+    def _finish_p_fast(self, pending, fetched) -> list[NalUnit]:
+        if self.cfg.rd:
+            return self._finish_p_rd(pending, fetched)
+        return self._finish_p_legacy(pending, fetched)
+
+    def _lkernels(self) -> FAST.LKernels:
+        return (FAST.default_kernels() if self._legacy_kernels is None
+                else self._legacy_kernels)
+
+    def _start_p_legacy(self, yuv):
+        """Dispatch one legacy P16x16 picture (``fast.p_frame_pipeline``:
+        search, refinement, residual coding, filter and next reference on
+        the card; the reference's encoder.py:1465-1493).  Nothing here
+        waits for the card."""
+        cfg, sps, pps = self.cfg, self.sps, self.pps
+        qp = cfg.qp
+        qp_c = chroma_qp(qp, pps.chroma_qp_offset[0])
+        cur = tuple(torch.as_tensor(np.ascontiguousarray(p, np.uint8))
+                    .to(self.device) for p in yuv)
+        host_out, recon, new_ref = FAST.p_frame_pipeline(
+            *cur, *self._dev_ref, H=sps.height, W=sps.width,
+            R=min(cfg.search_range, 28), qp=qp, qp_c=qp_c,
+            lambda_me=self.lambda_mode_fx, k=self._lkernels())
+        frame_num = self.frame_num
+        self.frame_num += 1
+        ref_poc = self._prev_poc
+        poc = 2 * frame_num
+        self._prev_poc = poc
+        self._dev_ref = new_ref
+        return (host_out, recon, new_ref, frame_num, poc, ref_poc, qp)
+
+    def _finish_p_legacy(self, pending, fetched) -> list[NalUnit]:
+        """Host tail of a legacy P picture (the reference's
+        encoder.py:1495-1554): split its fetched flat outputs, fill the
+        parse state (P_Skip and vector differences MB by MB) and
+        entropy-code the one slice.  The recon planes stay on the card
+        until read."""
+        _, recon, dev_ref, frame_num, poc, ref_poc, qp = pending
+        sps, pps = self.sps, self.pps
+        W, H = sps.pic_width_in_mbs, sps.frame_height_in_mbs
+        st = PictureParseState(W, H)
+        st.slice_id[:] = 0
+        st.qp[:] = qp
+        cb_off, cr_off = pps.chroma_qp_offset
+        st.qpc[:, 0] = chroma_qp(qp, cb_off)
+        st.qpc[:, 1] = chroma_qp(qp, cr_off)
+        n_mb = W * H
+        Wp, Hp = sps.width, sps.height
+        sizes = [n_mb, n_mb, Wp * Hp, Wp * Hp // 4, 4 * n_mb, Wp * Hp // 4,
+                 4 * n_mb]
+        parts = np.split(fetched[: sum(sizes)], np.cumsum(sizes)[:-1])
+        mvx, mvy, lev, lev_u, dc_u, lev_v, dc_v = parts
+        self._fill_p_state(
+            st, mvx.reshape(H, W), mvy.reshape(H, W),
+            lev.reshape(4 * H, 4 * W, 4, 4),
+            lev_u.reshape(Hp // 8, Wp // 8, 4, 4), dc_u.reshape(H, W, 2, 2),
+            lev_v.reshape(Hp // 8, Wp // 8, 4, 4), dc_v.reshape(H, W, 2, 2),
+            ref_poc)
+        sh = SliceHeader(
+            slice_type_code=SliceType.P.value,
+            frame_num=frame_num % sps.max_frame_num,
+            is_idr=False,
+            nal_ref_idc=3,
+            slice_qp_delta=qp - (26 + pps.pic_init_qp_minus26),
+        )
+        w = write_slice_header(sh, sps, pps)
+        self._write_slice_data(w, st, sh, list(range(st.n_mbs)))
+        planes = _DevicePlanes(recon)
+        self.all_recons.append((poc, planes))
+        self._log_picture("P", poc, fetched)
+        self.recon_pics = (self.recon_pics + [(poc, planes, st, dev_ref)])[
+            -self.cfg.num_ref_frames:]
+        return [NalUnit(1, 3, w.get_bytes())]
+
+    def _fill_p_state(self, st, mvx, mvy, lev, lev_u, dc_u, lev_v, dc_v,
+                      ref_id) -> None:
+        """Parse-state fill of a legacy P picture (the reference's
+        encoder.py:1556-1616): every MB P16x16 on reference 0 with its
+        levels and cbp; then, MB by MB in raster order, P_Skip where the
+        cbp is 0 and the vector equals the skip vector of the final
+        neighbours, else the vector difference to the prediction."""
+        n_mx, n_my = st.W, st.H
+        n_mb = st.n_mbs
+        st.ipredmode[:] = 2
+        st.mb_type[:] = M.P16x16
+        st.b8mode[:] = 1
+        st.b8pdir[:] = 0
+        st.ref_idx[0] = 0
+        mvs = np.stack([mvx, mvy], axis=-1).reshape(n_my, n_mx, 2)
+        st.mv[0] = np.repeat(np.repeat(mvs, 4, axis=0), 4, axis=1).reshape(
+            4 * n_my, 4 * n_mx, 2)
+        st.ref_pic_id[0] = ref_id
+        # luma levels: (H/4, W/4, 4, 4) -> (n_mb, 16 in coding order, 4, 4)
+        lv = lev.reshape(n_my, 4, n_mx, 4, 4, 4).transpose(0, 2, 1, 3, 4, 5)
+        lv = lv.reshape(n_mb, 4, 4, 4, 4)
+        zperm = np.empty(16, np.int64)
+        for br in range(4):
+            for bc in range(4):
+                zperm[int(M.XY_TO_BLK4[br, bc])] = br * 4 + bc
+        st.luma_levels[:] = lv.reshape(n_mb, 16, 4, 4)[:, zperm]
+        nz4 = lv.any(axis=(3, 4))  # (n_mb, 4 rows, 4 columns)
+        q8 = nz4.reshape(n_mb, 2, 2, 2, 2).any(axis=(2, 4))
+        cbp_l = (q8[:, 0, 0] * 1 + q8[:, 0, 1] * 2 + q8[:, 1, 0] * 4
+                 + q8[:, 1, 1] * 8)
+        weights = (1 << np.arange(16, dtype=np.int64)).reshape(4, 4)
+        st.cbp_blk = (nz4 * weights).sum(axis=(1, 2)).tolist()
+        cbp_c = np.zeros(n_mb, np.int32)
+        for uv, (lvc, dcc) in enumerate(((lev_u, dc_u), (lev_v, dc_v))):
+            st.chroma_dc[:, uv] = dcc.reshape(n_mb, 2, 2)
+            lc = lvc.reshape(n_my, 2, n_mx, 2, 4, 4).transpose(
+                0, 2, 1, 3, 4, 5).reshape(n_mb, 4, 4, 4)
+            st.chroma_levels[:, uv] = lc
+            has_dc = dcc.reshape(n_mb, 4).any(axis=1)
+            has_ac = lc.any(axis=(1, 2, 3))
+            cbp_c = np.maximum(cbp_c, np.where(has_ac, 2,
+                                               np.where(has_dc, 1, 0)))
+        st.cbp[:] = cbp_l + 16 * cbp_c
+        # sequential: the predictions read the final neighbour vectors,
+        # which are all known; skip flags do not change vectors
+        for addr in range(n_mb):
+            x4, y4 = st.mb_block_origin(addr)
+            mv = (int(st.mv[0, y4, x4, 0]), int(st.mv[0, y4, x4, 1]))
+            if int(st.cbp[addr]) == 0:
+                if tuple(_pskip_mv(st, addr)) == mv:
+                    st.skip_flag[addr] = 1
+                    st.mb_type[addr] = M.PSKIP
+                    st.b8mode[addr] = 0
+                    continue
+            p = predict_mv(st, addr, 0, 0, 0, 0, 4, 4)
+            st.mvd[0, y4: y4 + 4, x4: x4 + 4] = (mv[0] - p[0], mv[1] - p[1])
 
     def _refresh_mask(self) -> np.ndarray:
         """The (n_mb,) bool mask of the MBs this P picture must code intra

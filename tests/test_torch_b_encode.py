@@ -243,13 +243,14 @@ def test_b_fill_on_reference_states(name):
 
 
 def test_b_frames_configurations():
-    """b_hierarchy needs b_frames == 3; a B configuration with an
-    unported option (rd=False) still raises naming its item; intra
-    refresh and loss-aware RDO are ported."""
+    """b_hierarchy needs b_frames == 3; a B configuration with rd=False
+    (ported: the host path codes it, as in the reference) keeps no device
+    reference state; intra refresh and loss-aware RDO are ported."""
     with pytest.raises(ValueError, match="b_frames == 3"):
         H264Encoder(cfg(EncoderConfig, b_hierarchy=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        H264Encoder(cfg(EncoderConfig, rd=False), device="cpu")
+    legacy = H264Encoder(cfg(EncoderConfig, rd=False, weighted_pred=False),
+                         device="cpu")
+    assert legacy._dev_ref is None and legacy.sps.pic_order_cnt_type == 0
     er = H264Encoder(cfg(EncoderConfig, intra_refresh=2, loss_aware_k=2),
                      device="cpu")
     assert er._lsim.k == 2 and er.cfg.intra_refresh == 2

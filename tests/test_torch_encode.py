@@ -206,6 +206,13 @@ def test_port_encode_imports_no_jax():
         "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
         "assert len(s) > 50 and enc.sps.profile_idc == 100\n"
         "assert len(decode_annexb(s, device='cpu')) == 3\n"
+        "cfg = EncoderConfig(width=48, height=32, fast=True, rd=False,"
+        " search_range=4)\n"
+        "enc = H264Encoder(cfg, device='cpu')\n"
+        "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
+        "assert len(s) > 50 and enc._dev_ref is not None\n"
+        "assert [p.to_yuv_bytes() for p in decode_annexb(s, device='cpu')]"
+        " == [p.to_yuv_bytes() for _, p in enc.all_recons]\n"
         "cfg = EncoderConfig(width=48, height=32, search_range=4)\n"
         "enc = H264Encoder(cfg, device='cpu')\n"
         "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
@@ -291,7 +298,9 @@ _PORTED_SINCE = {"entropy=cavlc": (66, False, False, False, False, False,
                  "sei_text=x": (77, True, False, False, False, False, False,
                                 0, 3),
                  "loss_aware_k=2": (77, True, False, False, False, False,
-                                    False, 2, 2)}
+                                    False, 2, 2),
+                 "rd=False": (77, True, False, False, False, False, False, 0,
+                              2)}
 
 
 @pytest.mark.parametrize("kw", [
@@ -304,10 +313,11 @@ _PORTED_SINCE = {"entropy=cavlc": (66, False, False, False, False, False,
 ], ids=lambda kw: "-".join(f"{k}={v}" if k != "scaling_lists" else k
                            for k, v in kw.items()))
 def test_unported_configuration_raises(kw):
-    """Each unported configuration (rd=False) raises naming its ROADMAP
-    item; CAVLC, the 8x8 transform, the host path (fast=False),
-    multi-slice, rate control (with and without B pictures), tile-row
-    slices, intra refresh, SEI and loss-aware RDO are ported and set the
+    """Every configuration is ported (the legacy P16x16 path, rd=False,
+    last; its encodes are held in test_torch_legacy.py): CAVLC, the 8x8
+    transform, the host path (fast=False), multi-slice, rate control (with
+    and without B pictures), tile-row slices, intra refresh, SEI,
+    loss-aware RDO and the legacy path construct and set the
     profile (Baseline, High), the PPS entropy flag and
     transform_8x8_mode_flag, the multi-slice flag, the path, the rate
     controller, the PPS filter-control flag (tile rows are deblocked on

@@ -13,8 +13,8 @@ test_torch_p_*.py, test_torch_t8_*.py and test_torch_b_*.py files, for
 K9 also test_torch_ops.py, for K8 test_torch_decode_ops.py and
 test_torch_decode.py, for K10 test_torch_me.py and the
 test_torch_host_*.py files, on the tile-row path test_torch_rows*.py
-and test_torch_ratectl.py, and for K11 test_torch_lossaware.py and
-test_torch_er.py)."""
+and test_torch_ratectl.py, for K11 test_torch_lossaware.py and
+test_torch_er.py, and for K12 and K13 test_torch_legacy.py)."""
 
 import pathlib
 
@@ -24,7 +24,7 @@ import torch
 
 from h264_tpu_torch.decoder import device as DEV
 from h264_tpu_torch.decoder.decoder import decode_annexb
-from h264_tpu_torch.encoder import rd, rd_b, rd_p, rd_rows
+from h264_tpu_torch.encoder import fast, rd, rd_b, rd_p, rd_rows
 from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
 from h264_tpu_torch.kernels import b_direct as K7
 from h264_tpu_torch.kernels import deblock as K6
@@ -33,6 +33,7 @@ from h264_tpu_torch.encoder.lossaware import propagate_drift_plain
 from h264_tpu_torch.kernels import inter_tq as K5
 from h264_tpu_torch.kernels import propagate_drift as K11
 from h264_tpu_torch.kernels import intra_commit as K1
+from h264_tpu_torch.kernels import p16 as P16
 from h264_tpu_torch.kernels import qpel as K4
 from h264_tpu_torch.kernels import ref_bank as K2
 from h264_tpu_torch.kernels import sad_grid as K10
@@ -43,6 +44,9 @@ from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
 from h264_tpu_torch.tools.decode_cases import built_cases
 from h264_tpu_torch.tools.drift_cases import CASES as DRIFT_CASES
 from h264_tpu_torch.tools.drift_cases import built_case as drift_case
+from h264_tpu_torch.tools.p16_cases import CASES as P16_CASES
+from h264_tpu_torch.tools.p16_cases import built_case as p16_built_case
+from h264_tpu_torch.tools.p16_cases import reached_sides as p16_reached
 from h264_tpu_torch.tools.rows_cases import edge_motion
 from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                   strengths_b_inputs)
@@ -734,3 +738,80 @@ def test_error_resilient_encoders_on_card_match_cpu(cuda, kw):
         for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
             np.testing.assert_array_equal(x, y)
     assert torch.equal(card._lsim.drift.cpu(), cpu._lsim.drift)
+
+
+# ---------------------------------------------------------------------------
+# the legacy P16x16 path (rd=False): K12 p16_search, K13 p16_refine
+# ---------------------------------------------------------------------------
+
+def _legacy_inputs(case, W, H, R, dev):
+    """(cur (Y, U, V), reference state) int32 on `dev`: a seeded picture
+    against the previous one's state, or a built case."""
+    if case == "seeded":
+        fr = moving_frames(2, W, H, seed=W)
+        ref = fast.ref_resources(*(np.asarray(p, np.int32) for p in fr[0]),
+                                 device=dev)
+        cur = tuple(torch.as_tensor(np.asarray(p, np.int32), device=dev)
+                    for p in fr[1])
+        return cur, ref
+    cur, ref = p16_built_case(case, H, W, R, seed=11)
+    return (tuple(torch.as_tensor(x, device=dev) for x in cur),
+            tuple(torch.as_tensor(np.ascontiguousarray(x), device=dev)
+                  for x in ref))
+
+
+@pytest.mark.parametrize("qp", [0, 28, 51])
+@pytest.mark.parametrize("case", ["seeded", *P16_CASES])
+@pytest.mark.parametrize("W,H,R", [(176, 144, 8), (352, 288, 28)],
+                         ids=["qcif-r8", "cif-r28"])
+def test_p16_kernels_match_plain(cuda, W, H, R, case, qp):
+    cur, ref = _legacy_inputs(case, W, H, R, cuda)
+    lam = _lam(qp)
+    before = (P16.p16_search.launches, P16.p16_refine.launches)
+    got = P16.p16_search(cur[0], ref[0], R, lam)
+    want = P16.search_plain(cur[0], ref[0], R, lam)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if case == "edges":
+        assert min(p16_reached(got[0].cpu(), got[1].cpu(), R).values()) > 0
+    # ref[1:4] are views of a K2 bank (seeded) or planes of their own
+    got = P16.p16_refine(*cur, *ref, got[0], got[1], qp, qp, lam)
+    want = P16.refine_tq_plain(*cur, *ref, want[0], want[1], qp, qp, lam)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (P16.p16_search.launches, P16.p16_refine.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_p16_kernels_reject_bad_input(cuda):
+    cur, ref = _legacy_inputs("seeded", 64, 48, 4, cuda)
+    with pytest.raises(ValueError, match="search range"):
+        P16.p16_search(cur[0], ref[0], 33, 0)
+    with pytest.raises(ValueError, match="ref_pad"):
+        P16.p16_search(cur[0], ref[0][1:], 4, 0)
+    mx, my, _ = P16.p16_search(cur[0], ref[0], 4, 0)
+    with pytest.raises(ValueError, match="b must"):
+        P16.p16_refine(*cur, ref[0], ref[1][:, 1:], *ref[2:], mx, my, 28,
+                       28, 0)
+    with pytest.raises(ValueError, match="qp"):
+        P16.p16_refine(*cur, *ref, mx, my, 52, 28, 0)
+
+
+@pytest.mark.parametrize("kw", [
+    {"entropy": "cavlc"}, {"entropy": "cabac", "pipeline_depth": 1},
+    {"entropy": "cabac", "idr_period": 2}],
+    ids=["cavlc-depth8", "cabac-depth1", "cabac-idr2"])
+def test_legacy_encoder_on_card_matches_cpu(cuda, kw):
+    frames = moving_frames(5, 176, 144, seed=8)
+    cfg = EncoderConfig(width=176, height=144, qp=28, fast=True, rd=False,
+                        search_range=28, **kw)
+    card = H264Encoder(cfg)
+    cpu = H264Encoder(cfg, device="cpu")
+    before = P16.p16_refine.launches
+    assert card.encode_sequence(frames) == cpu.encode_sequence(frames)
+    assert P16.p16_refine.launches > before
+    for (_, a), (_, b) in zip(card.all_recons, cpu.all_recons):
+        for x, y in ((a.Y, b.Y), (a.U, b.U), (a.V, b.V)):
+            np.testing.assert_array_equal(x, y)
+    for a, b in zip(card._dev_ref, cpu._dev_ref):
+        assert torch.equal(a.cpu(), b)
