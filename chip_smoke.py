@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out DIR]
 
-1. builds the CUDA kernels K1-K13 (nvcc, sm_90a, one process per source,
-   all at once) and the host C runtime (gcc);
+1. builds the CUDA kernels K1-K13 and K2's row-slab entry (nvcc, sm_90a,
+   one process per source, all at once) and the host C runtime (gcc);
 2. holds K1 (intra commit) and K2 (reference bank) against their plain
    PyTorch versions on the card, bit for bit, at CIF and 1280x720, QP 28
    and 51, and times both;
@@ -13,7 +13,11 @@
    the card, bit for bit, on the real inputs of P pictures (1 I + 2 P) at
    CIF and 1280x720, QP 28 and 51, weighted prediction on and off, with 5
    reference frames and search range 28; times kernel and plain version
-   per P picture at both sizes (QP 28, WP on); holds every entry of the
+   per P picture at both sizes (QP 28, WP on), the K3 entries also beside
+   their library route (``coarse_search`` by ``torch.cdist(p=1)`` on the
+   unfolded decimated windows, ``ssd_grid8`` and ``ssd_grid4`` by a
+   grouped ``conv2d`` in float32 with TF32 off and box-sum energies, each
+   held equal to the kernel); holds every entry of the
    tile-row path (``rd_rows``: the P entries but the coarse search, per
    row slab) against its plain version on the real inputs of P pictures
    in 3 rows (1 I + 2 P, CIF and 1280x720, QP 28, WP off, 5 reference
@@ -34,7 +38,8 @@
    outside the padded banks (the reference's ``dynamic_slice``
    placement), and strengths_b also on inputs built so that every branch
    of its pairing rule decides some edges (tools/strengths_cases.py);
-   times kernel and plain version per B picture at both sizes (QP 28);
+   times kernel and plain version per B picture at both sizes (QP 28),
+   ``ssd_grid8`` also beside its library route;
 5. drives the all-intra path (4 CIF + 2 1280x720 pictures), the IPPP
    path (CABAC, 5 reference frames, search range 28, explicit WP: 6 CIF
    and 3 1280x720 frames), the main path, the bench configuration (IPB:
@@ -124,7 +129,30 @@
    overrides (a text SEI, RTP output), ``tools.rtp_loss`` and
    ``tools.rtpdump`` on its output and ``h264_tpu_torch.ldecod`` on it,
    each exit code 0 and the decode equal to the recon file;
-9. prints per-picture times for I, P and B pictures (CUDA events and host
+9. the sharded tile-row pipelines (``h264_tpu_torch/parallel/``; the
+   ranks are processes that share this one card over gloo, their halos
+   staged through host memory, and nccl at world size 1, so their times
+   are no scaling result): holds K2's row-slab entry ``ref_bank_rows``
+   against its plain version on built slabs (0/255 and random; top,
+   middle and bottom shards; Hg 16, where zero rows appear, 144 and 240)
+   and on every slab the runs below built, and times it at the CIF slab
+   beside its plain version and ``ref_bank`` on a plane of the same
+   height; codes GOPs of P pictures with ``rd_gop_rows_sharded`` (R 28,
+   QP 28, CAVLC, ``moving_frames``; each GOP's I picture by the RD encoder
+   in tile rows, one reference): CIF over mesh (frame 2, row 2), 8 P
+   pictures per GOP, 1280x720 over (1, 3), 3 P pictures (a middle shard),
+   and the CIF GOP over (1, 1) on nccl; requires each run's host
+   buffers, recons and CAVLC slices to equal the single-device tile-row
+   chain (``rd_p_rows_pipeline``) on the card, each GOP's stream (SPS,
+   PPS, IDR and the sharded P pictures) to decode with
+   ``H264Decoder(device="cuda")`` to the sharded recons, and every kernel
+   of the path to have launched in the ranks; runs
+   ``dryrun_multichip(8)`` on 8 gloo ranks and requires the
+   ``stream_bytes=25923`` of ``MULTICHIP_r05.json`` and the host buffers,
+   recon and stream digests that tests/torch_records.py recorded from
+   h264_tpu; prints per-rank step, exchange and ``ref_bank_rows`` times
+   beside the chain's time per picture;
+10. prints per-picture times for I, P and B pictures (CUDA events and host
    clock around each ``encode_stream`` step, pipeline depth 1), their
    means per type with sample counts, PSNR-Y, bytes, each slice's QP and
    the mode mixes (with the 8x8 transform, the share of 8x8-transform MBs
@@ -135,8 +163,9 @@
    ``kernels`` JSON line (launches from the main path, the bench
    configuration; K9's from the IPB-T8 path; K10's from the CIF host-path
    IPPP and IPB encodes; K8's from the decode of step 7; K11's from the
-   IPB-ER path; K12's and K13's from the IPPP-legacy path; and each
-   entry's launches per CIF tile-row P picture), the P_Skip share of the
+   IPB-ER path; K12's and K13's from the IPPP-legacy path;
+   ``ref_bank_rows``'s from the ranks of the CIF (2, 2) sharded run; and
+   each entry's launches per CIF tile-row P picture), the P_Skip share of the
    legacy P pictures, the seconds the run took, the card's name and power
    limit, and as its last line the result object.
 
@@ -178,6 +207,9 @@ RC_ROWS, RC_IPB, RC_HOST = 1.4e6, 1.0e6, 350e3
 # (lencod's encoder.cfg), forced intra MBs per P picture
 ER = dict(loss_aware_k=30, loss_rate=0.1, intra_refresh=22)
 SEED = 2026
+# the sharded GOP encoder (step 9): P pictures per GOP at CIF and 720p,
+# search range, QP
+S_SH, S_SH_HD, R_SH, QP_SH = 8, 3, 28, 28
 PLAIN_WORKERS = 6  # processes of step 6 (the card's host has 8 cores)
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and the
 # non-tensor float32 rate, used as the int32 rate (the card has half as
@@ -265,6 +297,8 @@ SOURCES = {
                    "h264_tpu/encoder/fast.py:117"),
     "p16_refine": ("h264_tpu_torch/csrc/p16_refine.cu",
                    "h264_tpu/encoder/fast.py:160"),
+    "ref_bank_rows": ("h264_tpu_torch/csrc/ref_bank.cu",
+                      "h264_tpu/encoder/rd.py:2662"),
 }
 # the legacy path's entries (fast.LKernels) and its encodes' pipeline depth
 LEGACY = ("p16_search", "p16_refine", "strengths", "deblock", "ref_bank")
@@ -634,6 +668,303 @@ def ssd_conv(cur, ref_pad, R: int, lam: int, dtype):
             ssd[:, R, R].reshape(n_my, n_mx))
 
 
+def grid_conv(win, blk):
+    """SSD grids of B blocks (B, n, n) against their windows (B, n + D -
+    1, n + D - 1) by library calls (a yardstick, not a path): the cross
+    term by one grouped ``conv2d`` in float32 with TF32 off (exact: every
+    partial sum is an integer below 2^24), the window energies by box sums
+    of an integral image; (B, D, D) int32."""
+    import torch
+    import torch.nn.functional as F
+
+    n = blk.shape[-1]
+    cross = F.conv2d(win.float()[None], blk.float()[:, None],
+                     groups=win.shape[0])[0]
+    sq = F.pad(win.long() ** 2, (1, 0, 1, 0)).cumsum(1).cumsum(2)
+    e = sq[:, n:, n:] - sq[:, :-n, n:] - sq[:, n:, :-n] + sq[:, :-n, :-n]
+    cur2 = (blk.long() ** 2).sum((1, 2))
+    return (e - 2 * cross.round().long() + cur2[:, None, None]).int()
+
+
+def ssd_grid8_lib(banks, cur_y, cen_x, cen_y, wp, R: int):
+    """K3 ``ssd_grid8``'s function by the library route: each (ref, 8x8
+    block)'s window gathered (clamped, weighted) as the plain version
+    gathers it, then ``grid_conv``; (NR, n_b8, D, D)."""
+    import torch
+
+    from h264_tpu_torch.encoder import rd_p
+
+    NR, _, Hp, Wp = banks.shape
+    H, W = cur_y.shape
+    D, Wn = 2 * R + 1, 2 * R + 8
+    by, bx, mb = rd_p._b8_geometry(H, W, banks.device)
+    a = torch.arange(Wn, device=banks.device)
+    rows = rd_p._clampi((by + cen_y.reshape(NR, -1)[:, mb] - R + rd_p.PAD)
+                        [..., None] + a, Hp - 1)
+    cols = rd_p._clampi((bx + cen_x.reshape(NR, -1)[:, mb] - R + rd_p.PAD)
+                        [..., None] + a, Wp - 1)
+    r = torch.arange(NR, device=banks.device)[:, None, None, None]
+    win = rd_p._wp(banks[r, 0, rows[..., :, None], cols[..., None, :]], wp, r)
+    a8 = torch.arange(8, device=banks.device)
+    cur8 = cur_y[(by[:, None] + a8)[:, :, None], (bx[:, None] + a8)[:, None, :]]
+    return grid_conv(win.reshape(-1, Wn, Wn),
+                     cur8.repeat(NR, 1, 1)).reshape(NR, -1, D, D)
+
+
+def ssd_grid4_lib(banks, cur_y, u_ref, u_cy, u_cx, wp, RS: int):
+    """K3 ``ssd_grid4``'s function by the library route (windows as the
+    plain version gathers them, then ``grid_conv``); (nsb, 4, DS, DS)."""
+    import torch
+
+    from h264_tpu_torch.encoder import rd_p
+
+    _, _, Hp, Wp = banks.shape
+    n_mx = cur_y.shape[1] // 16
+    dev = banks.device
+    DS, Wn = 2 * RS + 1, 2 * RS + 4
+    u = torch.arange(u_ref.shape[0], device=dev)
+    mb, b8, q = u // 4, u % 4, torch.arange(4, device=dev)
+    y0 = (16 * (mb // n_mx) + 8 * (b8 >> 1))[:, None] + 4 * (q >> 1)
+    x0 = (16 * (mb % n_mx) + 8 * (b8 & 1))[:, None] + 4 * (q & 1)
+    a = torch.arange(Wn, device=dev)
+    rows = rd_p._clampi((y0 + u_cy[:, None] - RS + rd_p.PAD)[..., None] + a,
+                        Hp - 1)
+    cols = rd_p._clampi((x0 + u_cx[:, None] - RS + rd_p.PAD)[..., None] + a,
+                        Wp - 1)
+    r = u_ref.long()[:, None, None, None]
+    win = rd_p._wp(banks[r, 0, rows[..., :, None], cols[..., None, :]], wp, r)
+    a4 = torch.arange(4, device=dev)
+    cb = cur_y[(y0[..., None] + a4)[..., :, None],
+               (x0[..., None] + a4)[..., None, :]]
+    return grid_conv(win.reshape(-1, Wn, Wn),
+                     cb.reshape(-1, 4, 4)).reshape(-1, 4, DS, DS)
+
+
+def coarse_search_lib(banks, cur_y, wp, lam_me: int):
+    """K3 ``coarse_search``'s function by the library route: the
+    decimated planes as the plain version makes them, every (ref, MB)'s
+    DCO x DCO candidate 16-vectors unfolded, their SADs by one
+    ``torch.cdist(p=1)`` (float32, exact: integers below 2^24), the rate
+    added and the first minimum taken; (cen_x, cen_y)."""
+    import torch
+
+    from h264_tpu_torch.encoder import rd_p
+    from h264_tpu_torch.encoder.rd import _lam_cost, _mv_bits
+
+    NR, _, Hp, Wp = banks.shape
+    H, W = cur_y.shape
+    n_my, n_mx = H // 16, W // 16
+    dev, E, RC, DCO = banks.device, rd_p.E, rd_p.RC, rd_p.DCO
+    iy = rd_p._clampi(torch.arange(Hp + 2 * E, device=dev) - E, Hp - 1)
+    ix = rd_p._clampi(torch.arange(Wp + 2 * E, device=dev) - E, Wp - 1)
+    G = banks[:, 0].index_select(1, iy).index_select(2, ix)
+    if wp is not None:
+        G = rd_p._wp_affine(G, wp[0][:, None, None], wp[1][:, None, None])
+    ref_l = G.reshape(NR, G.shape[1] // 4, 4, G.shape[2] // 4, 4).sum(
+        (2, 4), dtype=torch.int32)
+    cur_l = cur_y.reshape(H // 4, 4, W // 4, 4).sum((1, 3), dtype=torch.int32)
+    curmb = cur_l.reshape(n_my, 4, n_mx, 4).permute(0, 2, 1, 3)
+    a = torch.arange(DCO + 3, device=dev)
+    rows = (4 * torch.arange(n_my, device=dev) - RC + rd_p.PADW // 4)[:, None] + a
+    cols = (4 * torch.arange(n_mx, device=dev) - RC + rd_p.PADW // 4)[:, None] + a
+    win = ref_l[:, rows[:, None, :, None], cols[None, :, None, :]]
+    cand = win.unfold(3, 4, 1).unfold(4, 4, 1)  # (NR, my, mx, DCO, DCO, 4, 4)
+    sad = torch.cdist(
+        curmb.reshape(1, -1, 1, 16).expand(NR, -1, -1, -1).reshape(
+            -1, 1, 16).float(),
+        cand.reshape(-1, DCO * DCO, 16).float(), p=1)[:, 0]
+    coff = torch.arange(-RC, RC + 1, dtype=torch.int32, device=dev) * 16
+    cbits = (_mv_bits(coff)[None, :] + _mv_bits(coff)[:, None]).reshape(-1)
+    k = (sad.round().int() + _lam_cost(lam_me, cbits)).argmin(-1).to(
+        torch.int32).reshape(NR, n_my, n_mx)
+    return ((k % DCO) - RC) * 4, ((k // DCO) - RC) * 4
+
+
+# the library route of each K3 entry (library_ms), held equal to the kernel
+K3_LIB = {"coarse_search": coarse_search_lib, "ssd_grid8": ssd_grid8_lib,
+          "ssd_grid4": ssd_grid4_lib}
+
+
+def digest(x) -> str:
+    """sha256 of an integer array with its shape (or of bytes), as
+    tests/torch_records.py records the reference's outputs."""
+    import hashlib
+
+    if isinstance(x, bytes):
+        return hashlib.sha256(x).hexdigest()
+    a = np.asarray(x)
+    return hashlib.sha256(str(a.shape).encode()
+                          + a.astype(np.int64).tobytes()).hexdigest()
+
+
+def rows_bank_work(Hs: int, Hcs: int, W: int):
+    """(bytes, int32 ops) of one row-slab reference entry (K2
+    ``ref_bank_rows``): slabs read once, bank and cpad written once; b/h
+    6 taps, j 6x6 separable taps, per bank sample."""
+    Wp, Wcp = W + 64, W // 2 + 64
+    nbytes = (Hs * W + Hcs * W + 4 * Hs * Wp + 2 * Hcs * Wcp) * 4
+    return nbytes, Hs * Wp * (2 * 15 + 7 * 15)
+
+
+def gop_run(tag, size, mesh, S, seed, names, hold_bank):
+    """GOPs of S P pictures (after each GOP's I picture, coded by the
+    port's RD encoder in tile rows, one reference, CAVLC) through the
+    sharded encoder on `mesh`, held against the single-device tile-row
+    chain on the card (host buffers, recons, slice bytes), each GOP's
+    stream decoded on the card to the sharded recons, and K2's
+    row-slab entry against its plain version on every slab built
+    (``hold_bank``); fails unless every kernel of `names` launched in the
+    ranks.  On a CPU mesh (a rehearsal) all of it runs on the CPU."""
+    import torch
+
+    from h264_tpu_torch.bitstream import write_annexb
+    from h264_tpu_torch.decoder.decoder import H264Decoder
+    from h264_tpu_torch.encoder import rd, rd_rows
+    from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
+    from h264_tpu_torch.ops.exact import chroma_qp
+    from h264_tpu_torch.parallel import dryrun as DRY
+    from h264_tpu_torch.parallel.sharded import rd_gop_rows_sharded
+    from h264_tpu_torch.tools.synthseq import moving_frames
+
+    dev = torch.device("cpu" if mesh.device == "cpu" else "cuda")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    lam_sh, qpc_sh = lam_fx(QP_SH), chroma_qp(QP_SH, 0)
+    W, H = size
+    F, G = mesh.n_frame, mesh.n_row
+    fr = moving_frames(F * (S + 1), W, H, seed=seed)
+    cfg = EncoderConfig(width=W, height=H, qp=QP_SH, fast=True, rd=True,
+                        row_slices=G, num_ref_frames=1, entropy="cavlc")
+    heads, idrs, irec = None, [], []
+    for f in range(F):
+        enc = H264Encoder(cfg, device=dev)
+        heads = enc.headers()
+        idrs.append(next(enc.encode_stream([fr[f * (S + 1)]], depth=1)))
+        irec.append(enc.all_recons[0][1])
+    pf = [[fr[f * (S + 1) + 1 + s] for s in range(S)] for f in range(F)]
+    cur = [np.stack([np.stack([p[i] for p in g]) for g in pf])
+           for i in range(3)]  # (F, S, h, w)
+    init = [np.stack([np.asarray(getattr(x, c), np.int32) for x in irec])
+            for c in "YUV"]
+
+    def rows(a):
+        return a.reshape(*a.shape[:-2], G, a.shape[-2] // G, a.shape[-1])
+
+    step = rd_gop_rows_sharded(mesh, S=S, H=H, W=W, R=R_SH, qp=QP_SH,
+                               qp_c=qpc_sh, lam=lam_sh, keep_slabs=True)
+    sync()
+    t_call = time.time()
+    host_outs, recons = step(*map(rows, (*cur, *init)))
+    wall = time.time() - t_call
+    launches_sh = {n: sum(i["launches"][n] for i in step.ranks)
+                   for n in names}
+    for info in step.ranks:
+        if "ref_bank_rows" in names and (
+                info["launches"]["ref_bank_rows"] != S * F // mesh.n_frame):
+            fail(f"{tag}: rank {info['rank']} launched ref_bank_rows "
+                 f"{info['launches']['ref_bank_rows']} times")
+        if info["foreign_modules"]:
+            fail(f"{tag}: rank {info['rank']} holds "
+                 f"{info['foreign_modules']}")
+    for n in names:
+        if launches_sh[n] == 0:
+            fail(f"kernel {n} was not launched on the {tag} path")
+    chain_ms = []
+    for f in range(F):
+        bank, cpad = rd.ref_entry_from_planes(*(x[f] for x in init),
+                                              device=dev)
+        dec = list(H264Decoder(device=dev).decode_stream(
+            write_annexb(heads + idrs[f] + [
+                n for s in range(S) for n in DRY._entropy_nals(
+                    host_outs[f, s], W, H, G, QP_SH, s)])))
+        if len(dec) != S + 1:
+            fail(f"{tag} GOP {f}: {len(dec)} pictures decoded")
+        for s in range(S):
+            sync()
+            h0 = time.perf_counter()
+            ho, rec, (bank, cpad, _) = rd_rows.rd_p_rows_pipeline(
+                *(x[f, s] for x in cur), bank[None], cpad[None], H=H,
+                W=W, R=R_SH, qp=QP_SH, qp_c=qpc_sh, lam=lam_sh,
+                lam_me=lam_sh, G=G, device=dev)
+            ho = ho.cpu().numpy()
+            chain_ms.append((time.perf_counter() - h0) * 1e3)
+            if not np.array_equal(ho, host_outs[f, s]):
+                fail(f"{tag} GOP {f} picture {s}: host_out differs from "
+                     "the single-device chain")
+            for i, x in enumerate(rec):
+                if not np.array_equal(recons[i][f, s].reshape(x.shape),
+                                      x.cpu().numpy()):
+                    fail(f"{tag} GOP {f} picture {s}: recon {'YUV'[i]} "
+                         "differs from the single-device chain")
+            if [n.rbsp for n in DRY._entropy_nals(ho, W, H, G, QP_SH, s)
+                ] != [n.rbsp for n in DRY._entropy_nals(
+                    host_outs[f, s], W, H, G, QP_SH, s)]:
+                fail(f"{tag} GOP {f} picture {s}: slices differ")
+            for i, c in enumerate("YUV"):
+                if not np.array_equal(getattr(dec[s + 1].planes, c),
+                                      recons[i][f, s].reshape(
+                                          getattr(dec[s + 1].planes,
+                                                  c).shape)):
+                    fail(f"{tag} GOP {f} picture {s}: the decode "
+                         f"differs from the sharded recon ({c})")
+        if not all(np.array_equal(getattr(dec[0].planes, c),
+                                  getattr(irec[f], c)) for c in "YUV"):
+            fail(f"{tag} GOP {f}: the I picture's decode differs")
+    for key, ext in step.slabs.items():
+        hold_bank(ext, f"{tag} slab {key}")
+    per_rank = [rank_times(info) for info in step.ranks]
+    out = {"mesh": mesh.shape, "backend": mesh.backend, "size": size,
+           "S": S, "ranks": per_rank, "launches": launches_sh,
+           "chain_ms_per_picture": float(np.median(chain_ms)),
+           "wall_s": wall, "slabs_held": len(step.slabs),
+           **start_exit(step.ranks, t_call, t_call + wall)}
+    print(f"sharded {tag} {W}x{H} mesh {mesh.shape} {mesh.backend} "
+          f"({F} GOP(s) x {S} P; wall {wall:.1f} s, of it the ranks' start "
+          f"{out['start_s']:.1f} s and their exit and gather "
+          f"{out['exit_s']:.1f} s): host_outs, recons and slices equal to "
+          "the single-device "
+          f"chain, the decode equal to the recons, {len(step.slabs)} slabs "
+          f"held; launches {launches_sh}")
+    for r in per_rank:
+        print_rank(r)
+    print(f"  single-device chain on {dev.type}: "
+          f"{out['chain_ms_per_picture']:.2f} ms per picture ({G} rows; "
+          f"median of {len(chain_ms)})")
+    return out
+
+
+def start_exit(ranks, t_call: float, t_done: float) -> dict:
+    """The ranks' start (from the call to the last rank beginning its
+    work: processes, imports, rendezvous) and exit (from the last rank
+    ending its work to the call's return: exit and gather), in s."""
+    return {"start_s": max(i["t_enter"] for i in ranks) - t_call,
+            "exit_s": t_done - max(i["t_exit"] for i in ranks)}
+
+
+def rank_times(info) -> dict:
+    """A rank's times: its first step, and the median of its later ones,
+    of the halo exchange within them (which waits for the neighbours'
+    pictures too) and of its ref_bank_rows launch (host clock,
+    synchronized), in ms."""
+    later = slice(1, None) if len(info["step_ms"]) > 1 else slice(None)
+    return {**{k: info[k] for k in ("rank", "frame", "row", "device")},
+            "first_step_ms": info["step_ms"][0],
+            **{k: float(np.median(info[k][later]))
+               for k in ("step_ms", "exchange_ms", "bank_ms")},
+            "n": len(info["step_ms"])}
+
+
+def print_rank(r) -> None:
+    print(f"  rank {r['rank']} (frame {r['frame']}, row {r['row']}, "
+          f"{r['device']}): first step {r['first_step_ms']:.2f} ms; median "
+          f"of the next {r['n'] - 1}: step {r['step_ms']:.2f} ms, exchange "
+          f"{r['exchange_ms']:.3f} ms, ref_bank_rows {r['bank_ms']:.3f} ms "
+          "(host clock, synchronized)")
+
+
 def bound_ms(nbytes: int, ops: int):
     tb, to = nbytes / HBM_BPS * 1e3, ops / INT32_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -676,6 +1007,11 @@ def main(argv=None) -> int:
     from h264_tpu_torch.tools.p16_cases import CASES as P16_CASES
     from h264_tpu_torch.tools.p16_cases import built_case as p16_case
     from h264_tpu_torch.tools.p16_cases import reached_sides
+    from h264_tpu_torch.parallel import dryrun as DRY
+    from h264_tpu_torch.parallel.mesh import Mesh
+    from h264_tpu_torch.parallel.sharded import rd_gop_rows_sharded
+    from h264_tpu_torch.tools.slab_cases import CONTENTS as SLAB_CONTENTS
+    from h264_tpu_torch.tools.slab_cases import built_slab
     from h264_tpu_torch.tools.rows_cases import edge_motion
     from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                       strengths_b_inputs)
@@ -806,9 +1142,29 @@ def main(argv=None) -> int:
                     fail(f"{name} {what}: output {i} differs "
                          f"({int((d > 0).sum())} elements)")
 
+    def lib_ms(name, fk, mine):
+        """The library route's time of K3 entry `name` over the calls
+        `mine` (float32, TF32 off), each output held equal to the
+        kernel's."""
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for a in mine:
+                got, want = K3_LIB[name](*a), fk(*a)
+                if isinstance(want, torch.Tensor):
+                    got, want = (got,), (want,)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"{name}: the library route differs from the "
+                         "kernel")
+            return sum(cuda_ms(lambda a=a: K3_LIB[name](*a), 3)
+                       for a in mine)
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+            torch.cuda.empty_cache()
+
     def time_p(calls, names):
         """Kernel and plain time of each entry over `calls` (one
-        picture's), its launches and its work."""
+        picture's), its launches and its work (and the K3 entries' library
+        route)."""
         tm = {}
         for name in names:
             mine = [a for n, a in calls if n == name]
@@ -820,6 +1176,8 @@ def main(argv=None) -> int:
                                 for a in mine),
                 "launches_per_picture": len(mine),
                 "work": (sum(w[0] for w in work), sum(w[1] for w in work))}
+            if name in K3_LIB:
+                tm[name]["library_ms"] = lib_ms(name, fk, mine)
         return tm
 
     for size in (CIF, HD):
@@ -844,6 +1202,11 @@ def main(argv=None) -> int:
                           "kernel / plain): " + ", ".join(
                               f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
                               for n in p_names))
+                    print(f"time {size[0]}x{size[1]} per P picture, K3 "
+                          "library route (conv2d float32 / cdist p=1, equal "
+                          "to the kernel; ms): " + ", ".join(
+                              f"{n} {tm[n]['library_ms']:.4f}"
+                              for n in K3_LIB))
 
     # the tile-row path (rd_rows): its P entries (no coarse search) on the
     # slab inputs of 1 I + 2 P pictures in ROWS rows, and on built inputs
@@ -1048,10 +1411,14 @@ def main(argv=None) -> int:
                                         for a in mine),
                         "launches_per_picture": len(mine),
                         "work": (sum(x[0] for x in wk), sum(x[1] for x in wk))}
+                    if name == "ssd_grid8":
+                        tm[name]["library_ms"] = lib_ms(name, fk, mine)
                 print(f"time {size[0]}x{size[1]} per B picture (ms, kernel / "
                       "plain): " + ", ".join(
                           f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
-                          for n in rd_b.B_ENTRIES))
+                          for n in rd_b.B_ENTRIES)
+                      + f"; ssd_grid8 library route "
+                      f"{tm['ssd_grid8']['library_ms']:.4f}")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
@@ -1908,7 +2275,99 @@ def main(argv=None) -> int:
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
-    # ---- 9. report -----------------------------------------------------------
+    # ---- 9. the sharded tile-row pipelines (parallel/) -----------------------
+    # Ranks are processes of their own that load the kernels built in step
+    # 1. On this card they share it (gloo, halos staged through host
+    # memory), and nccl runs at world size 1: their times are not a
+    # scaling result.
+    t9 = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' contexts share the card
+    with open(os.path.join(here, "tests", "torch_records.json")) as fh:
+        sh_rec = json.load(fh)["sharded"]
+
+    def hold_rows_bank(ext, what):
+        ext = [torch.as_tensor(x, device=dev) for x in ext]
+        got = K2.ref_bank_rows(*ext)
+        want = K2.ref_bank_rows_plain(*ext)
+        for name, g, w in zip(("bank", "cpad"), got, want):
+            e = int((g - w).abs().max())
+            err["ref_bank_rows"] = max(err["ref_bank_rows"], e)
+            mismatches["ref_bank_rows"] += int((g != w).sum())
+            if e:
+                fail(f"ref_bank_rows {what}: {name} differs by {e}")
+
+    # (a) K2's row-slab entry on built slabs (0/255 and random; top,
+    # middle and bottom shards; Hg 16 < PAD: zero rows in luma and
+    # chroma), then timed at the CIF slab of 2 row shards (Hg 144)
+    n_built = 0
+    for content in SLAB_CONTENTS:
+        for Hg in (16, 144, 240):
+            for r in range(3):
+                hold_rows_bank(built_slab(content, Hg, CIF[0] if Hg < 240
+                                          else HD[0], r, 3),
+                               f"built {content} Hg {Hg} shard {r}")
+                n_built += 1
+    print(f"check ref_bank_rows: {n_built} built slabs (0/255 and random; "
+          "top, middle, bottom shards; Hg 16, 144, 240) equal to its plain "
+          "version (tolerance 0: bit-exact)")
+    ext = [torch.as_tensor(x, device=dev)
+           for x in built_slab("random", 144, CIF[0], 1, 2)]
+    pic = [x[rd.PAD:-rd.PAD].contiguous() for x in ext]  # a 144-line plane
+    timing[CIF]["ref_bank_rows"] = {
+        "ms": cuda_ms(lambda: K2.ref_bank_rows(*ext), 50),
+        "plain_ms": cuda_ms(lambda: K2.ref_bank_rows_plain(*ext), 20),
+        "ref_bank_same_height_ms": cuda_ms(
+            lambda: K2.ref_bank(*pic), 50),
+        "launches_per_picture": 1,
+        "work": rows_bank_work(*(x.shape[0] for x in ext[:2]), CIF[0])}
+    tb = timing[CIF]["ref_bank_rows"]
+    print(f"time ref_bank_rows CIF slab (208 x 352 luma, 136 x 176 chroma):"
+          f" {tb['ms']:.4f} ms, plain {tb['plain_ms']:.4f} ms, bound "
+          f"{bound_ms(*tb['work'])[0]:.5f} ms; ref_bank on a 144 x 352 "
+          f"plane {tb['ref_bank_same_height_ms']:.4f} ms")
+
+    sh_names = ("ref_bank_rows", "intra_commit", *rows_names)
+    sharded = {
+        # (b) CIF over (frame 2, row 2); (c) 720p over (frame 1, row 3):
+        # a middle shard; (e) the CIF GOP on nccl at world size 1
+        "CIF-2x2": gop_run("CIF-2x2", CIF, Mesh(2, 2, "gloo"), S_SH,
+                           SEED + 4, sh_names, hold_rows_bank),
+        "720p-1x3": gop_run("720p-1x3", HD, Mesh(1, 3, "gloo"), S_SH_HD,
+                            SEED + 5, sh_names, hold_rows_bank),
+        "CIF-1x1-nccl": gop_run("CIF-1x1-nccl", CIF, Mesh(1, 1, "nccl"),
+                                S_SH, SEED + 4, sh_names, hold_rows_bank),
+    }
+    # (d) the dry run, 8 gloo ranks: its stream as h264_tpu's
+    t_call = time.time()
+    dry = DRY.dryrun_multichip(8, backend="gloo", device="cuda")
+    t_done = time.time()
+    want = sh_rec["dryrun_8"]
+    got = {"host_outs": digest(dry["host_outs"]),
+           "recon_y": digest(dry["recon_y"]), "stream": digest(dry["stream"]),
+           "stream_bytes": len(dry["stream"])}
+    if "stream_bytes=25923" not in dry["line"] or any(
+            got[k] != want[k] for k in got):
+        fail(f"dryrun_multichip(8): {got} differs from the record of "
+             f"h264_tpu {want}")
+    sharded["dryrun-8"] = {"line": dry["line"], **got,
+                           "wall_s": t_done - t_call,
+                           "start_s": start_exit(dry["ranks"], t_call,
+                                                 t_done)["start_s"],
+                           "ranks": [rank_times(i) for i in dry["ranks"]]}
+    print(f"dryrun_multichip(8) on 8 gloo ranks sharing the card: "
+          f"stream_bytes={got['stream_bytes']} sha256 {got['stream']}, "
+          "host_outs and recon equal to the record of h264_tpu "
+          f"({sharded['dryrun-8']['wall_s']:.1f} s with the single-device "
+          f"chain; the ranks' start {sharded['dryrun-8']['start_s']:.1f} s)")
+    for r in sharded["dryrun-8"]["ranks"]:
+        print_rank(r)
+    launches["ref_bank_rows"] = sharded["CIF-2x2"]["launches"][
+        "ref_bank_rows"]
+    report["sharded"] = sharded
+    print(f"sharded phase: {time.perf_counter() - t9:.0f} s")
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+
+    # ---- 10. report ----------------------------------------------------------
     kernels = []
     rows_per = report[f"rows_launches rows {CIF[0]}x{CIF[1]}"]
     for name, (source, replaces) in SOURCES.items():

@@ -22,6 +22,9 @@ package.  It mirrors the reference package's layout:
                                   (H264Encoder), fills.py, syntax_cabac.py
   control/                        rate control (JVT-G012) and the
                                   leaky-bucket parameters
+  parallel/                       the sharded tile-row pipelines over
+                                  torch.distributed ranks (mesh, halo
+                                  exchange, the GOP encoder, the dry run)
   kernels/, csrc/                 hand-written CUDA kernels and wrappers
   device.py                       device policy and the kernel build
   convert.py                      reference entries and tables carried in
@@ -32,12 +35,13 @@ package.  It mirrors the reference package's layout:
   tools/                          rtp_loss, rtpdump, benchseq (copies),
                                   profilers and built kernel inputs
 
-Ported so far: the all-intra, IPPP and IPB encodes of the fast RD path
-(CABAC and CAVLC, the bench configuration included, tile-row slices, intra
+Ported: the all-intra, IPPP and IPB encodes of the fast RD path (CABAC
+and CAVLC, the bench configuration included, tile-row slices, intra
 refresh and loss-aware RDO), the legacy P16x16 path (``rd=False``), the
 host-path encoder, rate control on both RD and host paths, the sequence
-SEI, the decoder and the CLIs (ROADMAP Queue 1); not the sharded
-pipelines of several devices.
+SEI, the decoder and the CLIs, and the sharded tile-row pipelines of
+several ranks (``parallel/``: nccl with one card per rank, or gloo, on
+the CPU or with ranks that share the cards; ROADMAP Queue 1).
 """
 
 __version__ = "0.1.0"

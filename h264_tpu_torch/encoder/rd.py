@@ -854,6 +854,23 @@ def ref_entry_plain(Y, U, V):
                                                       _edge_pad(V)])
 
 
+def _edge_pad_cols(x, pad: int = PAD):
+    """Edge-replicating pad of the columns of a 2-D tensor by `pad`."""
+    W = x.shape[1]
+    return x.index_select(1, torch.arange(-pad, W + pad, device=x.device)
+                          .clamp(0, W - 1))
+
+
+def ref_bank_rows_plain(extY, extU, extV):
+    """Plain version of the reference entry of one row slab (the sharded
+    GOP encoder's ``bank_of``, rd.py:2662-2672): int32 slabs extY (Hs, W),
+    extU/extV (Hcs, W/2) whose rows are given (neighbour, edge or zero
+    rows above and below) -> (bank (4, Hs, W+64), cpad (2, Hcs, W/2+64)),
+    the columns edge-padded."""
+    return _bank_from_pad(_edge_pad_cols(extY)), torch.stack(
+        [_edge_pad_cols(extU), _edge_pad_cols(extV)])
+
+
 def ref_entry_from_planes(Y, U, V, device=None, impl=None):
     """Build one reference entry from (unpadded) recon planes, host arrays
     or tensors: the aligned 4-plane luma bank + padded chroma stack, on

@@ -69,6 +69,19 @@ def row_slabs(banks, cpads, H: int, G: int):
     return slabs, cslabs
 
 
+def code_row(cur_y, cur_u, cur_v, slab, cslab, Hg: int, W: int, R: int,
+             qp, qp_c, lam, lam_me, nref: int, k: RDP.PKernels):
+    """One tile row (int32 planes of Hg lines on the device) through the P
+    stages on its bank slab, as the reference's ``rd_p_pipeline`` runs
+    with its defaults: no coarse stage, no WP, no 8x8 transform.  Returns
+    the ``PFrame`` with every stage's results."""
+    f = RDP.PFrame(cur_y, cur_u, cur_v, slab, cslab, Hg, W, R, qp, qp_c,
+                   lam, lam_me, nref, k=k, use_cme=False)
+    for stage in RDP.P_STAGES:
+        stage(f)
+    return f
+
+
 def _per_group(v, G: int) -> list[int]:
     """A scalar or a (G,) vector -> G Python ints."""
     return [int(x) for x in np.broadcast_to(np.asarray(v, np.int64), (G,))]
@@ -95,14 +108,11 @@ def rd_p_rows_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int,
     qs, qcs, lams, lmes = (_per_group(v, G) for v in (qp, qp_c, lam, lam_me))
     host_outs, recons, cols = [], [], []
     for g in range(G):
-        f = RDP.PFrame(cur[0][g * Hg:(g + 1) * Hg],
-                       cur[1][g * Hg // 2:(g + 1) * Hg // 2],
-                       cur[2][g * Hg // 2:(g + 1) * Hg // 2],
-                       slabs[g], cslabs[g], Hg, W,
-                       R, qs[g], qcs[g], lams[g], lmes[g], nref, k=k,
-                       use_cme=False)
-        for stage in RDP.P_STAGES:
-            stage(f)
+        f = code_row(cur[0][g * Hg:(g + 1) * Hg],
+                     cur[1][g * Hg // 2:(g + 1) * Hg // 2],
+                     cur[2][g * Hg // 2:(g + 1) * Hg // 2],
+                     slabs[g], cslabs[g], Hg, W, R, qs[g], qcs[g], lams[g],
+                     lmes[g], nref, k)
         host_outs.append(RDP.p_host_out(f))
         recons.append((f.dy, f.du, f.dv))
         cols.append((f.intra4, f.ref4, f.mvx4, f.mvy4))

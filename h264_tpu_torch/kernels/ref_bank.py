@@ -1,9 +1,12 @@
-"""K2 wrapper: the reference-bank entry of one reconstructed picture.
+"""K2 wrappers: the reference-bank entry of one reconstructed picture
+(``ref_bank``) and of one row slab (``ref_bank_rows``).
 
 Kernel: ``csrc/ref_bank.cu`` (replaces the reference's
-``encoder/rd.py:101 ref_entry_from_planes`` / ``:113 _bank_from_pad``).
-Plain version: ``encoder.rd.ref_entry_plain``.  CPU tensors run the plain
-version; CUDA tensors launch the kernel, or raise.
+``encoder/rd.py:101 ref_entry_from_planes`` / ``:113 _bank_from_pad``,
+and the sharded GOP encoder's ``bank_of``, ``:2662-2672``).  Plain
+versions: ``encoder.rd.ref_entry_plain`` and ``ref_bank_rows_plain``.
+CPU tensors run the plain version; CUDA tensors launch the kernel, or
+raise.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from ..device import check_launch, check_tensor, kernel_fn, stream_of
 from ..encoder import rd
 
 ref_bank_plain = rd.ref_entry_plain
+ref_bank_rows_plain = rd.ref_bank_rows_plain
 
 
 def ref_bank(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor):
@@ -41,3 +45,36 @@ def ref_bank(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor):
 
 
 ref_bank.launches = 0
+
+
+def ref_bank_rows(extY: torch.Tensor, extU: torch.Tensor,
+                  extV: torch.Tensor):
+    """int32 row slabs extY (Hs, W), extU/extV (Hcs, W/2) on one device,
+    their rows given (Hs = Hg + 64, Hcs = Hg/2 + 64) -> (bank (4, Hs,
+    W+64), cpad (2, Hcs, W/2+64)) int32, the columns edge-padded."""
+    if extY.device.type == "cpu":
+        return ref_bank_rows_plain(extY, extU, extV)
+    Hs, W = extY.shape
+    Hcs = extU.shape[0]
+    for name, x, shape in (("extY", extY, (Hs, W)),
+                           ("extU", extU, (Hcs, W // 2)),
+                           ("extV", extV, (Hcs, W // 2))):
+        check_tensor("ref_bank_rows", name, x, shape, torch.int32,
+                     extY.device)
+    if W % 2 or Hs < 6 or Hcs < 1:
+        raise ValueError(f"ref_bank_rows: slab sizes {Hs}x{W}, {Hcs} chroma "
+                         "rows")
+    P = rd.PAD
+    bank = torch.empty((4, Hs, W + 2 * P), dtype=torch.int32,
+                       device=extY.device)
+    cpad = torch.empty((2, Hcs, W // 2 + 2 * P), dtype=torch.int32,
+                       device=extY.device)
+    rc = kernel_fn("ref_bank", "ref_bank_rows", "pppppiiip")(
+        extY.data_ptr(), extU.data_ptr(), extV.data_ptr(), bank.data_ptr(),
+        cpad.data_ptr(), Hs, Hcs, W, stream_of(extY))
+    check_launch(rc, "ref_bank_rows")
+    ref_bank_rows.launches += 1
+    return bank, cpad
+
+
+ref_bank_rows.launches = 0

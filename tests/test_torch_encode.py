@@ -243,6 +243,15 @@ def test_port_encode_imports_no_jax():
         "s = enc.encode_sequence(synthetic_frames(3, 48, 32))\n"
         "assert enc._lsim.pen is not None and len(enc.headers()) == 3\n"
         "assert len(decode_annexb(s, device='cpu')) == 3\n"
+        "from h264_tpu_torch.parallel.dryrun import gop_inputs\n"
+        "from h264_tpu_torch.parallel.mesh import Mesh\n"
+        "from h264_tpu_torch.parallel.sharded import rd_gop_rows_sharded\n"
+        "x = [a.reshape(*a.shape[:-2], 2, -1, a.shape[-1])"
+        " for a in gop_inputs(1, 2, 1)]\n"
+        "step = rd_gop_rows_sharded(Mesh(1, 2, 'gloo', 'cpu'), S=1, H=64,"
+        " W=64, R=8, qp=28, qp_c=28, lam=1 << 16)\n"
+        "assert step(*x)[0].shape[:3] == (1, 1, 2)\n"
+        "assert [i['foreign_modules'] for i in step.ranks] == [[], []]\n"
         "import contextlib, io, os, tempfile\n"
         "from h264_tpu_torch import lencod\n"
         "os.chdir(tempfile.mkdtemp())\n"

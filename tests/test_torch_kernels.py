@@ -14,7 +14,8 @@ K9 also test_torch_ops.py, for K8 test_torch_decode_ops.py and
 test_torch_decode.py, for K10 test_torch_me.py and the
 test_torch_host_*.py files, on the tile-row path test_torch_rows*.py
 and test_torch_ratectl.py, for K11 test_torch_lossaware.py and
-test_torch_er.py, and for K12 and K13 test_torch_legacy.py)."""
+test_torch_er.py, for K12 and K13 test_torch_legacy.py, and for K2's
+row-slab entry and the sharded pipelines test_torch_sharded.py)."""
 
 import pathlib
 
@@ -40,6 +41,9 @@ from h264_tpu_torch.kernels import sad_grid as K10
 from h264_tpu_torch.kernels import search_grid as K3
 from h264_tpu_torch.kernels import t8 as K9
 from h264_tpu_torch.ops.exact import chroma_qp
+from h264_tpu_torch.parallel import dryrun as DRY
+from h264_tpu_torch.parallel import sharded as SHD
+from h264_tpu_torch.parallel.mesh import Mesh
 from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
 from h264_tpu_torch.tools.decode_cases import built_cases
 from h264_tpu_torch.tools.drift_cases import CASES as DRIFT_CASES
@@ -48,6 +52,8 @@ from h264_tpu_torch.tools.p16_cases import CASES as P16_CASES
 from h264_tpu_torch.tools.p16_cases import built_case as p16_built_case
 from h264_tpu_torch.tools.p16_cases import reached_sides as p16_reached
 from h264_tpu_torch.tools.rows_cases import edge_motion
+from h264_tpu_torch.tools.slab_cases import CONTENTS as SLAB_CONTENTS
+from h264_tpu_torch.tools.slab_cases import built_slab
 from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
                                                   strengths_b_inputs)
 from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
@@ -815,3 +821,56 @@ def test_legacy_encoder_on_card_matches_cpu(cuda, kw):
             np.testing.assert_array_equal(x, y)
     for a, b in zip(card._dev_ref, cpu._dev_ref):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("content", SLAB_CONTENTS)
+@pytest.mark.parametrize("r", [0, 1, 2], ids=["top", "middle", "bottom"])
+@pytest.mark.parametrize("Hg,W", [(16, 64), (32, 64), (144, 352),
+                                  (240, 1280)], ids=lambda v: str(v))
+def test_ref_bank_rows_matches_plain(cuda, Hg, W, r, content):
+    ext = [torch.as_tensor(x, device=cuda)
+           for x in built_slab(content, Hg, W, r, 3)]
+    before = K2.ref_bank_rows.launches
+    got = K2.ref_bank_rows(*ext)
+    assert K2.ref_bank_rows.launches == before + 1
+    for g, w in zip(got, K2.ref_bank_rows_plain(*ext)):
+        assert torch.equal(g, w)
+
+
+def test_ref_bank_rows_rejects_bad_input(cuda):
+    Y = torch.zeros((96, 64), dtype=torch.int32, device=cuda)
+    U = torch.zeros((80, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        K2.ref_bank_rows(Y.float(), U, U)
+    with pytest.raises(ValueError):
+        K2.ref_bank_rows(Y, U[:, :16], U)
+
+
+def test_sharded_gop_on_card_matches_chain(cuda):
+    """A (frame 1, row 2) mesh of gloo ranks sharing the card: 3 P
+    pictures of 64 lines in 2 tile rows equal the single-device chain on
+    the card, and every rank launched ref_bank_rows once a picture."""
+    S, G = 3, 2
+    cy, cu, cv, y0, u0, v0 = DRY.gop_inputs(1, G, S)
+    H, W = cy.shape[2:]
+    lam = _lam(28)
+    step = SHD.rd_gop_rows_sharded(Mesh(1, G, "gloo", "cuda"), S=S, H=H,
+                                   W=W, R=8, qp=28, qp_c=28, lam=lam)
+
+    def rows(a):
+        return a.reshape(*a.shape[:-2], G, a.shape[-2] // G, a.shape[-1])
+
+    host_outs, recons = step(*map(rows, (cy, cu, cv, y0, u0, v0)))
+    for info in step.ranks:
+        assert info["device"].startswith("cuda")
+        assert info["launches"]["ref_bank_rows"] == S
+        assert info["launches"]["intra_commit"] > 0
+    bank, cpad = rd.ref_entry_from_planes(y0[0], u0[0], v0[0], device=cuda)
+    for s in range(S):
+        ho, rec, (bank, cpad, _) = rd_rows.rd_p_rows_pipeline(
+            cy[0, s], cu[0, s], cv[0, s], bank[None], cpad[None], H=H, W=W,
+            R=8, qp=28, qp_c=28, lam=lam, lam_me=lam, G=G, device=cuda)
+        np.testing.assert_array_equal(host_outs[0, s], ho.cpu().numpy())
+        for got, x in zip(recons, rec):
+            np.testing.assert_array_equal(got[0, s].reshape(x.shape),
+                                          x.cpu().numpy())

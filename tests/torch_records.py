@@ -3,8 +3,11 @@ tests whose live run would cost the tier-1 run more compiled programs of
 the reference: the tile-row pipeline with one QP for every row (its
 scalar-QP program; the per-row-QP one runs live in test_torch_rows.py),
 and the P pipeline's intra-refresh and loss-aware branches (each a static
-specialization of rd_p_pipeline) with the encodes that take them.
-ROADMAP's "Tier-1 budget" allows one new program per slice.
+specialization of rd_p_pipeline) with the encodes that take them, and
+the sharded tile-row pipelines (rd_p_rows_sharded, rd_gop_rows_sharded
+and the dry run of __graft_entry__.py, each a shard_map'd program over a
+mesh of the CPU's virtual devices).  ROADMAP's "Tier-1 budget" allows one
+new program per slice.
 
 test_torch_rows_qp.py and test_torch_er.py hold the port's outputs equal
 to these records, digest for digest: the sha256 of each integer array
@@ -17,11 +20,20 @@ change to h264_tpu or to the inputs (about half an hour on a CPU, most of
 it the reference's compiles):
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_records.py
+
+or only the sharded records (``record_sharded``; they need 8 virtual
+devices, which the command gives JAX before it loads):
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_records.py sharded
 """
 
+import contextlib
 import hashlib
+import io
 import json
+import os
 import pathlib
+import sys
 
 import numpy as np
 
@@ -52,6 +64,15 @@ ER_ENC = {
 # the one-slice P pipeline as the encoder calls it (R 8, one reference, the
 # coarse stage on), with a refresh mask and with a drift penalty
 PIPE_P = dict(H=H, W=W, R=8, qp=28, qp_c=chroma_qp(28, 0))
+# the sharded tile-row step at tests/test_rd_pipeline.py:148's inputs: 2
+# frames of 64x64 over a (frame 2, row 2) mesh, 2 groups, one reference
+SH_P = dict(H=64, W=64, R=8, qp=28, qp_c=26, G=2)
+SH_F = 2
+# the lambda of __graft_entry__.py and test_rd_pipeline.py:154
+SH_LAM = int(0.85 * 2.0 ** ((28 - 12) / 3.0) * 65536)
+# the GOP encoder over (frame 1, row 4): the dry run's content and shapes
+# at H 128 (middle row shards), 4 P pictures
+SH_GOP14 = dict(F=1, G=4, S=4)
 
 
 def er_inputs(seed: int = 19):
@@ -118,6 +139,25 @@ def step_record(lost, new, pen) -> dict:
     new = np.asarray(new)
     return {"lost": [bool(x) for x in np.asarray(lost)], "drift": digest(new),
             "pen": digest(pen), "max_abs_drift": int(np.abs(new).max())}
+
+
+def p_rows_inputs(seed: int = 7):
+    """tests/test_rd_pipeline.py:148's inputs, drawn in its order: current
+    planes (F, H, W), (F, H/2, W/2) uint8, and each frame's reference
+    planes (y, u, v) int32."""
+    rng = np.random.default_rng(seed)
+    Hh, Ww = SH_P["H"], SH_P["W"]
+    cur = [rng.integers(0, 256, (SH_F, h, w)).astype(np.uint8)
+           for h, w in ((Hh, Ww), (Hh // 2, Ww // 2), (Hh // 2, Ww // 2))]
+    refs = [[rng.integers(0, 256, s).astype(np.int32)
+             for s in ((Hh, Ww), (Hh // 2, Ww // 2), (Hh // 2, Ww // 2))]
+            for _ in range(SH_F)]
+    return cur, refs
+
+
+def gop_record(host_outs, recon_y, stream: bytes) -> dict:
+    return {"host_outs": digest(host_outs), "recon_y": digest(recon_y),
+            "stream": digest(stream), "stream_bytes": len(stream)}
 
 
 def load() -> dict:
@@ -187,6 +227,99 @@ def record_er() -> dict:
     return recs
 
 
+def record_sharded() -> dict:
+    """The reference's sharded pipelines on meshes of 8 virtual CPU
+    devices: rd_p_rows_sharded at (2, 2); rd_gop_rows_sharded at (2, 2)
+    and (2, 4) as the dry run drives it (``dryrun_multichip(4)`` and
+    ``(8)``: its host buffers, recon and CAVLC stream, caught around the
+    calls, and the line it prints), and at (1, 4), H 128."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    import __graft_entry__ as GE
+    from h264_tpu.encoder import rd as JRD
+    from h264_tpu_torch.parallel.dryrun import gop_inputs
+
+    devs = jax.devices()
+    assert len(devs) >= 8, "needs --xla_force_host_platform_device_count=8"
+
+    def mesh(nf, nr):
+        return Mesh(np.array(devs[: nf * nr], dtype=object).reshape(nf, nr),
+                    ("frame", "row"))
+
+    recs = {}
+    m = mesh(2, 2)
+    (cy, cu, cv), refs = p_rows_inputs()
+    ents = [JRD.ref_entry_from_planes(*(jnp.asarray(p) for p in r))
+            for r in refs]
+    G = SH_P["G"]
+    fs, rs = NamedSharding(m, P("frame", "row")), NamedSharding(m, P("frame"))
+    args = [jax.device_put(jnp.asarray(c.reshape(SH_F, G, c.shape[1] // G,
+                                                 c.shape[2])), fs)
+            for c in (cy, cu, cv)]
+    args += [jax.device_put(jnp.stack([e[i][None] for e in ents]), rs)
+             for i in (0, 1)]
+    host_outs, recons = JRD.rd_p_rows_sharded(m, lam=SH_LAM, **SH_P)(*args)
+    recs["p_rows_2x2"] = {"host_outs": digest(host_outs),
+                          "recons": [digest(x) for x in recons]}
+
+    gop, ent = JRD.rd_gop_rows_sharded, GE._entropy_nals
+    for n in (4, 8):
+        got, nals = {}, []
+
+        def catch_gop(*a, **k):
+            step = gop(*a, **k)
+
+            def run(*args):
+                got["out"] = step(*args)
+                return got["out"]
+            return run
+
+        def catch_nals(*a):
+            nals.append(ent(*a))
+            return nals[-1]
+
+        JRD.rd_gop_rows_sharded, GE._entropy_nals = catch_gop, catch_nals
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                GE.dryrun_multichip(n)
+        finally:
+            JRD.rd_gop_rows_sharded, GE._entropy_nals = gop, ent
+        # the dry run codes each picture's single-device buffers, then its
+        # sharded ones: the sharded stream is every second call's
+        sh = b"".join(x.rbsp for ns in nals[1::2] for x in ns)
+        line = buf.getvalue().strip()
+        assert f"stream_bytes={len(sh)}" in line, line
+        recs[f"dryrun_{n}"] = {**gop_record(*got["out"], sh), "line": line}
+    assert "stream_bytes=25923" in recs["dryrun_8"]["line"]  # MULTICHIP_r05
+
+    F, G, S = SH_GOP14["F"], SH_GOP14["G"], SH_GOP14["S"]
+    cy, cu, cv, y0, u0, v0 = gop_inputs(F, G, S)
+    H, W = cy.shape[2:]
+    m = mesh(F, G)
+    fs, rs = (NamedSharding(m, P("frame", None, "row")),
+              NamedSharding(m, P("frame", "row")))
+    args = [jax.device_put(jnp.asarray(c.reshape(F, S, G, -1, c.shape[3])),
+                           fs) for c in (cy, cu, cv)]
+    args += [jax.device_put(jnp.asarray(c.reshape(F, G, -1, c.shape[2])), rs)
+             for c in (y0, u0, v0)]
+    step = JRD.rd_gop_rows_sharded(m, S=S, H=H, W=W, R=8, qp=28,
+                                   qp_c=chroma_qp(28, 0), lam=SH_LAM)
+    host_outs, recon_y = (np.asarray(x) for x in step(*args))
+    sh = b"".join(x.rbsp for s in range(S)
+                  for x in ent(host_outs[0, s], W, H, G, 28, s))
+    recs["gop_1x4"] = gop_record(host_outs, recon_y, sh)
+    return recs
+
+
 if __name__ == "__main__":
-    PATH.write_text(json.dumps(record(), indent=1) + "\n")
+    if sys.argv[1:] == ["sharded"]:
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                                   "force_host_platform_device_count=8")
+        recs = {**load(), "sharded": record_sharded()}
+    else:
+        recs = record()
+    PATH.write_text(json.dumps(recs, indent=1) + "\n")
     print(f"wrote {PATH}")
