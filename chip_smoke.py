@@ -193,6 +193,7 @@ import numpy as np
 CIF = (352, 288)
 HD = (1280, 720)
 N_INTRA = {CIF: 4, HD: 2}  # all-intra path
+K1_REPS = 5  # K1 launches on each adversarial is_intra pattern (step 2)
 N_IPPP = {CIF: 6, HD: 3}  # IPPP path: 1 I + 5 / 2 P
 N_IPB = {CIF: 9, HD: 5}  # the main path: I P B P B ... (4 / 2 B)
 N_HIER = 9  # hierarchical IPB at CIF: I, 2 x (P, stored B, 2 B)
@@ -211,47 +212,79 @@ SEED = 2026
 # search range, QP
 S_SH, S_SH_HD, R_SH, QP_SH = 8, 3, 28, 28
 PLAIN_WORKERS = 6  # processes of step 6 (the card's host has 8 cores)
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and the
-# non-tensor float32 rate, used as the int32 rate (the card has half as
-# many INT32 lanes, so the operation bound below is optimistic)
+# H100 SXM HBM3 bytes/s (NVIDIA data sheet, 700 W).  The operation rates
+# are the card's own, set by main() from lane_rates().  Counting rule: an
+# operation is one instruction on one lane, counted as the function needs
+# it: a multiply-add is one; a __dp4a is one for 4 u8 multiply-adds, so an
+# SSD over u8 samples costs a quarter per term (sum cur^2 - 2 sum cur ref
+# + sum ref^2, the squares shared by the cells); a SAD over u8 samples a
+# quarter per term (VABSDIFF4, 4 samples with their sum); a value computed
+# once per plane is counted once.  Integer instructions issue on the INT32
+# pipe, 64 lanes per SM a clock; float32 ones on the FP32 pipe, 128 lanes,
+# which is also the SM's issue rate (4 schedulers, one warp-instruction a
+# clock each), so both kinds together take at least (int + float) / FP32
 HBM_BPS = 3.35e12
-INT32_OPS = 67e12
-# int32 operations per sample, counted from csrc/intra_commit.cu:
-# Hadamard cost (residual, 2 passes, abs-sum); transform/quant/recon
-# (residual, forward, quant, bits, dequant, inverse, recon, SSD); I4 adds
-# its prediction
-OPS_SATD, OPS_TQ, OPS_I4 = 8, 34, 36
-# per coefficient of csrc/inter_tq.cu: OPS_TQ plus RDOQ-lite (a dequant,
-# an inverse and a forward transform, 8 float operations, the bits) and
-# the coeff_cost scan
-OPS_INTER_TQ = OPS_TQ + 40
-# per sample of a candidate in csrc/qpel.cu: 2 clamped reads and their
-# rounded mean, WP (5), residual, Hadamard share and abs-sum (8)
+INT32_OPS = FP32_OPS = None
+# MACs of one __dp4a; u8 samples of one VABSDIFF4
+DP4A_MACS = 4
+# integer operations per sample, counted from csrc/common.cuh: Hadamard
+# cost (residual 1, two butterfly passes 4, absolute value and sum 2);
+# transform/quant/recon (residual 1, forward 4, quant 5: abs, the
+# multiply-add with its offset, shift, sign; bits 6; dequant 2: a
+# multiply-add by the scale shifted by per, shift; inverse 5; rounding and
+# recon 4; SSD 2: difference, multiply-add); I4 adds its 3-tap prediction
+OPS_SATD, OPS_TQ = 7, 29
+OPS_I4 = OPS_TQ + 3
+# per coefficient of csrc/inter_tq.cu: OPS_TQ plus RDOQ-lite's integer part
+# (two dequants, the decremented level, an inverse and a forward transform,
+# the residual's shift, two absolute values, two bit counts, the
+# decision: 29) and the coeff_cost scan (3); its float32 part (three
+# conversions, six products, a difference and a sum: 12, FP32 pipe)
+OPS_INTER_TQ, FOPS_INTER_TQ = OPS_TQ + 32, 12
+# per sample of a candidate in csrc/qpel.cu: the two samples' rounded
+# mean (2), residual (1), Hadamard share (4), absolute value and sum (1 with
+# the next residual's); WP (5: multiply-add with the rounding, shift,
+# offset, clamp 2)
 OPS_QPEL, OPS_WP = 8, 5
 # per filtered line of csrc/deblock.cu (8 loads, the tests, the filter)
 OPS_LINE = 40
+# per sample of a bilinear chroma prediction: four taps, a multiply-add
+# each (the rounding in the first), and the shift; the weights are the
+# 4x4 block's
+OPS_BILIN = 5
 # per sample of csrc/b_direct.cu (the unit's derivation shared by its 64
 # samples, two window samples per list, their means) and of the chroma
-# samplers (four taps and weights per list, the select)
-OPS_DIRECT, OPS_CHROMA_B = 12, 30
+# samplers (a bilinear prediction per list, their rounded mean, the
+# select)
+OPS_DIRECT, OPS_CHROMA_B = 12, 2 * OPS_BILIN + 3
 # per 4x4 block edge of strengths_b (the pairing rule, four mv pairs)
 OPS_BS_B = 40
-# per sample of csrc/t8.cu as written: four 8-point butterflies (~40
-# operations each, every thread computing its row's or column's), quant,
-# dequant, recon, two SSD terms, the bit counts and the shared sums
-OPS_T8 = 230
+# per sample of the 8x8 transform path (csrc/t8.cu): forward and inverse
+# 8-point butterflies, two passes each (16), quant 5, bits 6, dequant 2,
+# rounding and recon 4, the SSD of the 8x8 and of the 4x4 recon (4)
+OPS_T8 = 37
+# per sample of the 6-tap half-pel planes (csrc/ref_bank.cu): b and h 8
+# each (three pair sums, the rounding in one, two multiply-adds for the
+# 20 and -5 taps, shift, clamp 2); j 13 (its unrounded vertical sums, 5,
+# shared along the row, the 6-tap over them, shift, clamp)
+OPS_BANK = 29
 # per sample and decoder of csrc/propagate_drift.cu: the select, the
-# lost-picture add, the square, its conversion and its float32 addition
-OPS_DRIFT = 6
-# per candidate sample of csrc/p16_refine.cu: up to two window reads (each
-# with its clamped start), their rounded mean, the error and its square
-# added; per chroma sample its four taps and weights
-OPS_P16_CAND, OPS_P16_CHROMA = 12, 12
+# lost-picture add and the square (integer), the conversion and the
+# float32 addition (FP32 pipe)
+OPS_DRIFT, FOPS_DRIFT = 3, 2
+# per candidate sample of csrc/p16_refine.cu: the two window samples'
+# rounded mean, the error and its square added; per chroma sample a
+# bilinear prediction
+OPS_P16_CAND = 4
+# per grid cell of the dense searches (p16_search, ssd_grid8): the SSD's
+# three terms combined (2); p16_search adds the rate and the first minimum
+# (3)
+OPS_CELL = 2
 # per sample of csrc/decode_inter.cu: a luma prediction per list (two
-# reads, their rounded mean), a chroma one per list (four taps, weights,
-# rounding), and per inter sample the weighting and select, dequant,
-# two transform passes and the recon
-OPS_DEC_MC_L, OPS_DEC_MC_C, OPS_DEC_RES = 4, 12, 20
+# reads' rounded mean), a chroma one per list (bilinear), and per inter
+# sample the weighting and select (5), dequant 2, two transform passes 5
+# and the recon 4
+OPS_DEC_MC_L, OPS_DEC_MC_C, OPS_DEC_RES = 2, OPS_BILIN, 16
 SOURCES = {
     "intra_commit": ("h264_tpu_torch/csrc/intra_commit.cu",
                      "h264_tpu/encoder/rd.py:1415"),
@@ -337,7 +370,7 @@ def plain_encode(job):
     from h264_tpu_torch.kernels import sad_grid as K10
 
     class PlainEncoder(H264Encoder):
-        _intra_step = staticmethod(K1.intra_commit_step_plain)
+        _intra_scan = staticmethod(K1.intra_commit_scan_plain)
         _ref_bank = staticmethod(K2.ref_bank_plain)
         _sad_grid = staticmethod(K10.sad_grid_16x16_plain)
         _propagate_drift = staticmethod(propagate_drift_plain)
@@ -390,7 +423,7 @@ def b_work(name: str, args):
     if name == "mc_luma_win":
         n, h, w = args[1].numel(), args[6], args[7]
         return ((luma_planes(args[2], args[3]) * h * w + n * (5 + h * w)) * 4,
-                n * h * w * 3)
+                n * h * w * 2)  # a rounded mean per sample
     if name == "mc_chroma_b":
         n_mb = args[2].shape[0]
         u0, u1 = args[7], args[8]
@@ -404,7 +437,8 @@ def b_work(name: str, args):
 
 
 def entry_work(name: str, args):
-    """(bytes, int32 ops) of one call of any P or B kernel entry."""
+    """(bytes, int32 ops[, float32 ops]) of one call of any P or B kernel
+    entry."""
     from h264_tpu_torch.encoder.rd_b import B_OWN
 
     return b_work(name, args) if name in B_OWN else p_work(name, args)
@@ -449,8 +483,7 @@ def k2_work(H: int, W: int):
     Hp, Wp = H + 64, W + 64
     Hcp, Wcp = H // 2 + 64, W // 2 + 64
     nbytes = (H * W * 3 // 2 + 4 * Hp * Wp + 2 * Hcp * Wcp) * 4
-    ops = Hp * Wp * (2 * 15 + 7 * 15)
-    return nbytes, ops
+    return nbytes, Hp * Wp * OPS_BANK
 
 
 def p_work(name: str, args):
@@ -473,43 +506,55 @@ def p_work(name: str, args):
     if name == "coarse_search":
         n_mb = cur_y.numel() // 256
         cells = NR * n_mb * 25 * 25
+        # WP and the 4 x 4 decimation once per plane (a sum of 16 samples,
+        # IADD3 taking two an instruction); per cell 16 SAD terms of 12-bit
+        # sums (two 16-bit lanes an instruction), the rate (its x and y
+        # parts a row and a column each), the first minimum: 4
         return (g_plane + nb(cur_y) + 2 * NR * n_mb * 4,
-                NR * n_mb * 28 * 28 * 16 * (1 + wpo) + cells * (16 * 3 + 20))
+                NR * Hp * Wp * (wpo * 2 + 1) // 2 + cells * (16 // 2 + 4))
     if name == "ssd_grid8":
+        # the MACs in __dp4a, the cells' three terms combined, WP once on
+        # each sample the windows read (no more than the plane)
         R = args[5]
         D = 2 * R + 1
         n_b8 = cur_y.numel() // 64
         return (g_plane + nb(cur_y, args[2], args[3]) + NR * n_b8 * D * D * 4,
-                NR * n_b8 * (D * D * 64 * 3 + (D + 7) ** 2 * wpo))
+                NR * n_b8 * D * D * (64 // DP4A_MACS + OPS_CELL)
+                + min(NR * (n_b8 // 4) * (D + 15) ** 2, NR * Hp * Wp) * wpo)
     if name == "ssd_grid4":
         RS = args[6]
         DS = 2 * RS + 1
         n = args[2].numel()
         return (g_plane + nb(cur_y, *args[2:5]) + n * 4 * DS * DS * 4,
-                n * (4 * DS * DS * 16 * 3 + (DS + 7) ** 2 * wpo))
+                n * (4 * DS * DS * (16 // DP4A_MACS + OPS_CELL)
+                     + (DS + 7) ** 2 * wpo))
     if name == "qpel_refine":
         h, w = args[11], args[12]
         n = args[2].numel()
         windows = n * 4 * (h + 3) * (w + 3) * 4
+        # WP once on each window sample; per candidate its samples and
+        # its cost and first minimum (20)
         return (windows + n * h * w * 4 + nb(*args[2:9]) + n * (h * w + 3) * 4,
-                n * 49 * (h * w * (OPS_QPEL + wpo) + 20))
+                n * (49 * (h * w * OPS_QPEL + 20)
+                     + 4 * (h + 3) * (w + 3) * wpo))
     if name == "mc_luma":
         n, h, w = args[1].numel(), args[7], args[8]
         return (n * 4 * (h + 1) * (w + 1) * 4 + nb(*args[1:6]) + n * h * w * 4,
-                n * h * w * (3 + (OPS_WP if args[6] is not None else 0)))
+                n * h * w * (2 + (OPS_WP if args[6] is not None else 0)))
     if name == "mc_chroma":
         n_mb = args[1].shape[0]
         return (n_mb * 16 * 2 * 9 * 4 + nb(*args[1:]) + n_mb * 128 * 4,
-                n_mb * 128 * 12)
+                n_mb * 128 * OPS_BILIN)
     if name == "inter_luma_tq":
         pred, orig = args[0], args[1]
         NC, n_mb = pred.shape[:2]
         out = NC * n_mb * (256 + 256 + 8) * 4
-        return nb(pred, orig) + out, pred.numel() * OPS_INTER_TQ
+        return (nb(pred, orig) + out, pred.numel() * OPS_INTER_TQ,
+                pred.numel() * FOPS_INTER_TQ)
     if name == "inter_chroma_tq":
         n_mb = args[0].shape[0]
-        return nb(args[0], args[1]) + n_mb * (128 + 8 + 128) * 4, (
-            n_mb * 128 * OPS_INTER_TQ)
+        return (nb(args[0], args[1]) + n_mb * (128 + 8 + 128) * 4,
+                n_mb * 128 * OPS_INTER_TQ, n_mb * 128 * FOPS_INTER_TQ)
     if name == "i16_candidate":
         cur_y = args[0]
         n_mb = cur_y.numel() // 256
@@ -563,11 +608,11 @@ def decode_work(args, H: int, W: int):
 def sad_work(H: int, W: int, R: int):
     """(bytes, int32 ops) of one K10 call: the picture and the padded
     reference read once, the grid written once; per position and MB 256
-    terms of subtract, absolute value and add (csrc/sad_grid.cu)."""
+    SAD terms of u8 samples, 4 an instruction (csrc/sad_grid.cu)."""
     D = 2 * R + 1
     n_mb = (H // 16) * (W // 16)
     return (H * W + (H + 2 * R) * (W + 2 * R) + D * D * n_mb) * 4, (
-        D * D * H * W * 3)
+        D * D * H * W // DP4A_MACS)
 
 
 def sad_cdist(cur, ref_p, R: int):
@@ -589,23 +634,24 @@ def sad_cdist(cur, ref_p, R: int):
 
 
 def drift_work(K: int, H: int, W: int):
-    """(bytes, int32 operations) of one K11 call: the drift read and the
-    new drift written, the delta, mv4, intra and lost read once, the
-    penalty written."""
+    """(bytes, int32 operations, float32 operations) of one K11 call: the
+    drift read and the new drift written, the delta, mv4, intra and lost
+    read once, the penalty written."""
     n4 = (H // 4) * (W // 4)
     nbytes = (2 * K + 1) * H * W * 4 + n4 * (8 + 1) + K + (H // 16) * (
         W // 16) * 4
-    return nbytes, OPS_DRIFT * K * H * W
+    return nbytes, OPS_DRIFT * K * H * W, FOPS_DRIFT * K * H * W
 
 
 def p16_search_work(H: int, W: int, R: int):
     """(bytes, int32 ops) of one K12 call: the picture and the search area
     of the padded reference read once, three int32 per MB written; per
-    offset and MB 256 terms of subtract, multiply and add."""
+    offset and MB 256 SSD terms of u8 samples in __dp4a, the terms
+    combined, the rate and the first minimum."""
     D = 2 * R + 1
     n_mb = (H // 16) * (W // 16)
     return (H * W + (H + 2 * R) * (W + 2 * R) + 3 * n_mb) * 4, (
-        D * D * H * W * 3)
+        D * D * (H * W // DP4A_MACS + n_mb * (OPS_CELL + 3)))
 
 
 def p16_refine_work(H: int, W: int):
@@ -621,7 +667,7 @@ def p16_refine_work(H: int, W: int):
     inputs = H * W * 3 // 2 + 2 * n_mb + luma + chroma
     outputs = 2 * n_mb + 2 * H * W + 2 * (H * W // 2) + 8 * n_mb
     ops = n_mb * (49 * 256 * OPS_P16_CAND + 256 * OPS_TQ
-                  + 128 * (OPS_P16_CHROMA + OPS_TQ))
+                  + 128 * (OPS_BILIN + OPS_TQ))
     return (inputs + outputs) * 4, ops
 
 
@@ -803,7 +849,7 @@ def rows_bank_work(Hs: int, Hcs: int, W: int):
     6 taps, j 6x6 separable taps, per bank sample."""
     Wp, Wcp = W + 64, W // 2 + 64
     nbytes = (Hs * W + Hcs * W + 4 * Hs * Wp + 2 * Hcs * Wcp) * 4
-    return nbytes, Hs * Wp * (2 * 15 + 7 * 15)
+    return nbytes, Hs * Wp * OPS_BANK
 
 
 def gop_run(tag, size, mesh, S, seed, names, hold_bank):
@@ -862,10 +908,11 @@ def gop_run(tag, size, mesh, S, seed, names, hold_bank):
     launches_sh = {n: sum(i["launches"][n] for i in step.ranks)
                    for n in names}
     for info in step.ranks:
-        if "ref_bank_rows" in names and (
-                info["launches"]["ref_bank_rows"] != S * F // mesh.n_frame):
-            fail(f"{tag}: rank {info['rank']} launched ref_bank_rows "
-                 f"{info['launches']['ref_bank_rows']} times")
+        # one slab entry and one intra commit scan per picture of its row
+        for n in ("ref_bank_rows", "intra_commit"):
+            if n in names and info["launches"][n] != S * F // mesh.n_frame:
+                fail(f"{tag}: rank {info['rank']} launched {n} "
+                     f"{info['launches'][n]} times")
         if info["foreign_modules"]:
             fail(f"{tag}: rank {info['rank']} holds "
                  f"{info['foreign_modules']}")
@@ -965,8 +1012,34 @@ def print_rank(r) -> None:
           "(host clock, synchronized)")
 
 
-def bound_ms(nbytes: int, ops: int):
-    tb, to = nbytes / HBM_BPS * 1e3, ops / INT32_OPS * 1e3
+def lane_rates(torch):
+    """The card's INT32 and FP32 rates, lane-instructions/s: 64 INT32 and
+    128 FP32 lanes per SM (Hopper) x SMs x the maximum SM clock
+    nvidia-smi reports."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_lane = sms * float(mhz) * 1e6
+    return 64 * per_lane, 128 * per_lane
+
+
+def work_sum(works):
+    """(bytes, int32 ops, float32 ops) of several calls."""
+    tot = [0, 0, 0]
+    for w in works:
+        for i, x in enumerate(w):
+            tot[i] += x
+    return tuple(tot)
+
+
+def bound_ms(nbytes: int, ops: int, fops: int = 0):
+    """The least time of a function that moves `nbytes` and does `ops`
+    integer and `fops` float32 operations (the counting rule at
+    HBM_BPS)."""
+    tb = nbytes / HBM_BPS * 1e3
+    to = max(ops / INT32_OPS, (ops + fops) / FP32_OPS) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -979,6 +1052,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    global INT32_OPS, FP32_OPS
+    INT32_OPS, FP32_OPS = lane_rates(torch)
+    print(f"operation rates: INT32 {INT32_OPS / 1e12:.2f} T/s, FP32 "
+          f"{FP32_OPS / 1e12:.2f} T/s (64 / 128 lanes x SMs x clocks.max.sm)")
     from h264_tpu_torch import device as D
     from h264_tpu_torch import native
     from h264_tpu_torch.bitstream import iter_annexb_nalus, write_annexb
@@ -1055,11 +1132,103 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
+    def device_ms(fn, reps: int) -> float:
+        """Device time of one call of fn: each timed call is queued behind
+        a spin of the card, so the host's launch time does not count."""
+        fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(1_000_000)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            total += a.elapsed_time(b)
+        return total / reps
+
+    def k1_state(W, H, is_intra, seed=SEED):
+        """The intra commit scan's state of a synthetic W x H picture at QP
+        28 in its P/B form: seeded inter results and the MBs `is_intra`
+        ((n_mb,) bool) intra."""
+        n_mb = (H // 16) * (W // 16)
+        rng = np.random.RandomState(seed)
+
+        def t(a):
+            return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+        Y, U, V = (t(p) for p in synthetic_frames(1, W, H, seed=seed)[0])
+        return rd._scan_start(
+            Y, U, V, t(rng.randint(0, 256, (n_mb, 16, 16))),
+            t(rng.randint(0, 256, (n_mb, 2, 8, 8))),
+            torch.as_tensor(is_intra, device=dev),
+            t(rng.randint(-3, 4, (n_mb, 4, 4, 4, 4))),
+            t(rng.randint(-2, 3, (n_mb, 2, 2, 2, 4, 4))),
+            t(rng.randint(-5, 6, (n_mb, 2, 2, 2))), H, W, 28,
+            chroma_qp(28, 0), lam_fx(28))
+
+    def k1_launch(W, H):
+        """One K1 launch on an all-intra W x H state (each launch writes the
+        same carry again)."""
+        st = k1_state(W, H, np.ones((H // 16) * (W // 16), bool))
+        return lambda: K1.intra_commit_scan(st)
+
     # ---- 2. K1/K2 vs plain versions ------------------------------------------
     err = {n: 0 for n in SOURCES}  # max |kernel - plain|
     mismatches = {n: 0 for n in SOURCES}  # differing elements
     timing = {}
     names = "ry ru rv lev lum_dc i16mode cip levc dcc i4flag ipm".split()
+    # one MB's latency: K1 on a 16 x 16 picture (with the launch's own
+    # cost), and the slope over a column of 68 MBs, each of which waits
+    # for the one above
+    k1_mb_ms = device_ms(k1_launch(16, 16), 20)
+    k1_slope_ms = (device_ms(k1_launch(16, 1088), 10) - k1_mb_ms) / 67
+
+    def hold_k1(st, what, reps: int = 1):
+        """K1 on the scan state `st` `reps` times, each bit-equal to the
+        plain scan on a copy of it; the launches each run made."""
+        fields = ("Yp", "Up", "Vp", "ipm", "w_lev", "levc", "dcc", "lum_dc",
+                  "i16mode", "cip", "i4flag")
+        start = {f: getattr(st, f).clone() for f in fields}
+        rd._intra_scan(st)
+        want = {f: getattr(st, f).clone() for f in fields}
+        for _ in range(reps):
+            for f in fields:
+                getattr(st, f).copy_(start[f])
+            before = K1.intra_commit_scan.launches
+            K1.intra_commit_scan(st)
+            torch.cuda.synchronize()
+            if K1.intra_commit_scan.launches != before + 1:
+                fail(f"intra_commit {what}: not one launch")
+            for f in fields:
+                d = (getattr(st, f).long() - want[f].long()).abs()
+                e = int(d.max())
+                err["intra_commit"] = max(err["intra_commit"], e)
+                mismatches["intra_commit"] += int((d > 0).sum())
+                if e:
+                    fail(f"intra_commit {what}: {f} differs "
+                         f"({int((d > 0).sum())} elements)")
+
+    # K1 on adversarial is_intra patterns at CIF: the blocks hand MBs over
+    # through row counters, and no race checker runs on the card, so each
+    # pattern is launched K1_REPS times
+    n_my, n_mx = CIF[1] // 16, CIF[0] // 16
+    rr, cc = np.meshgrid(np.arange(n_my), np.arange(n_mx), indexing="ij")
+    patterns = {
+        "all intra": np.ones((n_my, n_mx), bool),
+        "all inter": np.zeros((n_my, n_mx), bool),
+        "one MB": (rr == n_my // 2) & (cc == n_mx // 2),
+        "one column": cc == n_mx // 2,
+        "checkerboard": (rr + cc) % 2 == 0,
+        "random 5 %": np.random.RandomState(SEED).rand(n_my, n_mx) < 0.05}
+    for pname, pat in patterns.items():
+        hold_k1(k1_state(*CIF, pat.reshape(-1)), f"CIF {pname}", K1_REPS)
+    print(f"check intra_commit CIF on is_intra patterns ({', '.join(patterns)}"
+          f"), {K1_REPS} launches each: equal to the plain scan (tolerance "
+          f"0: bit-exact); one MB {k1_mb_ms:.4f} ms (16 x 16 picture), "
+          f"{k1_slope_ms:.4f} ms a MB down a 16 x 1088 column")
     for (W, H) in (CIF, HD):
         Y, U, V = (torch.as_tensor(p, device=dev) for p in frames[(W, H)][0])
         for qp in (28, 51):
@@ -1070,8 +1239,11 @@ def main(argv=None) -> int:
                                         device=dev, impl=impl)
 
             ok = scan()
-            ref = scan(K1.intra_commit_step_plain)
             torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            ref = scan(K1.intra_commit_scan_plain)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - h0) * 1e3  # host clock
             for name, a, b in zip(names, ok, ref):
                 d = (a.long() - b.long()).abs()
                 e = int(d.max())
@@ -1095,22 +1267,32 @@ def main(argv=None) -> int:
             print(f"check {W}x{H} QP {qp}: intra_commit and ref_bank "
                   "equal to their plain versions (tolerance 0: bit-exact)")
             if qp == 28:
-                T = 2 * (H // 16) + W // 16 - 2  # launches: non-empty steps
+                # the chain: T - 1 MBs one after the other, T the
+                # reference's steps; one MB's latency is K1's time on a
+                # 16 x 16 picture
+                T = 2 * (H // 16) + W // 16 - 1
                 tm = timing.setdefault((W, H), {})
                 tm["intra_commit"] = {
                     "ms": cuda_ms(scan, 5),
-                    "plain_ms": cuda_ms(
-                        lambda: scan(K1.intra_commit_step_plain), 1),
-                    "launches_per_picture": T,
+                    "plain_ms": plain_ms,
+                    "alone_ms": device_ms(k1_launch(W, H), 10),
+                    "chain_floor_ms": (T - 1) * k1_mb_ms,
+                    "chain_slope_ms": (T - 1) * k1_slope_ms,
+                    "launches_per_picture": 1,
                     "work": k1_work(H, W)}
                 tm["ref_bank"] = {
                     "ms": cuda_ms(lambda: K2.ref_bank(*planes), 50),
                     "plain_ms": cuda_ms(lambda: K2.ref_bank_plain(*planes), 20),
                     "launches_per_picture": 1, "work": k2_work(H, W)}
-                print(f"time {W}x{H}: intra_commit "
-                      f"{tm['intra_commit']['ms']:.3f} ms/picture ({T} "
-                      f"launches), plain {tm['intra_commit']['plain_ms']:.1f}"
-                      f" ms; ref_bank {tm['ref_bank']['ms']:.4f} ms, plain "
+                t1 = tm["intra_commit"]
+                print(f"time {W}x{H}: intra_commit {t1['ms']:.4f} ms/picture "
+                      f"(rd_i_pipeline, 1 launch; the launch alone "
+                      f"{t1['alone_ms']:.4f} ms; chain floor {T - 1} x "
+                      f"{k1_mb_ms:.4f} = {t1['chain_floor_ms']:.4f} ms, by the "
+                      f"column slope {T - 1} x {k1_slope_ms:.4f} = "
+                      f"{t1['chain_slope_ms']:.4f} ms), "
+                      f"plain {plain_ms:.1f} ms (host clock); ref_bank "
+                      f"{tm['ref_bank']['ms']:.4f} ms, plain "
                       f"{tm['ref_bank']['plain_ms']:.4f} ms")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
@@ -1175,7 +1357,7 @@ def main(argv=None) -> int:
                 "plain_ms": sum(cuda_ms(lambda a=a: fp(*a), 1)
                                 for a in mine),
                 "launches_per_picture": len(mine),
-                "work": (sum(w[0] for w in work), sum(w[1] for w in work))}
+                "work": work_sum(work)}
             if name in K3_LIB:
                 tm[name]["library_ms"] = lib_ms(name, fk, mine)
         return tm
@@ -1410,7 +1592,7 @@ def main(argv=None) -> int:
                         "plain_ms": sum(cuda_ms(lambda a=a: fp(*a), 1)
                                         for a in mine),
                         "launches_per_picture": len(mine),
-                        "work": (sum(x[0] for x in wk), sum(x[1] for x in wk))}
+                        "work": work_sum(wk)}
                     if name == "ssd_grid8":
                         tm[name]["library_ms"] = lib_ms(name, fk, mine)
                 print(f"time {size[0]}x{size[1]} per B picture (ms, kernel / "
@@ -1423,7 +1605,7 @@ def main(argv=None) -> int:
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
     # ---- 5. the paths through the kernels ------------------------------------
-    counters = {"intra_commit": K1.intra_commit_step, "ref_bank": K2.ref_bank,
+    counters = {"intra_commit": K1.intra_commit_scan, "ref_bank": K2.ref_bank,
                 **{n: getattr(kern, n) for n in rd_p.P_ENTRIES},
                 **{n: getattr(bkern, n) for n in rd_b.B_OWN},
                 "sad_grid_16x16": K10.sad_grid_16x16,
@@ -1618,6 +1800,20 @@ def main(argv=None) -> int:
                                      pframes[CIF])},
                               ("intra_commit", *LEGACY)),
     }
+    def k1_expected(tag, cfg, kind):
+        """K1 launches one picture of a path must make: one scan per
+        picture coded on the device, one per row (G) of a tile-row P
+        picture; the legacy path scans its I pictures only, the host path
+        its I pictures that are one slice with flat scaling (the condition
+        of the encoder's device intra picture)."""
+        if tag.startswith("host"):
+            one = (cfg.slice_mode == 0 and cfg.num_slice_groups == 1
+                   and cfg.scaling_lists is None)
+            return int(kind == "I" and one)
+        if "legacy" in tag:
+            return int(kind == "I")
+        return cfg.row_slices if kind == "P" else 1
+
     runs, launches_of = {}, {}
     for tag, (sizes, needed) in paths.items():
         reset()
@@ -1628,8 +1824,18 @@ def main(argv=None) -> int:
         runs[tag] = {s: encode(cls, c, f, DEPTH.get(tag, 1))
                      for s, (c, f) in sizes.items()}
         launches_of[tag] = read()
+        n_pics = sum(len(r[2]) for r in runs[tag].values())
+        k1_want = sum(k1_expected(tag, c, p["type"])
+                      for s, (c, _) in sizes.items()
+                      for p in runs[tag][s][2])
         print(f"{tag} path launches: "
-              f"{ {n: launches_of[tag][n] for n in needed} }")
+              f"{ {n: launches_of[tag][n] for n in needed} }; "
+              f"intra_commit {launches_of[tag]['intra_commit']} launches "
+              f"for {n_pics} pictures ({k1_want} expected)")
+        if launches_of[tag]["intra_commit"] != k1_want:
+            fail(f"{tag}: intra_commit launched "
+                 f"{launches_of[tag]['intra_commit']} times for {n_pics} "
+                 f"pictures, {k1_want} expected")
         for name in needed:
             if launches_of[tag][name] == 0:
                 fail(f"kernel {name} was not launched on the {tag} path")

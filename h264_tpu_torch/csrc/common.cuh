@@ -185,13 +185,29 @@ __device__ __forceinline__ int pred16(const I16Smem& s, const I16Par& q,
   return clip255((q.a + q.b * (x - 7) + q.c * (y - 7) + 16) >> 5);
 }
 
-// The I16 decision and coding of one MB by a block of at least 64
-// threads, every thread calling: the Hadamard mode pick (64 threads = 4
-// modes x 16 4x4 blocks, first minimum wins, unavailable modes cost
-// 1 << 29), then the DC Hadamard, quant and recon of the chosen mode (16
-// threads).  `orig` holds the MB's 256 source samples in shared memory.
-// Fills s.rec16, s.lev16, s.d16, s.cb16, s.dclev and s.cbdc, the last of
-// them written by threads < 16 after the final barrier; returns the mode.
+// The barrier of a group of threads: the whole block (kBar 0), or named
+// barrier kBar of kN threads (a multiple of 32), so that a group of warps
+// can synchronize while the block's other warps run other work.  The named
+// one is barrier.sync without .aligned: the threads of a warp may reach it
+// apart, from divergent code.
+template <int kBar, int kN>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (kBar == 0)
+    __syncthreads();
+  else
+    asm volatile("barrier.sync %0, %1;" ::"n"(kBar), "n"(kN) : "memory");
+}
+
+// The I16 decision and coding of one MB by a group of at least 64
+// threads (the block, or kN threads meeting at named barrier kBar), every
+// thread of the group calling with its index `tid` in the group: the
+// Hadamard mode pick (64 threads = 4 modes x 16 4x4 blocks, first minimum
+// wins, unavailable modes cost 1 << 29), then the DC Hadamard, quant and
+// recon of the chosen mode (16 threads).  `orig` holds the MB's 256
+// source samples in shared memory.  Fills s.rec16, s.lev16, s.d16, s.cb16,
+// s.dclev and s.cbdc, the last of them written by threads < 16 after the
+// final barrier; returns the mode.
+template <int kBar = 0, int kN = 0>
 __device__ int i16_code(I16Smem& s, const int* orig, int au, int al, int per,
                         int rem, int off, int tid) {
   const int valid16[4] = {au, al, 1, au && al};
@@ -211,7 +227,7 @@ __device__ int i16_code(I16Smem& s, const int* orig, int au, int al, int per,
       s.h00[m][blk] = h[0];
     }
   }
-  __syncthreads();
+  group_sync<kBar, kN>();
   if (tid < 4) {
     int m = tid;
     if (valid16[m]) {
@@ -227,7 +243,7 @@ __device__ int i16_code(I16Smem& s, const int* orig, int au, int al, int per,
       s.sad[m] = kBig;
     }
   }
-  __syncthreads();
+  group_sync<kBar, kN>();
   int mode16 = 0;
   for (int m = 1; m < 4; ++m)
     if (s.sad[m] < s.sad[mode16]) mode16 = m;
@@ -243,7 +259,7 @@ __device__ int i16_code(I16Smem& s, const int* orig, int au, int al, int per,
     forward4x4(co);
     s.dc[tid] = co[0];
   }
-  __syncthreads();
+  group_sync<kBar, kN>();
   if (tid == 0) {
     int d[16];
     for (int k = 0; k < 16; ++k) d[k] = s.dc[k];
@@ -257,7 +273,7 @@ __device__ int i16_code(I16Smem& s, const int* orig, int au, int al, int per,
     for (int k = 0; k < 16; ++k)
       s.dcdeq[k] = (shl(mul(d[k], kV4[rem][0] * 16), per) + 32) >> 6;
   }
-  __syncthreads();
+  group_sync<kBar, kN>();
   if (tid < 16) {
     int by = tid >> 2, bx = tid & 3, lev[16];
     s.cb16[tid] = tq_ac(co, lev, s.dcdeq[tid], per, rem, off);

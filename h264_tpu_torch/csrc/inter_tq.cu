@@ -29,9 +29,10 @@
 // threads per MB (2 planes x 4 blocks), eight MBs per block.
 // i16_candidate: 64 threads per MB, as in the intra commit.
 //
-// Bound.  Operations: ~120 int32 operations per coefficient for transform,
-// quant, RDOQ (a second inverse and forward transform) and recon, over
-// 6 candidates x 256 samples per MB.
+// Bound.  Operations: about 61 integer operations per coefficient for
+// transform, quant, RDOQ (a second inverse and forward transform) and
+// recon, and 12 float32 ones for RDOQ's cost, over the candidates' 256
+// samples per MB (chip_smoke.py OPS_INTER_TQ).
 //
 // ptxas (sm_90a, nvcc -O3): luma_kernel and chroma_kernel 128 and 190
 // registers with 64- and 80-byte stack frames (the per-thread 4x4 arrays),

@@ -26,11 +26,13 @@
 // strict <; a shared-memory tree then takes the least (cost, p) pair, the
 // smaller p on equal costs.
 //
-// Bound.  Operations: 3 int32 operations (subtract, multiply-add counted
-// as two) per term, 256 terms per offset and MB: (2R+1)^2 * H * W * 3, 0.99
-// G at CIF, R 28.  Bytes: the two planes read once, 3 int32 per MB
-// written.  The operations bound leads; each term also reads two shared
-// words, and the shared-memory rate is what this simple design runs into.
+// Bound.  Operations: the SSD's cross term in __dp4a, a quarter
+// instruction per term, 256 terms per offset and MB, the squares shared by
+// the offsets: (2R+1)^2 * H * W / 4 and a few per offset and MB, 89 M at
+// CIF, R 28.  Bytes: the two planes read once, 3 int32 per MB written.
+// The operations bound leads.  This kernel takes two instructions a term
+// (subtract, multiply-add) and reads two shared words per term; the
+// shared-memory rate is what this simple design runs into.
 
 #include "common.cuh"
 

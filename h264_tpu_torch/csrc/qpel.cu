@@ -34,8 +34,9 @@
 // mc_luma, mc_chroma, mc_luma_win and mc_chroma_b give each output sample
 // a thread.
 //
-// Bound.  qpel_refine: operations (49 candidates x 16 samples x ~40 int32
-// operations per sample per 4x4 block, plus the Hadamard), and bank reads
+// Bound.  qpel_refine: operations (49 candidates x the unit's samples x 8
+// integer operations: the rounded mean, the residual, its Hadamard share
+// and the absolute sum; WP once per window sample), and bank reads
 // through L1/L2; mc_* move bytes.
 //
 // ptxas (sm_90a, nvcc -O3): refine_kernel 74 registers, 4,356 B shared

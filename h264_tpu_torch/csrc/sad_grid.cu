@@ -23,11 +23,13 @@
 // the source sample a broadcast).  Tiling dx as well as dy bounds the
 // shared memory (17.3 KB at most) for any R.
 //
-// Bound.  Operations: 3 int32 operations (subtract, absolute value, add) per
-// term, 256 terms per position and MB: 331 M at CIF, R 16, against 2.6 MB of
-// bytes (each plane read once, the grid written once), so the ops bound
-// leads.  Each thread reads 2 shared-memory words per term; the shared-memory
-// rate, not the int32 lanes, is what this simple design runs into.
+// Bound.  Operations: 256 SAD terms of u8 samples per position and MB, 4
+// an instruction at best (VABSDIFF4 sums 4 absolute differences): 27.6 M
+// at CIF, R 16, against 2.6 MB of bytes (each plane read once, the grid
+// written once), so the operations bound leads.  This kernel takes 3
+// instructions a term (subtract, absolute value, add) and reads 2 shared-
+// memory words per term; the shared-memory rate, not the integer lanes,
+// is what this simple design runs into.
 
 #include <cuda_runtime.h>
 

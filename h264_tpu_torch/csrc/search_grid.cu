@@ -11,27 +11,44 @@
 // Plain versions: h264_tpu_torch/encoder/rd_p.py `coarse_search_plain`,
 // `ssd_grid8_plain`, `ssd_grid4_plain`; wrapper kernels/search_grid.py.
 //
-// Design.  One block per (ref, MB) / (ref, 8x8) / unit; the block loads
-// its search window (weighted on the fly: wp_affine of the G sample) and
-// its source block into shared memory, then every thread computes whole
-// grid cells directly as sum (cur - ref)^2 (or |.| for the coarse SAD).
-// The reference computes SSD as box sums of ref^2 - 2 cross + cur^2; in
-// int32 the two are equal (every term is below 64 * 255^2 < 2^22).  The
-// reference widens the banks by 64 samples of edge replication first; a
-// read clamped to the unwidened bank is the same sample.  No window of
-// this path starts outside the widened bank, so the reference's
-// dynamic_slice never clamps its start (tests/test_torch_p_ops.py).
-// coarse_search takes the first minimum (strict <, lowest index on ties)
-// by a shared-memory tree.
+// Design.  coarse_search and ssd_grid4: one block per (ref, MB) / unit;
+// the block loads its search window (weighted on the fly: wp_affine of
+// the G sample) and its source block into shared memory, then every
+// thread computes whole grid cells directly as sum (cur - ref)^2 (or |.|
+// for the coarse SAD); coarse_search takes the first minimum (strict <,
+// lowest index on ties) by a shared-memory tree.  ssd_grid8: one block per
+// (ref, MB) over the union of its four blocks' windows, the cross term by
+// __dp4a on packed u8 (ssd8_kernel below).  The reference widens the
+// banks by 64 samples of edge replication first; a read clamped to the
+// unwidened bank is the same sample.  No window of this path starts
+// outside the widened bank, so the reference's dynamic_slice never clamps
+// its start (tests/test_torch_p_ops.py).
 //
-// Bound.  Operations: ssd_grid8 is 3 int32 operations per MAC,
-// NR * n_b8 * (2R+1)^2 * 64 MACs (1.65 G at CIF, NR 5, R 28); its output
-// (NR, n_b8, 57, 57) int32 is 103 MB at CIF, so bytes are close behind.
+// Bound.  ssd_grid8: NR * n_b8 * (2R+1)^2 * 64 MACs (1.65 G at CIF, NR 5,
+// R 28) and an output of (NR, n_b8, 57, 57) int32 (103 MB at CIF, 0.94 GB
+// at 1280x720).  Its first version took each MAC as two shared-memory
+// loads, a subtract and a multiply-add, and was bound by the loads (one
+// warp-wide load a clock per SM: 0.41 ms at CIF against 0.44 measured).
+// Here a window sample read from shared memory feeds 32 MACs in 8
+// __dp4a, the route taken because a MAC costs a quarter instruction on the
+// integer pipe with no conversion of the u8 samples, where float32 FMAs
+// on CUDA cores (also exact below 2^24) cost one on a pipe twice as wide
+// and need the window as float; the union window, cut in units of 8
+// rows, computes 44 % more cells than the blocks need (72 x 65 x 4
+// against 57 x 57 x 4 at R 28) for one staged window instead of four.  A
+// tensor-core form (mma.m16n8k32 u8, a pair of union rows against the
+// four blocks' two rows) was also bit-exact, faster at 1280x720 and
+// slower at CIF, where its window staging and box sums set the time; this
+// simpler one stays until the fused partition reduction (ROADMAP), which
+// removes the output's stores that both forms pay, chooses again.  The
+// output's bytes are the bound.  coarse_search and ssd_grid4 keep their
+// first versions.
 //
 // ptxas (sm_90a, nvcc -O3): coarse_kernel 48 registers, 8,320 B static
-// shared memory; ssd8_kernel / ssd4_kernel 31-32 registers each, dynamic
-// shared memory (2R+8)^2 + 64 ints (16.6 KB at R = 28) and (2RS+8)^2 + 64
-// ints (3.4 KB); no spills.
+// shared memory; ssd8_kernel 147 registers (3 blocks of 128 threads an
+// SM), dynamic shared memory (8 ceil((2R+9)/8) + 7) rows x ceil((2R+20)/16)
+// x 16 B of window + 256 B (6.6 KB at R = 28); ssd4_kernel 32 registers,
+// (2RS+8)^2 + 64 ints (3.4 KB); no spills.
 
 #include <climits>
 
@@ -120,43 +137,136 @@ coarse_kernel(const int* __restrict__ banks, const int* __restrict__ cur_y,
   }
 }
 
-// Per (ref, 8x8 block): window Wn x Wn (Wn = 2R + 8) at bank coordinates
-// (by + cy - R + PAD, bx + cx - R + PAD); cell (i, j) = sum over the 8x8
-// of (cur - win[i + y][j + x])^2.
-__global__ void __launch_bounds__(256)
+// Per (ref, MB): the four 8x8 blocks of an MB share its centre, so their
+// windows (2R+8)^2 at (8 qy, 8 qx) inside one (2R+16)^2 window at bank
+// coordinates (16 my + cy - R + PAD, 16 mx + cx - R + PAD).  Union cell
+// (I, J), I, J < U = 2R+9, is cell (I - 8 qy, J - 8 qx) of block q where
+// that lies in its D x D grid.  SSD = sum cur^2 + sum ref^2 - 2 sum
+// cur * ref, every term exact in int32 (64 * 255^2 < 2^22).  The window is
+// staged as u8 (a WP sample is clipped to 0..255), the four blocks' cur
+// as packed u8 rows in registers; a thread takes a unit of 8 union cells
+// down one column J, reads the 15 window rows they need once each (three
+// aligned words, two __byte_perm for the unaligned 8 samples) and feeds
+// each to the 8 cells x 4 blocks it touches with __dp4a (4 MACs an
+// instruction), and takes sum ref^2 of each row by __dp4a of the row with
+// itself, boxed down the column in registers.  Lanes hold consecutive J,
+// so every output store is coalesced.
+constexpr int kS8Threads = 128;
+
+__global__ void __launch_bounds__(kS8Threads, 3)
 ssd8_kernel(const int* __restrict__ banks, const int* __restrict__ cur_y,
             const int* __restrict__ cen_x, const int* __restrict__ cen_y,
             const int* __restrict__ wp_w, const int* __restrict__ wp_o,
             int use_wp, int Hp, int Wp, int W, int R, int* out) {
-  extern __shared__ int sm[];
-  const int Wn = 2 * R + 8, D = 2 * R + 1;
-  int* win = sm;
-  int* cur = sm + Wn * Wn;
+  extern __shared__ unsigned sw[];
+  const int D = 2 * R + 1, U = D + 8, Wn = 2 * R + 16;
+  const int n_strips = (U + 7) / 8;
+  const int Wr = 8 * n_strips + 7;           // rows a strip may read
+  const int Ws = (Wn + 4 + 15) / 16 * 4;     // row stride, words
+  unsigned* cw = sw + Wr * Ws;               // [q][y][2] packed cur
   const int tid = threadIdx.x;
-  const int b = blockIdx.x, r = blockIdx.y, n_b8 = gridDim.x;
-  const int nbx = W / 8, n_mx = W / 16;
-  const int by = (b / nbx) * 8, bx = (b % nbx) * 8;
-  const int mb = (b / nbx) / 2 * n_mx + (b % nbx) / 2;
-  const int n_mb = n_b8 / 4;
+  const int mb = blockIdx.x, r = blockIdx.y, n_mb = gridDim.x;
+  const int n_mx = W / 16, my = mb / n_mx, mx = mb % n_mx, nbx = W / 8;
   const int cy = cen_y[r * n_mb + mb], cx = cen_x[r * n_mb + mb];
   const int* G = banks + (size_t)r * 4 * Hp * Wp;
   const int w = use_wp ? wp_w[r] : 32, o = use_wp ? wp_o[r] : 0;
-  const int y0 = by + cy - R + kPad, x0 = bx + cx - R + kPad;
-  for (int k = tid; k < Wn * Wn; k += blockDim.x)
-    win[k] = g_sample(G, Hp, Wp, y0 + k / Wn, x0 + k % Wn, use_wp, w, o);
-  if (tid < 64) cur[tid] = cur_y[(size_t)(by + (tid >> 3)) * W + bx + (tid & 7)];
-  __syncthreads();
-  int* dst = out + ((size_t)r * n_b8 + b) * D * D;
-  for (int k = tid; k < D * D; k += blockDim.x) {
-    int i = k / D, j = k % D, acc = 0;
-    for (int y = 0; y < 8; ++y) {
-      const int* row = win + (i + y) * Wn + j;
-      for (int x = 0; x < 8; ++x) {
-        int d = cur[8 * y + x] - row[x];
-        acc += d * d;
+  const int y0 = 16 * my + cy - R + kPad, x0 = 16 * mx + cx - R + kPad;
+  // word (row, xw) of the window packs samples 4 xw .. 4 xw + 3 of the row
+  // (zero past the window); the thread steps (row, xw) by kS8Threads words
+  const int drow = kS8Threads / Ws, dxw = kS8Threads % Ws;
+  for (int row = tid / Ws, xw = tid % Ws; row < Wr;) {
+    unsigned v = 0;
+    if (row < Wn) {
+      const int* g = G + (size_t)clampi(y0 + row, Hp - 1) * Wp;
+      for (int b = 0; b < 4; ++b) {
+        const int x = 4 * xw + b;
+        if (x < Wn) {
+          const int t = g[clampi(x0 + x, Wp - 1)];
+          v |= (unsigned)(use_wp ? wp_affine(t, w, o) : t) << (8 * b);
+        }
       }
     }
-    dst[k] = acc;
+    sw[row * Ws + xw] = v;
+    row += drow;
+    xw += dxw;
+    if (xw >= Ws) {
+      xw -= Ws;
+      ++row;
+    }
+  }
+  if (tid < 64) {
+    const int q = tid >> 4, y = (tid >> 1) & 7, h = tid & 1;
+    const int* src = cur_y + (size_t)(16 * my + 8 * (q >> 1) + y) * W +
+                     16 * mx + 8 * (q & 1) + 4 * h;
+    cw[tid] = (unsigned)src[0] | (unsigned)src[1] << 8 |
+              (unsigned)src[2] << 16 | (unsigned)src[3] << 24;
+  }
+  __syncthreads();
+  unsigned c[4][8][2];
+  int csq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    unsigned t = 0;
+#pragma unroll
+    for (int y = 0; y < 8; ++y) {
+      c[q][y][0] = cw[16 * q + 2 * y];
+      c[q][y][1] = cw[16 * q + 2 * y + 1];
+      t = __dp4a(c[q][y][0], c[q][y][0], __dp4a(c[q][y][1], c[q][y][1], t));
+    }
+    csq[q] = (int)t;
+  }
+  // each block's grid: out[r][b8 of block q]
+  int* outq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    outq[q] = out + ((size_t)r * 4 * n_mb + (2 * my + (q >> 1)) * nbx + 2 * mx +
+                     (q & 1)) * D * D;
+  for (int u = tid; u < n_strips * U; u += kS8Threads) {
+    const int strip = u / U, J = u - strip * U, I0 = 8 * strip;
+    const unsigned* wr = sw + I0 * Ws + (J >> 2);
+    const unsigned sel = 0x3210u + 0x1111u * (unsigned)(J & 3);
+    unsigned acc[8][4], sq[15];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[a][q] = 0;
+#pragma unroll
+    for (int t = 0; t < 15; ++t) {
+      const unsigned a0 = wr[t * Ws], a1 = wr[t * Ws + 1], a2 = wr[t * Ws + 2];
+      const unsigned w0 = __byte_perm(a0, a1, sel), w1 = __byte_perm(a1, a2, sel);
+      sq[t] = __dp4a(w0, w0, __dp4a(w1, w1, 0u));
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const int y = t - a;
+        if (y < 0 || y > 7) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[a][q] = __dp4a(w0, c[q][y][0], __dp4a(w1, c[q][y][1], acc[a][q]));
+      }
+    }
+    // cell (I0 + a, J) of block q is its cell (i, j) = (I0 + a - 8 qy,
+    // J - 8 qx), inside its grid for lo_q <= a < lo_q + D
+    int* dst[4];
+    int lo[4];
+    bool col[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = J - 8 * (q & 1);
+      lo[q] = 8 * (q >> 1) - I0;
+      col[q] = j >= 0 && j < D;
+      dst[q] = outq[q] - lo[q] * D + j;
+    }
+    unsigned box = 0;
+#pragma unroll
+    for (int y = 0; y < 8; ++y) box += sq[y];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      if (a > 0) box += sq[a + 7] - sq[a - 1];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (col[q] && a >= lo[q] && a < lo[q] + D)
+          dst[q][a * D] = csq[q] + (int)box - 2 * (int)acc[a][q];
+    }
   }
 }
 
@@ -216,10 +326,11 @@ extern "C" int ssd_grid8(const int* banks, const int* cur_y, const int* cen_x,
                          const int* cen_y, const int* wp_w, const int* wp_o,
                          int use_wp, int NR, int Hp, int Wp, int H, int W,
                          int R, int* out, void* stream) {
-  dim3 grid((H / 8) * (W / 8), NR);
-  int Wn = 2 * R + 8;
-  size_t smem = (size_t)(Wn * Wn + 64) * sizeof(int);
-  ssd8_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
+  dim3 grid((H / 16) * (W / 16), NR);
+  const int n_strips = (2 * R + 9 + 7) / 8, Wn = 2 * R + 16;
+  size_t smem = (size_t)((8 * n_strips + 7) * ((Wn + 4 + 15) / 16 * 4) + 64) *
+                sizeof(unsigned);
+  ssd8_kernel<<<grid, kS8Threads, smem, (cudaStream_t)stream>>>(
       banks, cur_y, cen_x, cen_y, wp_w, wp_o, use_wp, Hp, Wp, W, R, out);
   return (int)cudaGetLastError();
 }

@@ -33,9 +33,11 @@
 //
 // Bound.  Bytes: orig, pred, the 4x4 recon and levels read once; the 8x8
 // levels, the 4x4 levels and the recon written once (about 2.85 MB per
-// CIF picture).  Operations: about 230 int32 operations per sample as
-// written (four 8-point butterflies of ~40 operations each, quant,
-// dequant, recon, two SSD terms, the bits and the shared-memory sums).
+// CIF picture), which lead.  Operations: the function needs about 37
+// integer operations per sample (the 8-point butterflies of two forward
+// and two inverse passes, quant, dequant, recon, two SSD terms, the
+// bits); this kernel takes about 230 as written (every thread of a row or
+// column computes its whole butterfly of ~40, and the shared sums).
 
 #include "common.cuh"
 

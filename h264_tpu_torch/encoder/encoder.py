@@ -98,7 +98,7 @@ from ..decoder.mv import pmv as predict_mv
 from ..decoder.recon import Planes, _add_residual
 from ..decoder.state import PictureParseState
 from ..device import resolve_device
-from ..kernels.intra_commit import intra_commit_step
+from ..kernels.intra_commit import intra_commit_scan
 from ..kernels.propagate_drift import propagate_drift
 from ..kernels.ref_bank import ref_bank
 from ..kernels.sad_grid import sad_grid_16x16
@@ -213,11 +213,11 @@ class H264Encoder:
 
     # the kernel wrappers the pictures go through (a subclass may name
     # their plain versions to run the plain path on the card): the I
-    # picture's commit step and reference entry, the host path's SAD
+    # picture's commit scan and reference entry, the host path's SAD
     # grids, the loss-aware RDO's drift step, and every entry of the P and
     # B pipelines and of the legacy P picture (rd_p.PKernels,
     # rd_b.BKernels, fast.LKernels; None means their default_kernels())
-    _intra_step = staticmethod(intra_commit_step)
+    _intra_scan = staticmethod(intra_commit_scan)
     _ref_bank = staticmethod(ref_bank)
     _sad_grid = staticmethod(sad_grid_16x16)
     _propagate_drift = staticmethod(propagate_drift)
@@ -1603,7 +1603,7 @@ class H264Encoder:
             np.ascontiguousarray(V, np.uint8),
             qp=qp, qp_c=int(st.qpc[0, 0]), lam=lam_fx,
             H=self.sps.height, W=self.sps.width, device=self.device,
-            impl=self._intra_step)
+            impl=self._intra_scan)
         (ry, ru, rv, lev, lum_dc, i16mode, cip, levc, dcc, i4flag,
          ipm) = (x.cpu().numpy() for x in out)
         n_mb = st.n_mbs

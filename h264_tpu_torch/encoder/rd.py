@@ -15,7 +15,7 @@ macroblocks of one anti-diagonal where the reference ``vmap``s.  The hand-
 written CUDA kernels that replace the two device programs on the card
 live in ``kernels/`` and are checked against these functions:
 
-- ``kernels.intra_commit``: one wavefront step (``_intra_step``);
+- ``kernels.intra_commit``: the whole commit scan (``_intra_scan``);
 - ``kernels.ref_bank``: the whole reference entry (``ref_entry_plain``).
 """
 
@@ -510,8 +510,9 @@ _I4_COEF_NUM = 3
 @dataclass
 class IntraScan:
     """Inputs and carry of one picture's intra commit scan: int32 tensors
-    on one device (``is_intra`` bool).  Each wavefront step updates the
-    carry in place, one anti-diagonal at a time.
+    on one device (``is_intra`` bool).  The scan updates the carry in
+    place: the plain version one anti-diagonal at a time, the CUDA kernel
+    one MB row per block, each MB once the row above is two MBs ahead.
 
     Carry layout as in the reference: ``Yp`` (H+1, W+5) has a 1-pel
     top/left border and a 4-pel right margin for up-right reads; ``Up``/
@@ -649,16 +650,16 @@ def _i4_decide(s: IntraScan, y0, x0, r, c, au, al, avc, orig):
     return work[:, 1:, 1:17], lev_mb, D_tot, bits, mwork[:, 1:, 1:]
 
 
-def _intra_step(s: IntraScan, t: int) -> None:
-    """One wavefront step, plain version: decide + reconstruct every MB
-    of anti-diagonal t against final neighbour recon (decoder semantics;
-    the batched analog of rdopt.c:597), then scatter its tiles into the
-    carry.  Non-intra MBs copy their inter results through."""
-    r0, n = s.lanes(t)
+def _intra_commit_mbs(s: IntraScan, r, c) -> None:
+    """Decide + reconstruct the MBs (r, c) (int64 tensors) against final
+    neighbour recon (decoder semantics; the batched analog of
+    rdopt.c:597), then scatter their tiles into the carry.  Non-intra MBs
+    copy their inter results through.  Every MB's left, up-left, up and
+    up-right neighbours must be committed, and no two of the MBs may be
+    neighbours (their footprints then do not overlap)."""
+    n = r.shape[0]
     dev = s.Yp.device
     n_mx = s.n_mx
-    r = r0 + torch.arange(n, device=dev)
-    c = t - 2 * r
     ids = r * n_mx + c
     y0, x0 = 16 * r, 16 * c
     yc, xc = 8 * r, 8 * c
@@ -747,6 +748,29 @@ def _intra_step(s: IntraScan, t: int) -> None:
     s.i4flag[ids] = use4
 
 
+def _intra_step(s: IntraScan, t: int) -> None:
+    """One wavefront step, plain version: commit every MB of
+    anti-diagonal t (the reference's `step`)."""
+    r0, n = s.lanes(t)
+    r = r0 + torch.arange(n, device=s.Yp.device)
+    _intra_commit_mbs(s, r, t - 2 * r)
+
+
+def _intra_mb(s: IntraScan, r: int, c: int) -> None:
+    """Commit the one MB (r, c), plain version: the unit of an order
+    other than the reference's anti-diagonals (the CUDA kernel commits
+    MB rows, each as soon as the row above is two MBs ahead)."""
+    one = torch.ones(1, dtype=torch.int64, device=s.Yp.device)
+    _intra_commit_mbs(s, r * one, c * one)
+
+
+def _intra_scan(s: IntraScan) -> None:
+    """The whole scan, plain version: the reference's anti-diagonal
+    steps in order."""
+    for t in range(s.steps):
+        _intra_step(s, t)
+
+
 def _intra_commit_scan(cur_y, cur_u, cur_v, w_rec, recc, is_intra, w_lev,
                        levc, dcc, H: int, W: int, qp: int, qp_c: int,
                        lam=0, impl=None):
@@ -754,17 +778,16 @@ def _intra_commit_scan(cur_y, cur_u, cur_v, w_rec, recc, is_intra, w_lev,
     re-decided (I16 vs I4x4, per-block 9-mode decision against final
     neighbour recon) and reconstructed in place.
 
-    All tensors int32 on one device (``is_intra`` bool).  ``impl`` is the
-    step function; by default the ``kernels.intra_commit`` wrapper, which
-    runs the CUDA kernel on a CUDA device and ``_intra_step`` on the CPU.
-    Returns (recon_y, recon_u, recon_v, lev, lum_dc, i16mode, cip, levc,
-    dcc, i4flag, ipm)."""
+    All tensors int32 on one device (``is_intra`` bool).  ``impl`` runs
+    the whole scan on the state; by default the ``kernels.intra_commit``
+    wrapper, which launches the CUDA kernel once on a CUDA device and
+    runs ``_intra_scan`` on the CPU.  Returns (recon_y, recon_u, recon_v,
+    lev, lum_dc, i16mode, cip, levc, dcc, i4flag, ipm)."""
     if impl is None:
-        from ..kernels.intra_commit import intra_commit_step as impl
+        from ..kernels.intra_commit import intra_commit_scan as impl
     s = _scan_start(cur_y, cur_u, cur_v, w_rec, recc, is_intra, w_lev, levc,
                     dcc, H, W, qp, qp_c, lam)
-    for t in range(s.steps):
-        impl(s, t)
+    impl(s)
     return (s.Yp[1:, 1 : W + 1], s.Up[1:, 1:], s.Vp[1:, 1:], s.w_lev,
             s.lum_dc, s.i16mode, s.cip, s.levc, s.dcc, s.i4flag,
             s.ipm[1:, 1:])

@@ -267,7 +267,7 @@ class BKernels:
     i16_candidate: object
     strengths_b: object
     deblock: object
-    intra_step: object
+    intra_scan: object
     ref_bank: object
 
     def names(self):
@@ -277,7 +277,7 @@ class BKernels:
 PLAIN = BKernels(
     ssd_grid8_plain, qpel_refine_plain, b_direct_plain, mc_luma_win_plain,
     mc_chroma_b_plain, inter_luma_tq_plain, inter_chroma_tq_plain,
-    i16_candidate_plain, strengths_b_plain, deblock_plain, RD._intra_step,
+    i16_candidate_plain, strengths_b_plain, deblock_plain, RD._intra_scan,
     RD.ref_entry_plain)
 
 
@@ -295,7 +295,7 @@ def default_kernels() -> BKernels:
     return BKernels(
         K3.ssd_grid8, K4.qpel_refine, K7.b_direct, K4.mc_luma_win,
         K4.mc_chroma_b, K5.inter_luma_tq, K5.inter_chroma_tq,
-        K5.i16_candidate, K6.strengths_b, K6.deblock, K1.intra_commit_step,
+        K5.i16_candidate, K6.strengths_b, K6.deblock, K1.intra_commit_scan,
         K2.ref_bank)
 
 
@@ -656,7 +656,7 @@ def b_commit(f: BFrame) -> None:
         f.cur_y, f.cur_u, f.cur_v, f.w_rec.contiguous(), f.recc.contiguous(),
         f.is_intra.contiguous(), f.w_lev.contiguous(), f.levc.contiguous(),
         f.dcc.contiguous(), f.H, f.W, f.qp, f.qp_c, lam=f.lam,
-        impl=f.k.intra_step)
+        impl=f.k.intra_scan)
     f.win = torch.where(i4flag == 1, B_I4, f.win).to(I32)
 
 

@@ -533,7 +533,7 @@ class PKernels:
     i16_candidate: object
     strengths: object
     deblock: object
-    intra_step: object
+    intra_scan: object
     ref_bank: object
     t8_decide: object
 
@@ -545,7 +545,7 @@ PLAIN = PKernels(
     coarse_search_plain, ssd_grid8_plain, ssd_grid4_plain, qpel_refine_plain,
     mc_luma_plain, mc_chroma_plain, inter_luma_tq_plain,
     inter_chroma_tq_plain, i16_candidate_plain, strengths_plain,
-    deblock_plain, RD._intra_step, RD.ref_entry_plain, t8_decide_plain)
+    deblock_plain, RD._intra_scan, RD.ref_entry_plain, t8_decide_plain)
 
 
 def default_kernels() -> PKernels:
@@ -562,7 +562,7 @@ def default_kernels() -> PKernels:
     return PKernels(
         K3.coarse_search, K3.ssd_grid8, K3.ssd_grid4, K4.qpel_refine,
         K4.mc_luma, K4.mc_chroma, K5.inter_luma_tq, K5.inter_chroma_tq,
-        K5.i16_candidate, K6.strengths, K6.deblock, K1.intra_commit_step,
+        K5.i16_candidate, K6.strengths, K6.deblock, K1.intra_commit_scan,
         K2.ref_bank, K9.t8_decide)
 
 
@@ -1024,7 +1024,7 @@ def p_commit(f: PFrame) -> None:
         f.cur_y, f.cur_u, f.cur_v, f.w_rec.contiguous(), f.recc.contiguous(),
         f.is_intra.contiguous(), f.w_lev.contiguous(), f.levc.contiguous(),
         f.dcc.contiguous(), f.H, f.W, f.qp, f.qp_c, lam=f.lam,
-        impl=f.k.intra_step)
+        impl=f.k.intra_scan)
     f.win = torch.where(i4flag == 1, C_I4, f.win).to(I32)
 
 

@@ -1,9 +1,10 @@
-"""K1 wrapper: one wavefront step of the intra commit scan.
+"""K1 wrapper: the whole intra commit scan of one picture in one launch.
 
 Kernel: ``csrc/intra_commit.cu`` (replaces the reference's
 ``encoder/rd.py:1415 _intra_commit_scan``).  Plain version:
-``encoder.rd._intra_step``.  A state on the CPU runs the plain version;
-a state on a CUDA device launches the kernel, or raises.
+``encoder.rd._intra_scan`` (the reference's anti-diagonal steps).  A
+state on the CPU runs the plain version; a state on a CUDA device
+launches the kernel, or raises.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from ..device import check_launch, check_tensor, kernel_fn, stream_of
 from ..encoder import rd
 from ..encoder.rd import IntraScan
 
-intra_commit_step_plain = rd._intra_step
+intra_commit_scan_plain = rd._intra_scan
 
 _I32 = torch.int32
 
@@ -36,30 +37,29 @@ def _check(s: IntraScan) -> None:
         "cip": (n_mb,), "i4flag": (n_mb,),
     }
     for name, shape in shapes.items():
-        check_tensor("intra_commit_step", name, getattr(s, name), shape,
+        check_tensor("intra_commit_scan", name, getattr(s, name), shape,
                      torch.bool if name == "is_intra" else _I32, dev)
     if not 0 <= s.qp <= 51 or not 0 <= s.qp_c <= 51:
-        raise ValueError(f"intra_commit_step: qp {s.qp}/{s.qp_c} outside 0..51")
+        raise ValueError(f"intra_commit_scan: qp {s.qp}/{s.qp_c} outside 0..51")
 
 
-def intra_commit_step(s: IntraScan, t: int) -> None:
-    """Commit anti-diagonal t of the scan `s` in place."""
+def intra_commit_scan(s: IntraScan) -> None:
+    """Commit every MB of the scan `s` in place."""
     if s.Yp.device.type == "cpu":
-        intra_commit_step_plain(s, t)
+        intra_commit_scan_plain(s)
         return
     _check(s)
-    r0, n = s.lanes(t)
-    if n == 0:  # the reference's last step (and odd t when n_mx == 1)
-        return
-    fn = kernel_fn("intra_commit", "intra_commit_step",
-                   "p" * 17 + "i" * 7 + "p")
+    # the blocks' row ticket, then each MB row's committed columns
+    sync = torch.zeros(s.n_my + 1, dtype=_I32, device=s.Yp.device)
+    fn = kernel_fn("intra_commit", "intra_commit_scan",
+                   "p" * 18 + "i" * 5 + "p")
     rc = fn(*(x.data_ptr() for x in (
         s.cur_y, s.cur_u, s.cur_v, s.w_rec, s.recc, s.is_intra, s.Yp, s.Up,
         s.Vp, s.ipm, s.w_lev, s.levc, s.dcc, s.lum_dc, s.i16mode, s.cip,
-        s.i4flag)),
-        s.n_mx, t, r0, n, s.qp, s.qp_c, s.lam, stream_of(s.Yp))
-    check_launch(rc, "intra_commit_step")
-    intra_commit_step.launches += 1
+        s.i4flag, sync)),
+        s.n_my, s.n_mx, s.qp, s.qp_c, s.lam, stream_of(s.Yp))
+    check_launch(rc, "intra_commit_scan")
+    intra_commit_scan.launches += 1
 
 
-intra_commit_step.launches = 0
+intra_commit_scan.launches = 0

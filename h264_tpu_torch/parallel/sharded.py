@@ -62,7 +62,7 @@ def _launch(mesh: Mesh, fn, *args) -> list:
 def _counters(k: RDP.PKernels) -> dict:
     """The launch-counted wrappers of a sharded group, by name."""
     return {**{n: getattr(k, n) for n in RDP.P_ENTRIES},
-            "intra_commit": k.intra_step, "ref_bank_rows": K2.ref_bank_rows}
+            "intra_commit": k.intra_scan, "ref_bank_rows": K2.ref_bank_rows}
 
 
 def _group(cy, cu, cv, bank, cpad, Hg, W, R, qp, qp_c, lam, k, dev):

@@ -155,22 +155,22 @@ def test_rd_i_pipeline(pipeline_case, qp):
 
 
 def test_commit_step_dispatch_on_cpu():
-    """On CPU tensors the K1 wrapper runs the plain step and launches
+    """On CPU tensors the K1 wrapper runs the plain scan and launches
     nothing."""
     Y, U, V = synthetic_frames(1, 48, 32, seed=1)[0]
-    before = K1.intra_commit_step.launches
+    before = K1.intra_commit_scan.launches
     a = TRD.rd_i_pipeline(Y, U, V, 28, 28, _lam(28), 32, 48, device="cpu")
     b = TRD.rd_i_pipeline(Y, U, V, 28, 28, _lam(28), 32, 48, device="cpu",
-                          impl=K1.intra_commit_step_plain)
+                          impl=K1.intra_commit_scan_plain)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert K1.intra_commit_step.launches == before
+    assert K1.intra_commit_scan.launches == before
 
 
-def test_commit_scan_inter_copy_through(rng):
-    """The P/B form of the scan: MBs with is_intra False copy their inter
-    recon and levels through while intra MBs re-decide around them."""
-    W, H, qp = 64, 48, 30
+def _pb_scan_inputs(rng):
+    """The P/B form of the scan at 64x48: seeded inter results and about
+    half the MBs intra."""
+    W, H = 64, 48
     n_mb = (H // 16) * (W // 16)
     Y, U, V = (x.astype(np.int32)
                for x in synthetic_frames(1, W, H, seed=9)[0])
@@ -180,13 +180,146 @@ def test_commit_scan_inter_copy_through(rng):
     w_lev = rng.randint(-3, 4, (n_mb, 4, 4, 4, 4)).astype(np.int32)
     levc = rng.randint(-2, 3, (n_mb, 2, 2, 2, 4, 4)).astype(np.int32)
     dcc = rng.randint(-5, 6, (n_mb, 2, 2, 2)).astype(np.int32)
-    args = (Y, U, V, w_rec, recc, is_intra, w_lev, levc, dcc)
+    return W, H, (Y, U, V, w_rec, recc, is_intra, w_lev, levc, dcc)
+
+
+def _torch_args(args):
+    return tuple(_t(a, torch.bool if a.dtype == bool else torch.int32)
+                 for a in args)
+
+
+def test_commit_scan_inter_copy_through(rng):
+    """The P/B form of the scan: MBs with is_intra False copy their inter
+    recon and levels through while intra MBs re-decide around them."""
+    qp = 30
+    W, H, args = _pb_scan_inputs(rng)
     fn = jax.jit(functools.partial(JRD._intra_commit_scan, H=H, W=W, qp=qp,
                                    qp_c=chroma_qp(qp, 0), lam=_lam(qp)))
     want = fn(*map(jnp.asarray, args))
     got = TRD._intra_commit_scan(
-        *(_t(a, torch.bool if a.dtype == bool else torch.int32)
-          for a in args),
-        H=H, W=W, qp=qp, qp_c=chroma_qp(qp, 0), lam=_lam(qp))
+        *_torch_args(args), H=H, W=W, qp=qp, qp_c=chroma_qp(qp, 0),
+        lam=_lam(qp))
     for name, g, w in zip(OUTS, got, want):
         _eq(g, w, name)
+
+
+def _topological_order(n_my, n_mx, seed):
+    """The MBs in raster order (seed None), or in a seeded random order in
+    which every MB comes after its left, up-left, up and up-right
+    neighbours: at each pick, any MB whose four neighbours are done."""
+    if seed is None:
+        return [(r, c) for r in range(n_my) for c in range(n_mx)]
+    rnd = np.random.RandomState(seed)
+    done, order = set(), []
+    while len(order) < n_my * n_mx:
+        ready = [(r, c) for r in range(n_my) for c in range(n_mx)
+                 if (r, c) not in done and all(
+                     nb in done or not (0 <= nb[0] < n_my
+                                        and 0 <= nb[1] < n_mx)
+                     for nb in ((r, c - 1), (r - 1, c - 1), (r - 1, c),
+                                (r - 1, c + 1)))]
+        rc = ready[rnd.randint(len(ready))]
+        done.add(rc)
+        order.append(rc)
+    return order
+
+
+@pytest.fixture(scope="module")
+def commit_order_case():
+    """The P/B scan inputs at 64x48 with the reference's outputs and the
+    anti-diagonal plain scan's."""
+    qp = 30
+    W, H, args = _pb_scan_inputs(np.random.RandomState(11))
+    kw = dict(H=H, W=W, qp=qp, qp_c=chroma_qp(qp, 0), lam=_lam(qp))
+    want = jax.jit(functools.partial(JRD._intra_commit_scan, **kw))(
+        *map(jnp.asarray, args))
+    plain = TRD._intra_commit_scan(*_torch_args(args), **kw)
+    return args, kw, [np.asarray(x) for x in want], plain
+
+
+@pytest.mark.parametrize("seed", [None, 0, 1, 2],
+                         ids=["raster", "random0", "random1", "random2"])
+def test_commit_order_does_not_matter(commit_order_case, seed):
+    """Committing the MBs one at a time in any order in which each comes
+    after its left, up-left, up and up-right neighbours gives the
+    anti-diagonal scan's outputs and the reference's, exactly: the
+    premise of the CUDA kernel's row progress counters."""
+    args, kw, want, plain = commit_order_case
+    n_my, n_mx = kw["H"] // 16, kw["W"] // 16
+    order = _topological_order(n_my, n_mx, seed)
+    if seed is not None:
+        assert order != _topological_order(n_my, n_mx, None)
+
+    def by_mb(s):
+        for r, c in order:
+            TRD._intra_mb(s, r, c)
+
+    got = TRD._intra_commit_scan(*_torch_args(args), **kw, impl=by_mb)
+    for name, g, p, w in zip(OUTS, got, plain, want):
+        assert torch.equal(g, p), name
+        _eq(g, w, name)
+
+
+def _cu_table(name):
+    """The int rows of the __constant__ table `name` of
+    csrc/intra_commit.cu."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(TRD.__file__).parent.parent / "csrc"
+           / "intra_commit.cu").read_text()
+    body = re.search(r"__constant__ int " + name + r"\[[^=]*= \{(.*?)\};",
+                     src, re.S).group(1)
+    rows = re.findall(r"\{([^{}]*)\}", body) or [body]
+    return [[int(v, 0) for v in re.findall(r"-?0x[0-9a-f]+|-?\d+", row)]
+            for row in rows]
+
+
+def test_k1_tap_table_matches_i4_pred9(rng):
+    """The kernel's per-sample prediction taps give `_i4_pred9` for every
+    mode on random neighbours (DC, kind 3: the sums of the row's four
+    lanes' up and left taps)."""
+    taps = _cu_table("kTap")
+    assert [len(t) for t in taps] == [16] * 9
+    n = 200
+    up, ur, left = (rng.randint(0, 256, (n, 4)) for _ in range(3))
+    X = rng.randint(0, 256, (n, 1))
+    T = torch.ones(n, dtype=torch.bool)
+    want, _ = TRD._i4_pred9(*(_t(a) for a in (up, ur, left, X[:, 0])),
+                            T, T, T, T)
+    p = np.concatenate([up, ur, left, X], 1)
+    for m in range(9):
+        for k, tap in enumerate(taps[m]):
+            a, b, c = (p[:, (tap >> s) & 15] for s in (0, 4, 8))
+            kind = tap >> 12
+            row = taps[m][k & 12: (k & 12) + 4]
+            su, sl = (sum(p[:, (t >> s) & 15] for t in row) for s in (0, 4))
+            got = (a if kind == 0 else (a + b + 1) >> 1 if kind == 1
+                   else (a + 2 * b + c + 2) >> 2 if kind == 2
+                   else (su + sl + 4) >> 3)
+            np.testing.assert_array_equal(
+                got, want[:, m, k >> 2, k & 3].numpy(), f"mode {m} k {k}")
+
+
+def test_k1_i4_wavefront_steps():
+    """The kernel's I4 steps: each 4x4 block once, at step 2 by + bx, after
+    its left, up and up-left blocks and, where z-order has it
+    (`_I4_AUR_INT`), its up-right one; mode prediction reads only left
+    and up."""
+    steps = _cu_table("kStep")
+    when = {}
+    for t, pair in enumerate(steps):
+        for blk in pair:
+            if blk >= 0:
+                bx, by = TRD._BLK4_XY[blk]
+                assert 2 * by + bx == t
+                when[(bx, by)] = t
+    assert len(when) == 16
+    for blk, (bx, by) in enumerate(TRD._BLK4_XY):
+        deps = [(bx - 1, by), (bx, by - 1), (bx - 1, by - 1)]
+        if TRD._I4_AUR_INT[blk]:
+            deps.append((bx + 1, by - 1))
+        for d in deps:
+            if d in when:
+                assert when[d] < when[(bx, by)]
+    assert _cu_table("kAurInt") == [[int(v) for v in TRD._I4_AUR_INT]]

@@ -85,11 +85,11 @@ def test_intra_commit_matches_plain(cuda, W, H, qp):
     Y, U, V = (torch.as_tensor(p, device=cuda)
                for p in synthetic_frames(1, W, H, seed=W + H)[0])
     args = (Y, U, V, qp, chroma_qp(qp, 0), _lam(qp), H, W)
-    before = K1.intra_commit_step.launches
+    before = K1.intra_commit_scan.launches
     got = rd.rd_i_pipeline(*args, device=cuda)
-    assert K1.intra_commit_step.launches > before
+    assert K1.intra_commit_scan.launches == before + 1
     want = rd.rd_i_pipeline(*args, device=cuda,
-                            impl=K1.intra_commit_step_plain)
+                            impl=K1.intra_commit_scan_plain)
     for name, g, w in zip(OUTS, got, want):
         assert torch.equal(g, w), name
 
@@ -112,9 +112,64 @@ def test_intra_commit_inter_copy_through(cuda):
             t(rng.randint(-5, 6, (n_mb, 2, 2, 2))))
     kw = dict(H=H, W=W, qp=qp, qp_c=chroma_qp(qp, 0), lam=_lam(qp))
     got = rd._intra_commit_scan(*args, **kw)
-    want = rd._intra_commit_scan(*args, **kw, impl=K1.intra_commit_step_plain)
+    want = rd._intra_commit_scan(*args, **kw, impl=K1.intra_commit_scan_plain)
     for name, g, w in zip(OUTS, got, want):
         assert torch.equal(g, w), name
+
+
+def _is_intra_pattern(name, n_my, n_mx):
+    """(n_my * n_mx,) bool: which MBs of the P/B form of the scan are
+    intra."""
+    r, c = np.meshgrid(np.arange(n_my), np.arange(n_mx), indexing="ij")
+    if name == "all_intra":
+        m = np.ones((n_my, n_mx), bool)
+    elif name == "all_inter":
+        m = np.zeros((n_my, n_mx), bool)
+    elif name == "one_mb":
+        m = (r == n_my // 2) & (c == n_mx // 2)
+    elif name == "one_column":
+        m = c == n_mx // 2
+    elif name == "checkerboard":
+        m = (r + c) % 2 == 0
+    else:  # "random5"
+        m = np.random.RandomState(n_my * 1000 + n_mx).rand(n_my, n_mx) < 0.05
+    return m.reshape(-1)
+
+
+PATTERNS = ["all_intra", "all_inter", "one_mb", "one_column", "checkerboard",
+            "random5"]
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("W,H", [(16, 16), (16, 64), (48, 32), (352, 288),
+                                 (1280, 720), (1920, 1088)],
+                         ids=lambda v: str(v))
+def test_intra_commit_patterns_repeated(cuda, W, H, pattern):
+    """K1 on one is_intra pattern, bit-equal to its plain scan 20 times
+    over (the blocks hand MBs over through row counters, and no race
+    checker runs on the card), one launch per scan."""
+    n_my, n_mx = H // 16, W // 16
+    n_mb = n_my * n_mx
+    rng = np.random.RandomState(W + H)
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(a, device=cuda).to(dtype)
+
+    Y, U, V = (t(p) for p in synthetic_frames(1, W, H, seed=W)[0])
+    args = (Y, U, V, t(rng.randint(0, 256, (n_mb, 16, 16))),
+            t(rng.randint(0, 256, (n_mb, 2, 8, 8))),
+            t(_is_intra_pattern(pattern, n_my, n_mx), torch.bool),
+            t(rng.randint(-3, 4, (n_mb, 4, 4, 4, 4))),
+            t(rng.randint(-2, 3, (n_mb, 2, 2, 2, 4, 4))),
+            t(rng.randint(-5, 6, (n_mb, 2, 2, 2))))
+    kw = dict(H=H, W=W, qp=28, qp_c=chroma_qp(28, 0), lam=_lam(28))
+    want = rd._intra_commit_scan(*args, **kw, impl=K1.intra_commit_scan_plain)
+    for _ in range(20):
+        before = K1.intra_commit_scan.launches
+        got = rd._intra_commit_scan(*args, **kw)
+        assert K1.intra_commit_scan.launches == before + 1
+        for name, g, w in zip(OUTS, got, want):
+            assert torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("W,H", [(16, 16), (64, 48), (352, 288),
@@ -150,7 +205,7 @@ def test_wrappers_reject_bad_input(cuda):
                        torch.zeros(4, 2, 2, 2, dtype=torch.int32, device=cuda),
                        32, 32, 28, 28, 0)
     with pytest.raises(ValueError, match="is_intra"):
-        K1.intra_commit_step(s, 0)
+        K1.intra_commit_scan(s)
 
 
 def test_encoder_on_card_matches_cpu(cuda):
@@ -235,6 +290,60 @@ def test_p_wrappers_reject_bad_input(cuda):
     y, u, v, bsv, bsh, qp, qpc = calls["deblock"]
     with pytest.raises(ValueError):
         K6.deblock(y, u, v.cpu(), bsv, bsh, qp, qpc)
+
+
+def _ssd8_inputs(dev, W, H, R, content, kind):
+    """Built inputs of ssd_grid8.  P: 5 references, the WP weights and
+    offsets at their extremes, and centres at +-48 on the picture's edge
+    MBs (windows past every edge, their reads clamped to the bank) and
+    random steps of 4 inside; B: 2 references, zero centres, no WP.  The
+    banks' planes are all 0, all 255 or random, the source the opposite
+    extreme (the largest SSD) or random."""
+    rng = np.random.RandomState(W + H + R)
+    NR = 5 if kind == "P" else 2
+    n_my, n_mx = H // 16, W // 16
+
+    def plane(h, w, fill):
+        a = (rng.randint(0, 256, (h, w)) if fill is None
+             else np.full((h, w), fill))
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    fill = {"zero": 0, "full": 255, "random": None}[content]
+    banks = torch.stack([K2.ref_bank_plain(
+        plane(H, W, fill), plane(H // 2, W // 2, fill),
+        plane(H // 2, W // 2, fill))[0] for _ in range(NR)])
+    cur_y = plane(H, W, None if fill is None else 255 - fill)
+    if kind == "B":
+        cen = torch.zeros((NR, n_my, n_mx), dtype=torch.int32, device=dev)
+        return banks, cur_y, cen, cen.clone(), None
+    cen_x = 4 * rng.randint(-12, 13, (NR, n_my, n_mx))
+    cen_y = 4 * rng.randint(-12, 13, (NR, n_my, n_mx))
+    cen_x[:, :, 0], cen_x[:, :, -1] = -48, 48
+    cen_y[:, 0, :], cen_y[:, -1, :] = -48, 48
+    cen_x[1:3] *= -1  # the opposite corners too
+    cen_y[2:4] *= -1
+    wp = (torch.tensor([-128, 127, 0, 1, 64], dtype=torch.int32, device=dev),
+          torch.tensor([127, -128, 0, -128, 127], dtype=torch.int32,
+                       device=dev))
+    return (banks, cur_y,
+            *(torch.as_tensor(c, dtype=torch.int32, device=dev)
+              for c in (cen_x, cen_y)), wp)
+
+
+@pytest.mark.parametrize("kind", ["P", "B"])
+@pytest.mark.parametrize("content", ["zero", "full", "random"])
+@pytest.mark.parametrize("R", [1, 8, 16, 28])
+@pytest.mark.parametrize("W,H", [(64, 48), (352, 288)], ids=lambda v: str(v))
+def test_ssd_grid8_matches_plain_built(cuda, W, H, R, content, kind):
+    banks, cur_y, cen_x, cen_y, wp = _ssd8_inputs(cuda, W, H, R, content,
+                                                  kind)
+    before = K3.ssd_grid8.launches
+    got = K3.ssd_grid8(banks, cur_y, cen_x, cen_y, wp, R)
+    assert K3.ssd_grid8.launches == before + 1
+    want = K3.ssd_grid8_plain(banks, cur_y, cen_x, cen_y, wp, R)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if content != "random" and wp is None:
+        assert int(want.max()) == 64 * 255 ** 2
 
 
 @pytest.mark.parametrize("qp", [28, 51])
@@ -864,7 +973,7 @@ def test_sharded_gop_on_card_matches_chain(cuda):
     for info in step.ranks:
         assert info["device"].startswith("cuda")
         assert info["launches"]["ref_bank_rows"] == S
-        assert info["launches"]["intra_commit"] > 0
+        assert info["launches"]["intra_commit"] == S
     bank, cpad = rd.ref_entry_from_planes(y0[0], u0[0], v0[0], device=cuda)
     for s in range(S):
         ho, rec, (bank, cpad, _) = rd_rows.rd_p_rows_pipeline(
