@@ -28,7 +28,15 @@
    inputs of P pictures with the 8x8 transform (1 I + 2 P, CIF and
    1280x720, QP 28 and 51, WP on) and on built inputs (QP 0 with +-255
    residuals, zero residuals that tie, every winner class;
-   tools/t8_cases.py), and times both per CIF and 720p P picture;
+   tools/t8_cases.py), and times both per CIF and 720p P picture; times
+   K4's ``qpel_refine`` per shape and per picture, K6's ``deblock`` and K1
+   on the P and B pictures on the device (each call queued behind a spin
+   of the card) beside every kernel's time back to back, and K6's chain on
+   built inputs (a 16x16 picture, an MB's step along a 1280x16 row and
+   down a 16x1088 column, CIF and 720p pictures beside their chain), and
+   requires, by ``torch.profiler``, one kernel and no copy per ``deblock``
+   call and one ``deblock`` kernel in an I + P encode
+   (h264_tpu_torch/tools/time_refine_deblock.py);
 4. holds every entry of the B pipeline (its own K7 ``b_direct``,
    ``mc_luma_win``, ``mc_chroma_b``, ``strengths_b``, and the K3-K6
    entries it shares) against its plain version on the card, bit for bit,
@@ -218,8 +226,9 @@ PLAIN_WORKERS = 6  # processes of step 6 (the card's host has 8 cores)
 # it: a multiply-add is one; a __dp4a is one for 4 u8 multiply-adds, so an
 # SSD over u8 samples costs a quarter per term (sum cur^2 - 2 sum cur ref
 # + sum ref^2, the squares shared by the cells); a SAD over u8 samples a
-# quarter per term (VABSDIFF4, 4 samples with their sum); a value computed
-# once per plane is counted once.  Integer instructions issue on the INT32
+# quarter per term (VABSDIFF4, 4 samples with their sum); values that fit
+# 16 bits two an instruction (16-bit lanes); a value computed once per
+# plane is counted once.  Integer instructions issue on the INT32
 # pipe, 64 lanes per SM a clock; float32 ones on the FP32 pipe, 128 lanes,
 # which is also the SM's issue rate (4 schedulers, one warp-instruction a
 # clock each), so both kinds together take at least (int + float) / FP32
@@ -241,11 +250,14 @@ OPS_I4 = OPS_TQ + 3
 # decision: 29) and the coeff_cost scan (3); its float32 part (three
 # conversions, six products, a difference and a sum: 12, FP32 pipe)
 OPS_INTER_TQ, FOPS_INTER_TQ = OPS_TQ + 32, 12
-# per sample of a candidate in csrc/qpel.cu: the two samples' rounded
-# mean (2), residual (1), Hadamard share (4), absolute value and sum (1 with
-# the next residual's); WP (5: multiply-add with the rounding, shift,
-# offset, clamp 2)
-OPS_QPEL, OPS_WP = 8, 5
+# qpel_refine (csrc/qpel.cu): per distinct quarter-pel sample of a unit
+# the two bank samples' rounded mean, a quarter (__vavgu4, 4 u8 samples);
+# per sample of a candidate its residual (1), Hadamard share (4), absolute
+# value and sum (1 with the next residual's), all within 16 bits (|d| <=
+# 255, each Hadamard sum <= 16 * 255, the absolute sum of the 16 <= 16320),
+# so two an instruction: 3; WP (5: multiply-add with the rounding, shift,
+# offset, clamp 2) on each distinct sample
+OPS_QMEAN_PER_4, OPS_QPEL_PAIRS, OPS_WP = 1, 3, 5
 # per filtered line of csrc/deblock.cu (8 loads, the tests, the filter)
 OPS_LINE = 40
 # per sample of a bilinear chroma prediction: four taps, a multiply-add
@@ -531,12 +543,14 @@ def p_work(name: str, args):
     if name == "qpel_refine":
         h, w = args[11], args[12]
         n = args[2].numel()
-        windows = n * 4 * (h + 3) * (w + 3) * 4
-        # WP once on each window sample; per candidate its samples and
-        # its cost and first minimum (20)
+        # the (4, h+2, w+2) window every candidate's samples lie in
+        windows = n * 4 * (h + 2) * (w + 2) * 4
+        # the mean and WP once on each of the (4h+3) x (4w+3) distinct
+        # quarter-pel samples the 49 candidates reach; per candidate its
+        # samples' SATD share, and its cost and first minimum (20)
         return (windows + n * h * w * 4 + nb(*args[2:9]) + n * (h * w + 3) * 4,
-                n * (49 * (h * w * OPS_QPEL + 20)
-                     + 4 * (h + 3) * (w + 3) * wpo))
+                n * ((4 * h + 3) * (4 * w + 3) * (OPS_QMEAN_PER_4 + 4 * wpo)
+                     // 4 + 49 * (h * w * OPS_QPEL_PAIRS + 20)))
     if name == "mc_luma":
         n, h, w = args[1].numel(), args[7], args[8]
         return (n * 4 * (h + 1) * (w + 1) * 4 + nb(*args[1:6]) + n * h * w * 4,
@@ -1094,6 +1108,7 @@ def main(argv=None) -> int:
                                                       strengths_b_inputs)
     from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
     from h264_tpu_torch.tools.t8_cases import built_cases as t8_cases
+    from h264_tpu_torch.tools import time_refine_deblock as TRD
 
     dev = torch.device("cuda")
     report: dict = {"device": torch.cuda.get_device_name(0)}
@@ -1120,34 +1135,9 @@ def main(argv=None) -> int:
     bframes = {s: moving_frames(N_IPB[s], *s, seed=SEED + 1) for s in N_IPB}
     hframes = moving_frames(N_HIER, *CIF, seed=SEED + 2)
 
-    def cuda_ms(fn, reps: int) -> float:
-        fn()  # warm
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
-    def device_ms(fn, reps: int) -> float:
-        """Device time of one call of fn: each timed call is queued behind
-        a spin of the card, so the host's launch time does not count."""
-        fn()
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(1_000_000)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            total += a.elapsed_time(b)
-        return total / reps
+    # back to back (CUDA events) and on the device (each call queued behind
+    # a spin of the card)
+    cuda_ms, device_ms = TRD.events_ms, TRD.spin_ms
 
     def k1_state(W, H, is_intra, seed=SEED):
         """The intra commit scan's state of a synthetic W x H picture at QP
@@ -1268,16 +1258,15 @@ def main(argv=None) -> int:
                   "equal to their plain versions (tolerance 0: bit-exact)")
             if qp == 28:
                 # the chain: T - 1 MBs one after the other, T the
-                # reference's steps; one MB's latency is K1's time on a
-                # 16 x 16 picture
+                # reference's steps: the 16 x 16 picture (one MB with the
+                # launch) and T - 2 more at the column's pace
                 T = 2 * (H // 16) + W // 16 - 1
                 tm = timing.setdefault((W, H), {})
                 tm["intra_commit"] = {
                     "ms": cuda_ms(scan, 5),
                     "plain_ms": plain_ms,
                     "alone_ms": device_ms(k1_launch(W, H), 10),
-                    "chain_floor_ms": (T - 1) * k1_mb_ms,
-                    "chain_slope_ms": (T - 1) * k1_slope_ms,
+                    "chain_ms": k1_mb_ms + (T - 2) * k1_slope_ms,
                     "launches_per_picture": 1,
                     "work": k1_work(H, W)}
                 tm["ref_bank"] = {
@@ -1287,10 +1276,9 @@ def main(argv=None) -> int:
                 t1 = tm["intra_commit"]
                 print(f"time {W}x{H}: intra_commit {t1['ms']:.4f} ms/picture "
                       f"(rd_i_pipeline, 1 launch; the launch alone "
-                      f"{t1['alone_ms']:.4f} ms; chain floor {T - 1} x "
-                      f"{k1_mb_ms:.4f} = {t1['chain_floor_ms']:.4f} ms, by the "
-                      f"column slope {T - 1} x {k1_slope_ms:.4f} = "
-                      f"{t1['chain_slope_ms']:.4f} ms), "
+                      f"{t1['alone_ms']:.4f} ms; chain {k1_mb_ms:.4f} + "
+                      f"{T - 2} x {k1_slope_ms:.4f} = {t1['chain_ms']:.4f} "
+                      "ms, the 16 x 16 picture and the column's slope), "
                       f"plain {plain_ms:.1f} ms (host clock); ref_bank "
                       f"{tm['ref_bank']['ms']:.4f} ms, plain "
                       f"{tm['ref_bank']['plain_ms']:.4f} ms")
@@ -1362,11 +1350,26 @@ def main(argv=None) -> int:
                 tm[name]["library_ms"] = lib_ms(name, fk, mine)
         return tm
 
+    # on the device, the second P and B picture of each size: K4 per shape
+    # and per picture, K6, K1 on its scan state
+    on_device = {}
+
+    def picture_device(size, kind, calls, scan):
+        """K4's, K6's and K1's device times on one recorded picture, and
+        the bound of each K4 call."""
+        t = TRD.picture_times(calls, scan, reps=10)
+        refine = [a for n, a in calls if n == "qpel_refine"]
+        for x, a in zip(t["qpel_refine"]["shapes"], refine):
+            x.append(bound_ms(*p_work("qpel_refine", a))[0])
+        on_device.setdefault(f"{size[0]}x{size[1]}", {})[kind] = t
+
     for size in (CIF, HD):
         for qp in (28, 51):
             for wp in (True, False):
                 enc = H264Encoder(p_cfg(size, qp, wp), device="cuda")
-                enc._p_kernels, calls = rd_p.recording(kern)
+                k_rec, calls = rd_p.recording(kern)
+                scans = []
+                enc._p_kernels = TRD.scan_recording(k_rec, scans)
                 list(enc.encode_stream(pframes[size][:3]))
                 hold_p(calls, f"{size[0]}x{size[1]} QP {qp} WP {wp}")
                 p_names = rd_p.entries_of(False)
@@ -1380,6 +1383,8 @@ def main(argv=None) -> int:
                     # per P picture: the second P picture's calls
                     tm = timing.setdefault(size, {})
                     tm.update(time_p(calls[len(calls) // 2:], p_names))
+                    picture_device(size, "P", calls[len(calls) // 2:],
+                                   scans[-1])
                     print(f"time {size[0]}x{size[1]} per P picture (ms, "
                           "kernel / plain): " + ", ".join(
                               f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
@@ -1389,6 +1394,52 @@ def main(argv=None) -> int:
                           "to the kernel; ms): " + ", ".join(
                               f"{n} {tm[n]['library_ms']:.4f}"
                               for n in K3_LIB))
+
+    def print_device(size, kind):
+        """One picture's K4 (per shape, with each call's bound), K6 and K1
+        device times."""
+        t = on_device[f"{size[0]}x{size[1]}"][kind]
+        q, d = t["qpel_refine"], t["deblock"]
+        print(f"time {size[0]}x{size[1]} per {kind} picture on the device "
+              f"(ms; back to back, median of {len(q['events_rounds_ms'])} "
+              f"rounds): qpel_refine {q['picture_device_ms']:.4f} "
+              f"({q['events_ms']:.4f}; host clock {q['host_ms']:.4f}), "
+              "per shape (h x w, units: device ms, "
+              "bound ms) " + ", ".join(
+                  f"{h}x{w} ({n}): {ms:.4f}, {bd:.5f}"
+                  for h, w, n, ms, bd in q["shapes"])
+              + f"; deblock {d['device_ms']:.4f} ({d['events_ms']:.4f}); "
+              f"intra_commit {t['intra_commit']['device_ms']:.4f} "
+              f"({t['intra_commit']['events_ms']:.4f}; "
+              f"{t['intra_commit']['intra_mbs']} intra MBs)")
+
+    # K6's chain on built inputs (a 16 x 16 picture, the step along a row
+    # and down a column; CIF and 720p pictures beside their chain) and its
+    # device operations: one kernel per call and no copy, one kernel in an
+    # I + P encode
+    for size in (CIF, HD):
+        print_device(size, "P")
+    k6_chain = TRD.deblock_chain()
+    k6_prof = TRD.deblock_profile()
+    k6_call, k6_enc = k6_prof["call"], k6_prof["ip_encode"]
+    if (list(k6_call["kernels"].values()) != [1] or k6_call["memcpy"]
+            or k6_enc["deblock_calls"] != 1
+            or k6_enc["deblock_kernels"] != 1):
+        fail(f"deblock: not one kernel launch per call ({k6_prof})")
+    print(f"time deblock chain on built inputs (device ms): 16 x 16 picture "
+          f"{k6_chain['mb_ms']:.4f}, an MB along a row "
+          f"{k6_chain['row_step_ms']:.5f}, down a column "
+          f"{k6_chain['column_step_ms']:.5f}; " + ", ".join(
+              f"{k} {v['built_ms']:.4f} against its chain {v['chain_ms']:.4f}"
+              for k, v in k6_chain["pictures"].items()))
+    print(f"check deblock launches (torch.profiler): one CIF call "
+          f"{k6_call['kernels']}, {k6_call['memset']} memset, "
+          f"{k6_call['memcpy']} copies; an I + P encode "
+          f"{k6_enc['deblock_kernels']} deblock kernel for "
+          f"{k6_enc['deblock_calls']} call")
+    report["deblock_profile"] = k6_prof
+    report["deblock_chain"] = k6_chain
+    report["on_device"] = on_device
 
     # the tile-row path (rd_rows): its P entries (no coarse search) on the
     # slab inputs of 1 I + 2 P pictures in ROWS rows, and on built inputs
@@ -1561,7 +1612,9 @@ def main(argv=None) -> int:
     for size in (CIF, HD):
         for qp in (28, 49):  # the B pictures at QP 30 and 51
             enc = H264Encoder(b_cfg(size, qp), device="cuda")
-            enc._b_kernels, calls = rd_b.recording(bkern)
+            k_rec, calls = rd_b.recording(bkern)
+            scans = []
+            enc._b_kernels = TRD.scan_recording(k_rec, scans)
             list(enc.encode_stream(bframes[size][:5]))
             torch.cuda.synchronize()
             for name, cargs in calls:
@@ -1595,6 +1648,8 @@ def main(argv=None) -> int:
                         "work": work_sum(wk)}
                     if name == "ssd_grid8":
                         tm[name]["library_ms"] = lib_ms(name, fk, mine)
+                picture_device(size, "B", last, scans[-1])
+                print_device(size, "B")
                 print(f"time {size[0]}x{size[1]} per B picture (ms, kernel / "
                       "plain): " + ", ".join(
                           f"{n} {tm[n]['ms']:.3f}/{tm[n]['plain_ms']:.1f}"
@@ -2591,6 +2646,11 @@ def main(argv=None) -> int:
             # launches per CIF P picture of the tile-row path (step 5)
             "rows_launches_per_picture": rows_per.get(name),
         })
+        if name == "deblock":  # its chain on built inputs, device ms
+            kernels[-1].update({
+                "chain_16x16_ms": k6_chain["mb_ms"],
+                "chain_row_step_ms": k6_chain["row_step_ms"],
+                "chain_column_step_ms": k6_chain["column_step_ms"]})
     for kind, tms in (("", timing), ("b_", timing_b), ("decode_", timing_d),
                       ("rows_", timing_rows)):
         for size, tm in tms.items():

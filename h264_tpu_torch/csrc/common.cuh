@@ -1,8 +1,9 @@
 // Device helpers shared by the port's kernels (sm_90a): exact JM integer
 // arithmetic for transforms, quantization, rates and costs, the quarter-
-// pel bank layout, and the I16 decision that both the intra commit (K1,
+// pel bank layout, the I16 decision that both the intra commit (K1,
 // intra_commit.cu) and the P picture's I16 candidate (K5, inter_tq.cu)
-// run.  Every function computes what the reference package's
+// run, and the persistent MB-row wavefront of K1 and the filter (K6,
+// deblock.cu).  Every function computes what the reference package's
 // encoder/rd.py computes, in its order: int32 with wrapping products
 // (computed unsigned) and arithmetic right shifts.
 #pragma once
@@ -149,6 +150,60 @@ struct I16Smem {
   int dc[16], dclev[16], dcdeq[16], cbdc;
   int rec16[256], lev16[256], d16[16], cb16[16];
 };
+
+// ---------------------------------------------------------------------------
+// A persistent wavefront over MB rows (K1 intra_commit.cu, K6 deblock.cu)
+// ---------------------------------------------------------------------------
+// Blocks take MB rows in order from an atomic ticket and walk each row left
+// to right; a row's progress counter holds the columns it has finished.
+// Publishing is __syncthreads, __threadfence and st.release.gpu by one
+// thread; waiting is one thread spinning on ld.acquire.gpu, then a barrier; the
+// waiting block reads what other blocks wrote during the launch through L2
+// (__ldcg).  Tickets are taken in order, so the row a block waits on is
+// held by a block that is already running: no residency deadlocks.  A spin
+// past kMaxPolls polls traps, so a broken dependency fails the launch
+// instead of hanging it.
+
+constexpr long long kMaxPolls = 1LL << 24;
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// The block's next MB row: thread 0 takes a ticket into *slot, every
+// thread returns it.  The caller passes a barrier between reading the row
+// and the next call.
+__device__ __forceinline__ int take_row(int* ticket, int* slot) {
+  if (threadIdx.x == 0) *slot = atomicAdd(ticket, 1);
+  __syncthreads();
+  return *slot;
+}
+
+// One thread: spin until the counter *p reaches `need`.  `seen` carries
+// the last value read (counters only grow within a launch), `polls` the
+// launch's poll count.
+__device__ __forceinline__ void wait_for(const int* p, int need, int& seen,
+                                         long long& polls) {
+  while (seen < need) {
+    seen = ld_acquire(p);
+    if (++polls > kMaxPolls) __trap();
+  }
+}
+
+// Publish `v` into the counter *p after every write of the block: a
+// barrier, then thread `who` fences and releases.
+__device__ __forceinline__ void publish(int* p, int v, int who = 0) {
+  __syncthreads();
+  if (threadIdx.x == who) {
+    __threadfence();
+    st_release(p, v);
+  }
+}
 
 // I16 DC value and plane parameters (rd.py `_i16_pred_all`)
 struct I16Par {

@@ -17,11 +17,11 @@
 // after each MB it publishes c+1 in that row's progress counter.  Tickets
 // are taken in order, so the row a block waits on is held by a block that
 // is already running: the kernel cannot deadlock, whatever the residency.
-// Publishing is __syncthreads, __threadfence and st.release.gpu by thread
-// 0; waiting is thread 0 spinning on ld.acquire.gpu, then __syncthreads.
-// Every read of the carry planes (written by other blocks during the
-// launch) goes through L2 (__ldcg).  A spin past 2^24 polls traps, so a
-// broken dependency fails the launch instead of hanging it.  An inter MB
+// Publishing, waiting (thread 0) and the ticket are common.cuh's
+// wavefront helpers, shared with K6 (deblock.cu).  Every read of the carry
+// planes (written by other blocks during the launch) goes through L2
+// (__ldcg).  A spin past 2^24 polls traps, so a broken dependency fails
+// the launch instead of hanging it.  An inter MB
 // (is_intra false) copies its results through and publishes at once,
 // without waiting.
 //
@@ -69,7 +69,6 @@ constexpr int kI4 = 288;   // 2 blocks x 9 modes x 16 samples
 constexpr int kI16 = 64;
 constexpr int kThreads = kI4 + kI16 + 32;
 constexpr int kBarI4 = 1, kBarI16 = 2;
-constexpr long long kMaxPolls = 1LL << 24;
 
 // 4x4 z-order -> (bx, by), and the up-right availability of blocks
 // inside the MB (rd.py `_I4_AUR_INT`)
@@ -108,15 +107,6 @@ __constant__ int kTap[9][16] = {
      0x1332, 0x1443, 0x1554, 0x2321, 0x2432, 0x2543, 0x2654},
     {0x1998, 0x2a98, 0x1aa9, 0x2ba9, 0x1aa9, 0x2ba9, 0x1bba, 0x2bba, 0x1bba,
      0x2bba, 0x0bbb, 0x0bbb, 0x0bbb, 0x0bbb, 0x0bbb, 0x0bbb}};
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
 
 struct Shared {
   int orig[256];       // luma source of the MB, raster
@@ -453,9 +443,7 @@ intra_scan_kernel(const int* __restrict__ cur_y, const int* __restrict__ cur_u,
   long long polls = 0;
 
   for (;;) {
-    if (tid == 0) s.row = atomicAdd(ticket, 1);
-    __syncthreads();
-    const int r = s.row;
+    const int r = take_row(ticket, &s.row);
     if (r >= n_my) return;
     int seen = 0;  // thread 0: the last value read from done[r - 1]
     for (int c = 0; c < n_mx; ++c) {
@@ -485,13 +473,8 @@ intra_scan_kernel(const int* __restrict__ cur_y, const int* __restrict__ cur_u,
           s.corig[k >> 6][q] = P[(8 * r + (q >> 3)) * Wc + 8 * c + (q & 7)];
         }
         // wait for (r-1, c+1), or the end of row r-1
-        if (tid == 0 && r > 0) {
-          const int need = min(c + 2, n_mx);
-          while (seen < need) {
-            seen = ld_acquire(done + r - 1);
-            if (++polls > kMaxPolls) __trap();
-          }
-        }
+        if (tid == 0 && r > 0)
+          wait_for(done + r - 1, min(c + 2, n_mx), seen, polls);
         __syncthreads();
         for (int k = tid; k < 17 * 21; k += kThreads)
           s.work[k / 21][k % 21] = __ldcg(Yp + (16 * r + k / 21) * ys + 16 * c + k % 21);
@@ -566,11 +549,7 @@ intra_scan_kernel(const int* __restrict__ cur_y, const int* __restrict__ cur_u,
         }
       }
       // publish (r, c): every write of the MB before the counter moves
-      __syncthreads();
-      if (tid == 0) {
-        __threadfence();
-        st_release(done + r, c + 1);
-      }
+      publish(done + r, c + 1);
     }
   }
 }

@@ -27,20 +27,41 @@
 // entries read the unwidened banks as the reference does, through the
 // window samplers of qpel.cuh, which clamp each unit's window START (the
 // unit's samples shift together), as `dynamic_slice` does.
-// qpel_refine gives each unit a block of 256 threads: (candidate, 4x4
-// block) pairs compute 16 predicted samples, the residual's Hadamard and
-// its rounded half-sum; 49 threads add their candidate's blocks and the
-// rate; the first minimum wins and the block writes its prediction.
+// qpel_refine, one template per shape, gives each block of 256 threads
+// up to five units of one shape:
+//   1. stages each unit's (4, h+2, w+2) window of the bank (every
+//      coordinate clamped, as the sampler clamps each sample; no candidate
+//      reads outside it: rows and columns imv - 1 .. imv + h (w)) and its
+//      h x w source block in shared memory as bytes, with coalesced loads;
+//   2. computes every distinct quarter-pel sample of the unit once, as 16
+//      fraction planes of (h+1) x (w+1) (the (4h+3) x (4w+3) positions the
+//      49 candidates reach, and a few more), four samples a thread: the
+//      rounded byte means of the two tap rows `_QTAB` picks (__vavgu4),
+//      then WP, which rounds and so stays after the mean;
+//   3. runs the (unit, candidate, 4x4 block) tasks candidate-major, in
+//      passes of 256 (nb = the shape's 4x4 blocks): 16 residuals from
+//      the fraction plane and the source, the Hadamard and its rounded
+//      half-sum; a candidate's nb blocks are nb aligned lanes of a warp,
+//      summed with shuffles; its first lane adds the rate;
+//   4. takes each unit's first minimum over its 49 costs in one warp, a
+//      (cost, index) shuffle reduction in which the lower index wins ties;
+//   5. writes the winners' predictions from the fraction planes.
+// Lanes: u units x 49 x nb tasks over whole passes of 256 threads.  Five
+// units keep 245 of 256 lanes busy (95.7 %) at every shape; the C entry
+// takes five at 8x8 and smaller, and at 16x16, 16x8 and 8x16 as many as
+// leave 4 blocks an SM (one at CIF, five at 1280x720), where any count
+// keeps at least 196 of 256 (76.6 %) busy.
 // mc_luma, mc_chroma, mc_luma_win and mc_chroma_b give each output sample
 // a thread.
 //
-// Bound.  qpel_refine: operations (49 candidates x the unit's samples x 8
-// integer operations: the rounded mean, the residual, its Hadamard share
-// and the absolute sum; WP once per window sample), and bank reads
-// through L1/L2; mc_* move bytes.
+// Bound.  qpel_refine: operations (each distinct quarter-pel sample's mean
+// once, a quarter each as __vavgu4 takes four, and WP once; per candidate
+// sample its residual, Hadamard share and absolute sum, which fit 16 bits,
+// two an instruction); mc_* move bytes.
 //
-// ptxas (sm_90a, nvcc -O3): refine_kernel 74 registers, 4,356 B shared
-// memory; mc_luma_kernel / mc_chroma_kernel 20-24 registers; no spills.
+// ptxas (sm_90a, nvcc -O3): refine_kernel 32-40 registers and 6,088
+// (4x4) to 38,488 (16x16) B shared memory, so 5 (16x16) to 6 blocks of
+// 256 fit on an SM; mc_* kernels 20-28 registers; no spills.
 
 #include "qpel.cuh"
 
@@ -61,66 +82,228 @@ __device__ __forceinline__ int qsample(const int* bank, int Hp, int Wp, int y,
 }
 
 constexpr int kRefineThreads = 256;
+constexpr int kUnits = 5;  // the most units a block takes: 5 x 49 = 245
 
-__global__ void __launch_bounds__(kRefineThreads)
+// What a block holds for its units of one H x W shape, as bytes (every
+// bank and source sample is 0..255).  win: each unit's (4, H+2, W+2)
+// window of the planes G, b, h, j from (y0 + imvy - 1, x0 + imvx - 1),
+// rows WS bytes apart; q: its 16 fraction planes (fy * 4 + fx) of
+// quarter-pel samples, sample (iy, ix) at integer offset (iy - 1, ix - 1),
+// weighted when WP is on, rows QW bytes apart (W + 4: a candidate's 4x4
+// blocks fall in distinct banks).  Both are words, filled and read as
+// 4-byte chunks; aoff / boff: the byte offsets in a window of the two
+// samples whose rounded mean is a fraction's sample (kQtab).
+template <int H, int W>
+struct RefineSmem {
+  static constexpr int WS = W + 8, QW = W + 4;
+  unsigned int win[kUnits][4][H + 2][WS / 4];
+  unsigned int q[kUnits][16][H + 1][QW / 4];
+  unsigned char orig[kUnits][H][W];
+  int cost[kUnits][49];
+  int aoff[16], boff[16];
+  int wy[kUnits], wx[kUnits], imvx[kUnits], imvy[kUnits], y0[kUnits];
+  int x0[kUnits], px[kUnits], py[kUnits], ww[kUnits], wo[kUnits];
+  int best[kUnits];
+  size_t base[kUnits];
+};
+
+// candidate c (dx = c % 7 - 3, dy = c / 7 - 3, `_REFINE` order): its
+// fraction plane and the offset of its samples in it
+__device__ __forceinline__ void cand_plane(int c, int& f, int& oy, int& ox) {
+  const int dx = c % 7 - 3, dy = c / 7 - 3;
+  f = (dy & 3) * 4 + (dx & 3);
+  oy = (dy >> 2) + 1;
+  ox = (dx >> 2) + 1;
+}
+
+// the 4 bytes at byte offset `off` of word-aligned shared memory `p`
+__device__ __forceinline__ unsigned int bytes4(const unsigned int* p,
+                                               int off) {
+  const unsigned int* w = p + (off >> 2);
+  return __funnelshift_r(w[0], w[1], (off & 3) * 8);
+}
+
+// WP on each of 4 packed samples
+__device__ __forceinline__ unsigned int wp4(unsigned int m, int w, int o) {
+  unsigned int r = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    r |= (unsigned int)wp_affine((m >> (8 * i)) & 255, w, o) << (8 * i);
+  return r;
+}
+
+template <int H, int W>
+__global__ void __launch_bounds__(kRefineThreads, 4)
 refine_kernel(const int* __restrict__ banks, const int* __restrict__ cur_y,
               const int* __restrict__ ref, const int* __restrict__ imvx,
               const int* __restrict__ imvy, const int* __restrict__ y0s,
               const int* __restrict__ x0s, const int* __restrict__ pxs,
               const int* __restrict__ pys, const int* __restrict__ wp_w,
-              const int* __restrict__ wp_o, int use_wp, int Hp, int Wp, int W,
-              int lam_satd, int h, int w, int* out_mvx, int* out_mvy,
-              int* out_pred, int* out_cost) {
-  __shared__ int orig[256];
-  __shared__ int satd4[49 * 16];
-  __shared__ int cost[49];
-  const int tid = threadIdx.x, u = blockIdx.x;
-  const int r = ref[u], y0 = y0s[u], x0 = x0s[u];
-  const int bx4 = w >> 2, nblk = (h >> 2) * bx4;
-  const int bmvx = 4 * imvx[u], bmvy = 4 * imvy[u];
-  const int* bank = banks + (size_t)r * 4 * Hp * Wp;
-  const int ww = use_wp ? wp_w[r] : 32, wo = use_wp ? wp_o[r] : 0;
-  for (int k = tid; k < h * w; k += kRefineThreads)
-    orig[k] = cur_y[(size_t)(y0 + k / w) * W + x0 + k % w];
+              const int* __restrict__ wp_o, int use_wp, int n, int units,
+              int Hp, int Wp, int Wc, int lam_satd, int* out_mvx,
+              int* out_mvy, int* out_pred, int* out_cost) {
+  using Smem = RefineSmem<H, W>;
+  constexpr int WS = Smem::WS, QW = Smem::QW;
+  constexpr int BX = W / 4, NB = (H / 4) * BX;  // 4x4 blocks of a unit
+  constexpr int WH = H + 2, WW = W + 2;         // a window plane
+  constexpr int NCH = W / 4 + 1;  // 4-sample chunks of a fraction row
+  constexpr int QCH = 16 * (H + 1) * NCH;  // chunks of a unit's planes
+  __shared__ Smem s;
+  const int tid = threadIdx.x, u0 = blockIdx.x * units;
+  const int nu = min(units, n - u0);
+
+  // the units' parameters (a partial block repeats its last unit) and
+  // the taps' offsets in a window
+  if (tid < units) {
+    const int u = u0 + min(tid, nu - 1), r = ref[u];
+    s.imvx[tid] = imvx[u];
+    s.imvy[tid] = imvy[u];
+    s.y0[tid] = y0s[u];
+    s.x0[tid] = x0s[u];
+    s.wy[tid] = y0s[u] + imvy[u] - 1 + kPad;
+    s.wx[tid] = x0s[u] + imvx[u] - 1 + kPad;
+    s.px[tid] = pxs[u];
+    s.py[tid] = pys[u];
+    s.ww[tid] = use_wp ? wp_w[r] : 32;
+    s.wo[tid] = use_wp ? wp_o[r] : 0;
+    s.base[tid] = (size_t)r * 4 * Hp * Wp;
+  } else if (tid >= 32 && tid < 48) {
+    const int* t = kQtab[tid - 32];
+    s.aoff[tid - 32] = (t[0] * WH + t[1]) * WS + t[2];
+    s.boff[tid - 32] = (t[3] * WH + t[4]) * WS + t[5];
+  }
   __syncthreads();
-  for (int task = tid; task < 49 * nblk; task += kRefineThreads) {
-    const int c = task / nblk, blk = task % nblk;
-    const int mvx = bmvx + c % 7 - 3, mvy = bmvy + c / 7 - 3;
-    const int by = 4 * (blk / bx4), bx = 4 * (blk % bx4);
-    int d[16];
-    for (int k = 0; k < 16; ++k) {
-      int y = by + (k >> 2), x = bx + (k & 3);
-      int p = qsample(bank, Hp, Wp, y0 + y, x0 + x, mvx, mvy);
-      if (use_wp) p = wp_affine(p, ww, wo);
-      d[k] = orig[y * w + x] - p;
+  // stage every window (coordinates clamped to the bank, as each sample
+  // of the plain version is) and every source block, once
+  unsigned char* winb = reinterpret_cast<unsigned char*>(s.win);
+  for (int k = tid; k < units * 4 * WH * WW; k += kRefineThreads) {
+    const int row = k / WW, xx = k - row * WW;
+    const int u = row / (4 * WH), pl = row % (4 * WH) / WH, yy = row % WH;
+    const int gy = clampi(s.wy[u] + yy, Hp - 1), gx = clampi(s.wx[u] + xx, Wp - 1);
+    winb[row * WS + xx] = banks[s.base[u] + ((size_t)pl * Hp + gy) * Wp + gx];
+  }
+  for (int k = tid; k < units * H * W; k += kRefineThreads) {
+    const int u = k / (H * W), y = k % (H * W) / W, x = k % W;
+    s.orig[u][y][x] = cur_y[(size_t)(s.y0[u] + y) * Wc + s.x0[u] + x];
+  }
+  __syncthreads();
+  // every distinct quarter-pel sample once, four at a time: the rounded
+  // byte means of the two tap rows (__vavgu4), then WP
+  for (int k = tid; k < units * QCH; k += kRefineThreads) {
+    const int u = k / QCH, e = k % QCH;
+    const int f = e / ((H + 1) * NCH), iy = e / NCH % (H + 1), j = e % NCH;
+    const unsigned int* w = &s.win[u][0][0][0];
+    const int at = iy * WS + 4 * j;
+    unsigned int m = __vavgu4(bytes4(w, s.aoff[f] + at), bytes4(w, s.boff[f] + at));
+    if (use_wp) m = wp4(m, s.ww[u], s.wo[u]);
+    s.q[u][f][iy][j] = m;
+  }
+  __syncthreads();
+  // (unit, candidate, 4x4 block) tasks, candidate-major: a candidate's NB
+  // blocks are NB aligned lanes of one warp, and a thread keeps its block
+  // (256 is a multiple of NB) over the passes of 256 tasks
+  const int blk = tid % NB, by = 4 * (blk / BX), bx = 4 * (blk % BX);
+#pragma unroll 1
+  for (int t0 = 0; t0 < units * 49 * NB; t0 += kRefineThreads) {
+    const int uc = (t0 + tid) / NB;  // unit * 49 + candidate
+    const bool live = uc < units * 49;
+    const int u = live ? uc / 49 : 0, c = uc % 49;
+    int sat = 0;
+    if (live) {
+      int f, oy, ox;
+      cand_plane(c, f, oy, ox);
+      const unsigned char* qb =
+          reinterpret_cast<const unsigned char*>(&s.q[u][f][0][0]) +
+          (by + oy) * QW + bx + ox;
+      int d[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        d[k] = s.orig[u][by + (k >> 2)][bx + (k & 3)] - qb[(k >> 2) * QW + (k & 3)];
+      hadamard4x4(d);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) sat += abs(d[k]);
+      sat = (sat + 1) >> 1;
     }
-    hadamard4x4(d);
-    int s = 0;
-    for (int k = 0; k < 16; ++k) s += abs(d[k]);
-    satd4[task] = (s + 1) >> 1;
+#pragma unroll
+    for (int off = NB / 2; off > 0; off >>= 1)
+      sat += __shfl_xor_sync(0xffffffffu, sat, off);
+    if (live && blk == 0) {
+      const int mvx = 4 * s.imvx[u] + c % 7 - 3;
+      const int mvy = 4 * s.imvy[u] + c / 7 - 3;
+      s.cost[u][c] = sat + lam_cost(lam_satd, mv_bits(mvx - s.px[u]) +
+                                                  mv_bits(mvy - s.py[u]));
+    }
   }
   __syncthreads();
-  if (tid < 49) {
-    int s = 0;
-    for (int blk = 0; blk < nblk; ++blk) s += satd4[tid * nblk + blk];
-    const int mvx = bmvx + tid % 7 - 3, mvy = bmvy + tid / 7 - 3;
-    cost[tid] = s + lam_cost(lam_satd, mv_bits(mvx - pxs[u]) +
-                                           mv_bits(mvy - pys[u]));
+  // the first minimum of each unit: warp u reduces (cost, index) pairs,
+  // the lower index winning ties (strict < in `_REFINE` order)
+  const int warp = tid >> 5, lane = tid & 31;
+  if (warp < units) {
+    int bc = s.cost[warp][lane], bi = lane;
+    if (lane + 32 < 49 && s.cost[warp][lane + 32] < bc) {
+      bc = s.cost[warp][lane + 32];
+      bi = lane + 32;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+      if (oc < bc || (oc == bc && oi < bi)) {
+        bc = oc;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      s.best[warp] = bi;
+      if (warp < nu) {
+        out_mvx[u0 + warp] = 4 * s.imvx[warp] + bi % 7 - 3;
+        out_mvy[u0 + warp] = 4 * s.imvy[warp] + bi / 7 - 3;
+        out_cost[u0 + warp] = bc;
+      }
+    }
   }
   __syncthreads();
-  int best = 0;
-  for (int c = 1; c < 49; ++c)
-    if (cost[c] < cost[best]) best = c;
-  const int mvx = bmvx + best % 7 - 3, mvy = bmvy + best / 7 - 3;
-  for (int k = tid; k < h * w; k += kRefineThreads) {
-    int p = qsample(bank, Hp, Wp, y0 + k / w, x0 + k % w, mvx, mvy);
-    out_pred[(size_t)u * h * w + k] = use_wp ? wp_affine(p, ww, wo) : p;
+  // the winners' predictions, from the fraction planes
+  for (int k = tid; k < nu * H * W; k += kRefineThreads) {
+    const int u = k / (H * W), y = k % (H * W) / W, x = k % W;
+    int f, oy, ox;
+    cand_plane(s.best[u], f, oy, ox);
+    out_pred[(size_t)u0 * H * W + k] =
+        reinterpret_cast<const unsigned char*>(&s.q[u][f][0][0])[(y + oy) * QW + x + ox];
   }
-  if (tid == 0) {
-    out_mvx[u] = mvx;
-    out_mvy[u] = mvy;
-    out_cost[u] = cost[best];
-  }
+}
+
+// the first call's card's SM count, read once (it sets only how many
+// units a block takes, never a result)
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
+template <int H, int W>
+int refine_launch(const int* banks, const int* cur_y, const int* ref,
+                  const int* imvx, const int* imvy, const int* y0,
+                  const int* x0, const int* px, const int* py,
+                  const int* wp_w, const int* wp_o, int use_wp, int n, int Hp,
+                  int Wp, int Wc, int lam_satd, int* mvx, int* mvy, int* pred,
+                  int* cost, cudaStream_t stream) {
+  // units per block: five (245 of 256 lanes busy) where that leaves four
+  // blocks an SM or the shape is small (every unit count keeps 196 of
+  // 256 lanes busy at 4 or more 4x4 blocks a unit); fewer at the large
+  // shapes of small pictures, so that every SM gets blocks
+  constexpr int NB = (H / 4) * (W / 4);
+  const int units =
+      NB <= 4 ? kUnits : max(1, min(kUnits, n / (4 * sm_count())));
+  refine_kernel<H, W><<<(n + units - 1) / units, kRefineThreads, 0,
+                        stream>>>(banks, cur_y, ref, imvx, imvy, y0, x0, px,
+                                  py, wp_w, wp_o, use_wp, n, units, Hp, Wp,
+                                  Wc, lam_satd, mvx, mvy, pred, cost);
+  return (int)cudaGetLastError();
 }
 
 __global__ void mc_luma_kernel(const int* __restrict__ banks,
@@ -218,10 +401,21 @@ extern "C" int qpel_refine(const int* banks, const int* cur_y, const int* ref,
                            int n, int Hp, int Wp, int W, int lam_satd, int h,
                            int w, int* mvx, int* mvy, int* pred, int* cost,
                            void* stream) {
-  refine_kernel<<<n, kRefineThreads, 0, (cudaStream_t)stream>>>(
-      banks, cur_y, ref, imvx, imvy, y0, x0, px, py, wp_w, wp_o, use_wp, Hp,
-      Wp, W, lam_satd, h, w, mvx, mvy, pred, cost);
-  return (int)cudaGetLastError();
+#define K4_SHAPE(HH, WW)                                                     \
+  if (h == HH && w == WW)                                                    \
+    return refine_launch<HH, WW>(banks, cur_y, ref, imvx, imvy, y0, x0, px,  \
+                                 py, wp_w, wp_o, use_wp, n, Hp, Wp, W,       \
+                                 lam_satd, mvx, mvy, pred, cost,             \
+                                 (cudaStream_t)stream);
+  K4_SHAPE(16, 16)
+  K4_SHAPE(8, 16)
+  K4_SHAPE(16, 8)
+  K4_SHAPE(8, 8)
+  K4_SHAPE(4, 8)
+  K4_SHAPE(8, 4)
+  K4_SHAPE(4, 4)
+#undef K4_SHAPE
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int mc_luma(const int* banks, const int* ref, const int* mvx,

@@ -449,6 +449,61 @@ def _thresholds(qp: int, dev):
     return int(ALPHA_TABLE[i]), int(BETA_TABLE[i]), clip_row
 
 
+def deblock_pad(rec_y, rec_u, rec_v):
+    """The planes the filter works on: luma with 4 zero rows above and
+    columns left, chroma with 2, so that MB (r, c)'s region starts at
+    (16r, 16c) (chroma (8r, 8c)).  Returns (Yp, [Up, Vp])."""
+    Yp = torch.nn.functional.pad(rec_y, (4, 0, 4, 0)).contiguous()
+    return Yp, [torch.nn.functional.pad(p, (2, 0, 2, 0)).contiguous()
+                for p in (rec_u, rec_v)]
+
+
+def deblock_mbs(Yp, Cp, BSV, BSH, r, c, thr) -> None:
+    """Filter the MBs (r, c) (1-D tensors) of the padded planes in place,
+    side by side: their regions, luma rows 16r-4..16r+15 and cols
+    16c-4..16c+15 (half that in chroma), must be disjoint.  Per MB: luma
+    vertical edges 0-3, luma horizontal edges 0-3, then U and V, vertical
+    then horizontal.  thr: `_thresholds` of the luma and the chroma QP."""
+    dev = Yp.device
+    (al, be, cr), (alc, bec, crc) = thr
+    a20 = torch.arange(20, device=dev)
+    a10 = torch.arange(10, device=dev)
+    a4 = torch.arange(4, device=dev)
+    iy = (16 * r)[:, None, None] + a20[:, None]
+    ix = (16 * c)[:, None, None] + a20
+    A = Yp[iy, ix]  # (n, 20, 20)
+    sv = BSV[(4 * r)[:, None, None] + a4[:, None], (4 * c)[:, None, None] + a4]
+    sh = BSH[(4 * r)[:, None, None] + a4[:, None], (4 * c)[:, None, None] + a4]
+    for e in range(4):
+        x = 4 + 4 * e
+        S = sv[:, :, e].repeat_interleave(4, 1)  # (n, 16) per row
+        L = A[:, 4:20, x - 4:x + 4].permute(2, 0, 1)
+        A[:, 4:20, x - 3:x + 3] = _edge_luma(L, S, al, be, cr).permute(1, 2, 0)
+    for e in range(4):
+        y = 4 + 4 * e
+        S = sh[:, e, :].repeat_interleave(4, 1)  # (n, 16) per column
+        L = A[:, y - 4:y + 4, 4:20].permute(1, 0, 2)
+        A[:, y - 3:y + 3, 4:20] = _edge_luma(L, S, al, be, cr).permute(1, 0, 2)
+    Yp[iy, ix] = A
+    cy = (8 * r)[:, None, None] + a10[:, None]
+    cx = (8 * c)[:, None, None] + a10
+    for P in Cp:
+        C = P[cy, cx]  # (n, 10, 10)
+        for e in range(2):
+            x = 2 + 4 * e
+            S = sv[:, :, 2 * e].repeat_interleave(2, 1)
+            L = C[:, 2:10, x - 2:x + 2].permute(2, 0, 1)
+            C[:, 2:10, x - 1:x + 1] = _edge_chroma(
+                L, S, alc, bec, crc).permute(1, 2, 0)
+        for e in range(2):
+            y = 2 + 4 * e
+            S = sh[:, 2 * e, :].repeat_interleave(2, 1)
+            L = C[:, y - 2:y + 2, 2:10].permute(1, 0, 2)
+            C[:, y - 1:y + 1, 2:10] = _edge_chroma(
+                L, S, alc, bec, crc).permute(1, 0, 2)
+        P[cy, cx] = C
+
+
 def deblock_plain(rec_y, rec_u, rec_v, BSV, BSH, qp: int, qp_c: int):
     """Full-strength in-loop filter (rd.py:1800 `deblock_device_full`).
 
@@ -458,57 +513,17 @@ def deblock_plain(rec_y, rec_u, rec_v, BSV, BSH, qp: int, qp_c: int):
     disjoint regions, and every MB whose region meets (r, c)'s comes
     before it in raster order exactly when it comes on an earlier
     diagonal.  So this version filters one anti-diagonal at a time, its
-    MBs side by side, with the same result.  Per MB: luma vertical edges
-    0-3, luma horizontal edges 0-3, then U and V, vertical then
-    horizontal.  Returns new (Y, U, V) int32 planes."""
+    MBs side by side (`deblock_mbs`), with the same result.  Returns new
+    (Y, U, V) int32 planes."""
     H, W = rec_y.shape
     n_my, n_mx = H // 16, W // 16
     dev = rec_y.device
-    al, be, cr = _thresholds(qp, dev)
-    alc, bec, crc = _thresholds(qp_c, dev)
-    Yp = torch.nn.functional.pad(rec_y, (4, 0, 4, 0)).contiguous()
-    Cp = [torch.nn.functional.pad(p, (2, 0, 2, 0)).contiguous()
-          for p in (rec_u, rec_v)]
-    a20 = torch.arange(20, device=dev)
-    a10 = torch.arange(10, device=dev)
-    a4 = torch.arange(4, device=dev)
+    thr = (_thresholds(qp, dev), _thresholds(qp_c, dev))
+    Yp, Cp = deblock_pad(rec_y, rec_u, rec_v)
     for t in range(2 * n_my + n_mx - 2):
         r0 = max(0, (t - n_mx + 2) // 2)
         r = torch.arange(r0, min(n_my - 1, t // 2) + 1, device=dev)
-        c = t - 2 * r
-        iy = (16 * r)[:, None, None] + a20[:, None]
-        ix = (16 * c)[:, None, None] + a20
-        A = Yp[iy, ix]  # (n, 20, 20)
-        sv = BSV[(4 * r)[:, None, None] + a4[:, None], (4 * c)[:, None, None] + a4]
-        sh = BSH[(4 * r)[:, None, None] + a4[:, None], (4 * c)[:, None, None] + a4]
-        for e in range(4):
-            x = 4 + 4 * e
-            S = sv[:, :, e].repeat_interleave(4, 1)  # (n, 16) per row
-            L = A[:, 4:20, x - 4:x + 4].permute(2, 0, 1)
-            A[:, 4:20, x - 3:x + 3] = _edge_luma(L, S, al, be, cr).permute(1, 2, 0)
-        for e in range(4):
-            y = 4 + 4 * e
-            S = sh[:, e, :].repeat_interleave(4, 1)  # (n, 16) per column
-            L = A[:, y - 4:y + 4, 4:20].permute(1, 0, 2)
-            A[:, y - 3:y + 3, 4:20] = _edge_luma(L, S, al, be, cr).permute(1, 0, 2)
-        Yp[iy, ix] = A
-        cy = (8 * r)[:, None, None] + a10[:, None]
-        cx = (8 * c)[:, None, None] + a10
-        for P in Cp:
-            C = P[cy, cx]  # (n, 10, 10)
-            for e in range(2):
-                x = 2 + 4 * e
-                S = sv[:, :, 2 * e].repeat_interleave(2, 1)
-                L = C[:, 2:10, x - 2:x + 2].permute(2, 0, 1)
-                C[:, 2:10, x - 1:x + 1] = _edge_chroma(
-                    L, S, alc, bec, crc).permute(1, 2, 0)
-            for e in range(2):
-                y = 2 + 4 * e
-                S = sh[:, 2 * e, :].repeat_interleave(2, 1)
-                L = C[:, y - 2:y + 2, 2:10].permute(1, 0, 2)
-                C[:, y - 1:y + 1, 2:10] = _edge_chroma(
-                    L, S, alc, bec, crc).permute(1, 0, 2)
-            P[cy, cx] = C
+        deblock_mbs(Yp, Cp, BSV, BSH, r, t - 2 * r, thr)
     return (Yp[4:, 4:].contiguous(), Cp[0][2:, 2:].contiguous(),
             Cp[1][2:, 2:].contiguous())
 

@@ -76,7 +76,8 @@ def _thresholds(qp: int):
 
 
 def deblock(rec_y, rec_u, rec_v, BSV, BSH, qp: int, qp_c: int):
-    """Filtered copies (Y, U, V) of the int32 recon planes."""
+    """Filtered copies (Y, U, V) of the int32 recon planes, in one launch
+    of a persistent kernel; the inputs stay as they are."""
     if rec_y.device.type == "cpu":
         return deblock_plain(rec_y, rec_u, rec_v, BSV, BSH, qp, qp_c)
     dev = rec_y.device
@@ -91,10 +92,13 @@ def deblock(rec_y, rec_u, rec_v, BSV, BSH, qp: int, qp_c: int):
         check_tensor("deblock", name, x, shape, _I32, dev)
     thr = (ctypes.c_int * 12)(*_thresholds(qp), *_thresholds(qp_c))
     Y, U, V = (torch.empty_like(x) for x in (rec_y, rec_u, rec_v))
-    rc = kernel_fn("deblock", "deblock", "pppppiipppp" + "p")(
+    # the blocks' row ticket, then each MB row's filtered columns (the C
+    # entry zeroes them)
+    sync = torch.empty(H // 16 + 1, dtype=_I32, device=dev)
+    rc = kernel_fn("deblock", "deblock", "pppppii" + "ppppp" + "p")(
         rec_y.data_ptr(), rec_u.data_ptr(), rec_v.data_ptr(), BSV.data_ptr(),
         BSH.data_ptr(), H, W, ctypes.addressof(thr), Y.data_ptr(),
-        U.data_ptr(), V.data_ptr(), stream_of(rec_y))
+        U.data_ptr(), V.data_ptr(), sync.data_ptr(), stream_of(rec_y))
     check_launch(rc, "deblock")
     deblock.launches += 1
     return Y, U, V

@@ -26,12 +26,15 @@ mc_luma_win_plain = rd_b.mc_luma_win_plain
 mc_chroma_b_plain = rd_b.mc_chroma_b_plain
 
 _I32 = torch.int32
+# the (h, w) units qpel_refine takes: the partitions and sub-partitions
+_SHAPES = ((16, 16), (8, 16), (16, 8), (8, 8), (4, 8), (8, 4), (4, 4))
 
 
 def qpel_refine(banks, cur_y, ref, imvx, imvy, y0, x0, px, py, wp,
                 lam_satd: int, h: int, w: int):
-    """49-point quarter-pel refinement of n (h, w) units.  Returns
-    (mvx, mvy) (n,), pred (n, h, w), cost (n,), int32."""
+    """49-point quarter-pel refinement of n (h, w) units (bank samples in
+    0..255, as the reference banks hold).  Returns (mvx, mvy) (n,), pred
+    (n, h, w), cost (n,), int32."""
     if banks.device.type == "cpu":
         return qpel_refine_plain(banks, cur_y, ref, imvx, imvy, y0, x0, px,
                                  py, wp, lam_satd, h, w)
@@ -41,7 +44,7 @@ def qpel_refine(banks, cur_y, ref, imvx, imvy, y0, x0, px, py, wp,
     for name, x in (("ref", ref), ("imvx", imvx), ("imvy", imvy), ("y0", y0),
                     ("x0", x0), ("px", px), ("py", py)):
         check_tensor("qpel_refine", name, x, (n,), _I32, banks.device)
-    if h not in (4, 8, 16) or w not in (4, 8, 16):
+    if (h, w) not in _SHAPES:
         raise ValueError(f"qpel_refine: unit {h}x{w} is not a partition")
     dev = banks.device
     mvx = torch.empty(n, dtype=_I32, device=dev)

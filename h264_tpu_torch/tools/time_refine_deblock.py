@@ -1,0 +1,424 @@
+"""K4 ``qpel_refine`` and K6 ``deblock`` on the main path's inputs, on one
+CUDA card: per-shape and per-picture times, K6's chain and launch
+profile, and K1 on P and B pictures.  ``chip_smoke.py`` times with the
+same functions.
+
+    python -m h264_tpu_torch.tools.time_refine_deblock [--out DIR]
+    python h264_tpu_torch/tools/time_refine_deblock.py --root DIR [--out DIR]
+    python -m h264_tpu_torch.tools.time_refine_deblock --trial [--out DIR]
+
+Encodes the bench configuration (IPB, one B picture between anchors, QP
+28, 5 references, search range 28, explicit WP; ``moving_frames``, 5
+frames) at CIF and 1280x720 with every P and B kernel entry recorded, and
+times on the second P and the second B picture's inputs:
+- each ``qpel_refine`` call (one shape each), its device time queued
+  behind a spin of the card (the host's launch time excluded), and the
+  picture's calls back to back (CUDA events, as ``chip_smoke.py`` times
+  every kernel; the median of 5 rounds);
+- the ``deblock`` call, the same two ways;
+- K1 ``intra_commit_scan`` on the picture's scan state (its intra MBs).
+Then K6's chain on built inputs: a 16x16 picture, an MB's step along a
+row (1280x16) and down a column (16x1088), CIF and 1280x720 pictures
+beside their chain (``deblock_chain``); and ``torch.profiler`` over one
+``deblock`` call and over an I + P encode: the device kernels, copies and
+memsets each makes.  With ``--trial``, also K6 built without the fence
+before each release, beside K6 as it is (``trial_no_fence``).
+
+With ``--root`` the package is imported from the checkout DIR, so that an
+earlier version of the kernels is timed by the same script in the same
+call on the same card.  Prints the card's name and power limit and one
+JSON object (also written to DIR/time_refine_deblock[-TAG].json with
+``--out``).  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+CIF, HD = (352, 288), (1280, 720)
+SEED = 20260717
+# the kernel sources the bench configuration's pictures run
+STEMS = ("intra_commit", "ref_bank", "search_grid", "qpel", "inter_tq",
+         "deblock", "b_direct")
+
+
+def power_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({e})"
+
+
+# the spin each timed call is queued behind: 4e6 clocks, about 2 ms on an
+# H100, longer than the host takes to launch a picture's calls (up to
+# 0.75 ms seen), so that they start back to back on the card
+SPIN_CLOCKS = 4_000_000
+
+
+def spin_ms(fn, reps: int) -> float:
+    """Device time of one call of fn: each timed call is queued behind a
+    spin of the card, so the host's launch time does not count."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CLOCKS)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def events_ms(fn, reps: int) -> float:
+    """Mean time of fn over reps calls back to back (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def events_rounds(fn, reps: int, rounds: int = 5) -> tuple:
+    """fn back to back, `rounds` times: each round's mean time a call by
+    CUDA events, and on the host's clock up to the last launch (before the
+    synchronize: the launches' own cost).  Where the host's time is the
+    longer, a call's time is the host's, and that wanders from round to
+    round."""
+    import torch
+
+    ev, host = [], []
+    for _ in range(rounds):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        ev.append(a.elapsed_time(b) / reps)
+        host.append((t1 - t0) * 1e3 / reps)
+    return ev, host
+
+
+def back_to_back(fn, reps: int) -> dict:
+    """``events_rounds`` of fn: the medians and each round's figures."""
+    import statistics
+
+    ev, host = events_rounds(fn, reps)
+    return {"events_ms": statistics.median(ev), "events_rounds_ms": ev,
+            "host_ms": statistics.median(host), "host_rounds_ms": host}
+
+
+def copy_scan(s):
+    """A copy of an intra commit scan state (K1 updates its carry in
+    place)."""
+    return dataclasses.replace(s, **{
+        f.name: getattr(s, f.name).clone()
+        for f in dataclasses.fields(s)
+        if hasattr(getattr(s, f.name), "clone")})
+
+
+def scan_recording(k, scans: list):
+    """The kernel entries `k` (PKernels or BKernels) with a copy of each
+    picture's K1 scan state appended to `scans` before its scan runs."""
+    def scan(s):
+        scans.append(copy_scan(s))
+        return k.intra_scan(s)
+    return dataclasses.replace(k, intra_scan=scan)
+
+
+def by_picture(calls):
+    """Recorded entry calls cut into pictures: a picture's calls end with
+    its one ``deblock`` call."""
+    pics = [[]]
+    for name, a in calls:
+        pics[-1].append((name, a))
+        if name == "deblock":
+            pics.append([])
+    return pics[:-1]
+
+
+def record_bench(size):
+    """The bench configuration's recorded P and B pictures, in coding
+    order: {"P": [(calls, scan)], "B": [...]}, each picture's entry calls
+    and a copy of its K1 scan state taken before the scan."""
+    import torch
+    from h264_tpu_torch.encoder import rd_b, rd_p
+    from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
+    from h264_tpu_torch.tools.synthseq import moving_frames
+
+    cfg = EncoderConfig(width=size[0], height=size[1], qp=28, fast=True,
+                        rd=True, entropy="cabac", b_frames=1,
+                        num_ref_frames=5, search_range=28,
+                        weighted_pred=True)
+    enc = H264Encoder(cfg, device="cuda")
+    scans = {"P": [], "B": []}
+    pk, pcalls = rd_p.recording(rd_p.default_kernels())
+    bk, bcalls = rd_b.recording(rd_b.default_kernels())
+    enc._p_kernels = scan_recording(pk, scans["P"])
+    enc._b_kernels = scan_recording(bk, scans["B"])
+    list(enc.encode_stream(moving_frames(5, *size, seed=SEED)))
+    torch.cuda.synchronize()
+    return {kind: list(zip(by_picture(calls), scans[kind]))
+            for kind, calls in (("P", pcalls), ("B", bcalls))}
+
+
+def picture_times(calls, scan, reps: int = 20) -> dict:
+    """K4 per shape and per picture, K6 and K1 of one recorded picture: on
+    the device, and back to back (the median of 5 rounds, each round's
+    beside it, on the host's clock too)."""
+    from h264_tpu_torch.kernels import deblock as K6
+    from h264_tpu_torch.kernels import intra_commit as K1
+    from h264_tpu_torch.kernels import qpel as K4
+
+    refine = [a for n, a in calls if n == "qpel_refine"]
+    dbk = [a for n, a in calls if n == "deblock"][0]
+
+    def all_refine():
+        for a in refine:
+            K4.qpel_refine(*a)
+
+    shapes = [[a[11], a[12], int(a[2].numel()),
+               spin_ms(lambda a=a: K4.qpel_refine(*a), reps)] for a in refine]
+    k1 = copy_scan(scan)
+    return {
+        "qpel_refine": {
+            "shapes": shapes,  # [h, w, units, device ms] of each call
+            "device_ms": sum(x[3] for x in shapes),
+            "picture_device_ms": spin_ms(all_refine, reps),
+            **back_to_back(all_refine, reps),
+            "launches": len(refine)},
+        "deblock": {"device_ms": spin_ms(lambda: K6.deblock(*dbk), reps),
+                    **back_to_back(lambda: K6.deblock(*dbk), reps)},
+        "intra_commit": {
+            "device_ms": spin_ms(lambda: K1.intra_commit_scan(k1), reps),
+            **back_to_back(lambda: K1.intra_commit_scan(k1), reps),
+            "intra_mbs": int(scan.is_intra.sum()),
+            "mbs": int(scan.is_intra.numel())}}
+
+
+def deblock_case(W: int, H: int, seed: int = SEED):
+    """Blocky W x H planes (flat 4x4 blocks a few levels apart, plus noise)
+    and random strengths 0-4 (0 on the picture's edges), on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    H4, W4 = H // 4, W // 4
+    base = np.repeat(np.repeat(rng.randint(90, 130, (H4, W4)), 4, 0), 4, 1)
+    y = base + rng.randint(-2, 3, (H, W))
+    u, v = (np.repeat(np.repeat(rng.randint(110, 140, (H4, W4)), 2, 0), 2, 1)
+            for _ in range(2))
+    bsv, bsh = (rng.randint(0, 5, (H4, W4)) for _ in range(2))
+    bsv[:, 0] = 0
+    bsh[0, :] = 0
+    return tuple(torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32,
+                                 device="cuda")
+                 for x in (y, u, v, bsv, bsh)) + (28, 28)
+
+
+def deblock_chain(reps: int = 20) -> dict:
+    """K6's chain on built inputs (``deblock_case``): a 16x16 picture (one
+    MB with the launch and the memset); the step of an MB along a row of
+    80 MBs in one block (1280x16, no waits) and down a column of 68 MBs,
+    each waiting for the one above in another block (16x1088, a hand-over
+    each); and CIF and 1280x720 pictures beside their chain.  Every path
+    to a picture's last MB holds n_mx + n_my - 2 steps along a row and
+    n_my - 1 hand-overs (MB (r, c) waits for (r, c-1) and (r-1, c+1)), so
+    the chain is the 16x16 picture plus those steps."""
+    from h264_tpu_torch.kernels import deblock as K6
+
+    def ms(W, H):
+        case = deblock_case(W, H)
+        return spin_ms(lambda: K6.deblock(*case), reps)
+
+    mb = ms(16, 16)
+    row = (ms(1280, 16) - mb) / 79
+    col = (ms(16, 1088) - mb) / 67
+    pictures = {}
+    for W, H in (CIF, HD):
+        n_mx, n_my = W // 16, H // 16
+        pictures[f"{W}x{H}"] = {
+            "built_ms": ms(W, H),
+            "chain_ms": mb + (n_mx + n_my - 2) * row + (n_my - 1) * col}
+    return {"mb_ms": mb, "row_step_ms": row, "column_step_ms": col,
+            "pictures": pictures}
+
+
+def trial_no_fence(reps: int = 20) -> dict:
+    """A trial: K6 built from copies of csrc/deblock.cu and common.cuh
+    whose ``publish`` has no fence before the release, beside the kernel
+    as it is, on the same built inputs (16x16, the 16x1088 column, the
+    1280x16 row, CIF, 1280x720), each trial call held equal to the plain
+    version.  Device ms per call, with and without the fence."""
+    import ctypes
+
+    import torch
+    from h264_tpu_torch import device as D
+    from h264_tpu_torch.kernels import deblock as K6
+
+    fence = "    __threadfence();\n    st_release(p, v);"
+    common = (D.CSRC / "common.cuh").read_text()
+    if common.count(fence) != 1:
+        raise RuntimeError("trial: publish's fence in common.cuh moved")
+    trial = D.BUILD_DIR / "trial"
+    trial.mkdir(parents=True, exist_ok=True)
+    (trial / "common.cuh").write_text(
+        common.replace(fence, "    st_release(p, v);"))
+    (trial / "deblock.cu").write_text((D.CSRC / "deblock.cu").read_text())
+    so = trial / "libdeblock_nofence_sm90a.so"
+    subprocess.run([D._nvcc(), *D.NVCC_FLAGS, "-o", str(so),
+                    str(trial / "deblock.cu")], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(so)).deblock
+    fn.argtypes = [D._CTYPES[c] for c in "pppppiipppppp"]
+    fn.restype = ctypes.c_int
+
+    def no_fence(y, u, v, bsv, bsh, qp, qp_c):
+        H, W = y.shape
+        thr = (ctypes.c_int * 12)(*K6._thresholds(qp), *K6._thresholds(qp_c))
+        out = [torch.empty_like(x) for x in (y, u, v)]
+        sync = torch.empty(H // 16 + 1, dtype=torch.int32, device=y.device)
+        rc = fn(*(x.data_ptr() for x in (y, u, v, bsv, bsh)), H, W,
+                ctypes.addressof(thr), *(x.data_ptr() for x in out),
+                sync.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"trial deblock: CUDA error {rc}")
+        return out
+
+    res = {}
+    for W, H in ((16, 16), (16, 1088), (1280, 16), CIF, HD):
+        case = deblock_case(W, H)
+        want = K6.deblock_plain(*case)
+        if not all(torch.equal(g, w) for g, w in zip(no_fence(*case), want)):
+            raise RuntimeError(f"trial deblock {W}x{H}: differs from plain")
+        res[f"{W}x{H}"] = {
+            "fence_ms": spin_ms(lambda: K6.deblock(*case), reps),
+            "no_fence_ms": spin_ms(lambda: no_fence(*case), reps)}
+    return res
+
+
+def device_ops(step) -> dict:
+    """torch.profiler over one step: its device kernels by name, and its
+    copies and memsets."""
+    from h264_tpu_torch.tools.devprof import device_profile
+
+    _, rep = device_profile(step, 10 ** 6)
+    out = {"kernels": {}, "memcpy": 0, "memset": 0,
+           "device_busy_ms": rep["device_busy_ms"]}
+    for name, v in rep["kernels"].items():
+        if name.startswith("Memcpy"):
+            out["memcpy"] += v["count"]
+        elif name.startswith("Memset"):
+            out["memset"] += v["count"]
+        else:
+            out["kernels"][name] = v["count"]
+    return out
+
+
+def deblock_profile() -> dict:
+    """The device operations of one CIF deblock call, and the deblock
+    kernels of an I + P encode at CIF (the I picture filters on the
+    host)."""
+    import torch
+    from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
+    from h264_tpu_torch.kernels import deblock as K6
+    from h264_tpu_torch.tools.synthseq import moving_frames
+
+    case = deblock_case(*CIF)
+    K6.deblock(*case)
+    torch.cuda.synchronize()
+    call = device_ops(lambda: K6.deblock(*case))
+    cfg = EncoderConfig(width=CIF[0], height=CIF[1], qp=28, fast=True,
+                        rd=True, entropy="cabac", b_frames=0,
+                        num_ref_frames=5, search_range=28,
+                        weighted_pred=True)
+    frames = moving_frames(2, *CIF, seed=SEED)
+    list(H264Encoder(cfg, device="cuda").encode_stream(frames))  # warm
+    before = K6.deblock.launches
+    enc = device_ops(lambda: list(H264Encoder(cfg, device="cuda")
+                                  .encode_stream(frames)))
+    return {"call": call,
+            "ip_encode": {"deblock_calls": K6.deblock.launches - before,
+                          "deblock_kernels": sum(
+                              c for n, c in enc["kernels"].items()
+                              if "deblock_kernel" in n),
+                          "memcpy": enc["memcpy"]}}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", help="import h264_tpu_torch from this checkout")
+    ap.add_argument("--out", help="directory for the JSON report")
+    ap.add_argument("--tag", default="", help="suffix of the report's name")
+    ap.add_argument("--trial", action="store_true",
+                    help="also time K6 without the fence before each release")
+    args = ap.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_refine_deblock: no CUDA device", file=sys.stderr)
+        return 2
+    import h264_tpu_torch
+    from h264_tpu_torch import device as D
+
+    t0 = time.perf_counter()
+    card = power_line()
+    print(card)
+    D.build_cuda(STEMS)
+    for stem in ("qpel", "deblock"):
+        for ln in D.build_log.get(stem, "").splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                print(f"  ptxas {stem}: {ln.strip()}")
+    report = {"package": str(pathlib.Path(h264_tpu_torch.__file__).parent),
+              "device": torch.cuda.get_device_name(0), "card": card}
+    for size in (CIF, HD):
+        pics = record_bench(size)
+        report[f"{size[0]}x{size[1]}"] = {
+            kind: picture_times(*pics[kind][1]) for kind in ("P", "B")}
+    report["deblock_chain"] = deblock_chain()
+    report["deblock_profile"] = deblock_profile()
+    if args.trial:
+        report["trial_no_fence"] = trial_no_fence()
+    report["seconds"] = time.perf_counter() - t0
+    line = json.dumps(report)
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        name = "time_refine_deblock" + (f"-{args.tag}" if args.tag else "")
+        (out / f"{name}.json").write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -346,6 +346,147 @@ def test_ssd_grid8_matches_plain_built(cuda, W, H, R, content, kind):
         assert int(want.max()) == 64 * 255 ** 2
 
 
+REFINE_SHAPES = [(16, 16), (8, 16), (16, 8), (8, 8), (4, 8), (8, 4), (4, 4)]
+
+
+def _refine_inputs(dev, h, w, content, seed, m=37):
+    """Built inputs of qpel_refine on a 176x144 picture with 2 references:
+    units at the four corners whose integer mvs put the window against and
+    past the bank's edges (every read clamped), then m random units; the
+    content random, or flat in bank and source (every candidate's SATD
+    the same)."""
+    rng = np.random.RandomState(seed)
+    Hs, Ws = 144, 176
+
+    def plane(hh, ww):
+        a = (np.full((hh, ww), 90) if content == "flat"
+             else rng.randint(0, 256, (hh, ww)))
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    banks = torch.stack([K2.ref_bank_plain(
+        plane(Hs, Ws), plane(Hs // 2, Ws // 2), plane(Hs // 2, Ws // 2))[0]
+        for _ in range(2)])
+    cur_y = plane(Hs, Ws)
+    y0 = np.r_[0, 0, Hs - h, Hs - h, rng.randint(0, Hs // h, m) * h]
+    x0 = np.r_[0, Ws - w, 0, Ws - w, rng.randint(0, Ws // w, m) * w]
+    imvy = np.r_[-34, -40, 33, 40, rng.randint(-36, 37, m)]
+    imvx = np.r_[-40, 34, -33, 40, rng.randint(-36, 37, m)]
+    n = len(y0)
+    unit = [torch.as_tensor(a, dtype=torch.int32, device=dev) for a in (
+        rng.randint(0, 2, n), imvx, imvy, y0, x0, rng.randint(-80, 81, n),
+        rng.randint(-80, 81, n))]
+    return banks, cur_y, unit
+
+
+@pytest.mark.parametrize("qp", [0, 51])
+@pytest.mark.parametrize("wp", [False, True], ids=["nowp", "wp"])
+@pytest.mark.parametrize("h,w", REFINE_SHAPES)
+def test_qpel_refine_matches_plain_built(cuda, h, w, wp, qp):
+    """qpel_refine on every shape, WP on and off, at the lambdas of QP 0
+    and 51, for n = 1, n = 7 and n = 41, windows at every corner of the
+    bank.  At 8x8 and smaller a block takes 5 units, so 7 and 41 leave a
+    partial last block; at 16x16, 16x8 and 8x16 these n give one unit a
+    block (test_qpel_refine_packs_large_units packs several)."""
+    banks, cur_y, unit = _refine_inputs(cuda, h, w, "random", h * w + qp)
+    wpt = ((torch.tensor([-128, 127], dtype=torch.int32, device=cuda),
+            torch.tensor([127, -128], dtype=torch.int32, device=cuda))
+           if wp else None)
+    lam = rd.lam_satd_of(_lam(qp))
+    for n in (1, 7, unit[0].shape[0]):
+        a = (banks, cur_y, *(x[:n].contiguous() for x in unit), wpt, lam, h,
+             w)
+        before = K4.qpel_refine.launches
+        got = K4.qpel_refine(*a)
+        assert K4.qpel_refine.launches == before + 1
+        want = K4.qpel_refine_plain(*a)
+        for name, g, x in zip(("mvx", "mvy", "pred", "cost"), got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), (n, name)
+
+
+@pytest.mark.parametrize("units", [2, 3, 4, 5])
+@pytest.mark.parametrize("wp", [False, True], ids=["nowp", "wp"])
+@pytest.mark.parametrize("h,w", [(16, 16), (16, 8), (8, 16)])
+def test_qpel_refine_packs_large_units(cuda, h, w, wp, units):
+    """At 16x16, 16x8 and 8x16 the C entry packs n / (4 SMs) units a block,
+    at most 5: n = units x 4 SMs + 1 packs `units` a block and leaves one
+    unit in the last block, which repeats it (random units tiled over the
+    picture, the four corner windows among them)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = units * 4 * sms + 1
+    banks, cur_y, unit = _refine_inputs(cuda, h, w, "random", n, m=n - 4)
+    wpt = ((torch.tensor([-128, 127], dtype=torch.int32, device=cuda),
+            torch.tensor([127, -128], dtype=torch.int32, device=cuda))
+           if wp else None)
+    a = (banks, cur_y, *unit, wpt, rd.lam_satd_of(_lam(28)), h, w)
+    got = K4.qpel_refine(*a)
+    want = K4.qpel_refine_plain(*a)
+    for name, g, x in zip(("mvx", "mvy", "pred", "cost"), got, want):
+        assert g.dtype == x.dtype and torch.equal(g, x), name
+
+
+@pytest.mark.parametrize("h,w", REFINE_SHAPES)
+def test_qpel_refine_flat_ties_keep_the_first(cuda, h, w):
+    """Flat bank and source with no rate: all 49 costs tie and the first
+    candidate (-3, -3) wins, as the plain version's argmin (the windows
+    kept inside the bank's flat interior: its half-pel planes are not flat
+    at its outer edge)."""
+    banks, cur_y, unit = _refine_inputs(cuda, h, w, "flat", 5)
+    unit[1], unit[2] = unit[1].clamp(-16, 16), unit[2].clamp(-16, 16)
+    a = (banks, cur_y, *unit, None, 0, h, w)
+    got = K4.qpel_refine(*a)
+    want = K4.qpel_refine_plain(*a)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert torch.equal(got[0], 4 * unit[1] - 3)
+    assert torch.equal(got[1], 4 * unit[2] - 3)
+
+
+def _deblock_inputs(dev, W, H, bs, seed):
+    """Blocky planes (flat 4x4 blocks a few levels apart, plus noise) and
+    strengths all 4 (the picture's edges too), all 0, random 0-4, or the
+    legacy path's 0-2."""
+    rng = np.random.RandomState(seed)
+    H4, W4 = H // 4, W // 4
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                               device=dev)
+
+    base = np.repeat(np.repeat(rng.randint(90, 130, (H4, W4)), 4, 0), 4, 1)
+    y = base + rng.randint(-2, 3, (H, W))
+    u, v = (np.repeat(np.repeat(rng.randint(110, 140, (H4, W4)), 2, 0), 2, 1)
+            + rng.randint(-1, 2, (H // 2, W // 2)) for _ in range(2))
+    hi = {"all4": 5, "all0": 1, "random": 5, "legacy": 3}[bs]
+    lo = 4 if bs == "all4" else 0
+    bsv, bsh = (rng.randint(lo, hi, (H4, W4)) for _ in range(2))
+    return t(y), t(u), t(v), t(bsv), t(bsh)
+
+
+@pytest.mark.parametrize("qp", [0, 28, 51])
+@pytest.mark.parametrize("bs", ["all4", "all0", "random", "legacy"])
+@pytest.mark.parametrize("W,H", [(16, 16), (16, 1088), (1280, 16),
+                                 (352, 288), (1280, 720)],
+                         ids=lambda v: str(v))
+def test_deblock_matches_plain_repeated(cuda, W, H, bs, qp):
+    """K6 bit-equal to its plain version 20 times over on one stream (the
+    blocks hand MBs over through row counters, and no race checker runs
+    on the card), one launch per call, its inputs unchanged."""
+    args = _deblock_inputs(cuda, W, H, bs, W + H + qp)
+    keep = [x.clone() for x in args]
+    qpc = chroma_qp(qp, 0)
+    want = K6.deblock_plain(*args, qp, qpc)
+    if bs == "all4" and qp == 51:
+        assert not torch.equal(want[0], args[0])  # it filtered
+    for _ in range(20):
+        before = K6.deblock.launches
+        got = K6.deblock(*args, qp, qpc)
+        assert K6.deblock.launches == before + 1
+        for g, x, name in zip(got, want, "YUV"):
+            assert torch.equal(g, x), name
+    for x, k in zip(args, keep):
+        assert torch.equal(x, k)
+
+
 @pytest.mark.parametrize("qp", [28, 51])
 def test_t8_p_kernels_match_plain(cuda, qp):
     """Every P entry, K9 included, on the calls of a T8 IPPP encode."""
