@@ -36,7 +36,8 @@
    down a 16x1088 column, CIF and 720p pictures beside their chain), and
    requires, by ``torch.profiler``, one kernel and no copy per ``deblock``
    call and one ``deblock`` kernel in an I + P encode
-   (h264_tpu_torch/tools/time_refine_deblock.py);
+   (h264_tpu_torch/tools/time_kernels.py, which also gives ``coarse_search``
+   and ``inter_luma_tq`` their device times on those pictures);
 4. holds every entry of the B pipeline (its own K7 ``b_direct``,
    ``mc_luma_win``, ``mc_chroma_b``, ``strengths_b``, and the K3-K6
    entries it shares) against its plain version on the card, bit for bit,
@@ -250,6 +251,10 @@ OPS_I4 = OPS_TQ + 3
 # decision: 29) and the coeff_cost scan (3); its float32 part (three
 # conversions, six products, a difference and a sum: 12, FP32 pipe)
 OPS_INTER_TQ, FOPS_INTER_TQ = OPS_TQ + 32, 12
+# inter_luma_tq: the same, with the residual (|d| <= 255) and its forward
+# transform (|c| <= 36 x 255) in 16-bit pairs, a half each (1 + 4 -> 2.5);
+# inter_chroma_tq keeps OPS_INTER_TQ
+OPS_INTER_LUMA = OPS_INTER_TQ - 2.5
 # qpel_refine (csrc/qpel.cu): per distinct quarter-pel sample of a unit
 # the two bank samples' rounded mean, a quarter (__vavgu4, 4 u8 samples);
 # per sample of a candidate its residual (1), Hadamard share (4), absolute
@@ -563,7 +568,7 @@ def p_work(name: str, args):
         pred, orig = args[0], args[1]
         NC, n_mb = pred.shape[:2]
         out = NC * n_mb * (256 + 256 + 8) * 4
-        return (nb(pred, orig) + out, pred.numel() * OPS_INTER_TQ,
+        return (nb(pred, orig) + out, int(pred.numel() * OPS_INTER_LUMA),
                 pred.numel() * FOPS_INTER_TQ)
     if name == "inter_chroma_tq":
         n_mb = args[0].shape[0]
@@ -1108,7 +1113,7 @@ def main(argv=None) -> int:
                                                       strengths_b_inputs)
     from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
     from h264_tpu_torch.tools.t8_cases import built_cases as t8_cases
-    from h264_tpu_torch.tools import time_refine_deblock as TRD
+    from h264_tpu_torch.tools import time_kernels as TK
 
     dev = torch.device("cuda")
     report: dict = {"device": torch.cuda.get_device_name(0)}
@@ -1137,7 +1142,7 @@ def main(argv=None) -> int:
 
     # back to back (CUDA events) and on the device (each call queued behind
     # a spin of the card)
-    cuda_ms, device_ms = TRD.events_ms, TRD.spin_ms
+    cuda_ms, device_ms = TK.events_ms, TK.spin_ms
 
     def k1_state(W, H, is_intra, seed=SEED):
         """The intra commit scan's state of a synthetic W x H picture at QP
@@ -1357,10 +1362,13 @@ def main(argv=None) -> int:
     def picture_device(size, kind, calls, scan):
         """K4's, K6's and K1's device times on one recorded picture, and
         the bound of each K4 call."""
-        t = TRD.picture_times(calls, scan, reps=10)
+        t = TK.picture_times(calls, scan, reps=10)
         refine = [a for n, a in calls if n == "qpel_refine"]
         for x, a in zip(t["qpel_refine"]["shapes"], refine):
             x.append(bound_ms(*p_work("qpel_refine", a))[0])
+        for name in ("coarse_search", "inter_luma_tq"):
+            for a in [a for n, a in calls if n == name]:
+                t[name]["bound_ms"] = bound_ms(*p_work(name, a))[0]
         on_device.setdefault(f"{size[0]}x{size[1]}", {})[kind] = t
 
     for size in (CIF, HD):
@@ -1369,7 +1377,7 @@ def main(argv=None) -> int:
                 enc = H264Encoder(p_cfg(size, qp, wp), device="cuda")
                 k_rec, calls = rd_p.recording(kern)
                 scans = []
-                enc._p_kernels = TRD.scan_recording(k_rec, scans)
+                enc._p_kernels = TK.scan_recording(k_rec, scans)
                 list(enc.encode_stream(pframes[size][:3]))
                 hold_p(calls, f"{size[0]}x{size[1]} QP {qp} WP {wp}")
                 p_names = rd_p.entries_of(False)
@@ -1396,10 +1404,15 @@ def main(argv=None) -> int:
                               for n in K3_LIB))
 
     def print_device(size, kind):
-        """One picture's K4 (per shape, with each call's bound), K6 and K1
-        device times."""
+        """One picture's K3 and K5 luma, K4 (per shape, with each call's
+        bound), K6 and K1 device times."""
         t = on_device[f"{size[0]}x{size[1]}"][kind]
         q, d = t["qpel_refine"], t["deblock"]
+        print(f"time {size[0]}x{size[1]} per {kind} picture on the device "
+              "(ms; back to back, median of 5 rounds; bound): " + ", ".join(
+                  f"{n} {t[n]['device_ms']:.4f} ({t[n]['events_ms']:.4f}; "
+                  f"{t[n]['bound_ms']:.5f})"
+                  for n in ("coarse_search", "inter_luma_tq") if n in t))
         print(f"time {size[0]}x{size[1]} per {kind} picture on the device "
               f"(ms; back to back, median of {len(q['events_rounds_ms'])} "
               f"rounds): qpel_refine {q['picture_device_ms']:.4f} "
@@ -1419,8 +1432,8 @@ def main(argv=None) -> int:
     # I + P encode
     for size in (CIF, HD):
         print_device(size, "P")
-    k6_chain = TRD.deblock_chain()
-    k6_prof = TRD.deblock_profile()
+    k6_chain = TK.deblock_chain()
+    k6_prof = TK.deblock_profile()
     k6_call, k6_enc = k6_prof["call"], k6_prof["ip_encode"]
     if (list(k6_call["kernels"].values()) != [1] or k6_call["memcpy"]
             or k6_enc["deblock_calls"] != 1
@@ -1614,7 +1627,7 @@ def main(argv=None) -> int:
             enc = H264Encoder(b_cfg(size, qp), device="cuda")
             k_rec, calls = rd_b.recording(bkern)
             scans = []
-            enc._b_kernels = TRD.scan_recording(k_rec, scans)
+            enc._b_kernels = TK.scan_recording(k_rec, scans)
             list(enc.encode_stream(bframes[size][:5]))
             torch.cuda.synchronize()
             for name, cargs in calls:

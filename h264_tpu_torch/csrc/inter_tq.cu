@@ -23,21 +23,44 @@
 // / __fsub_rn, which nvcc never contracts into an FMA.  Integer parts as
 // in the intra commit: wrapping products, arithmetic shifts.
 //
-// Design.  inter_luma_tq: 16 threads per (candidate, MB), one per 4x4
-// block, four problems per block of 64 threads; the thresholding needs the
-// MB's 16 block costs, shared through shared memory.  inter_chroma_tq: 8
-// threads per MB (2 planes x 4 blocks), eight MBs per block.
-// i16_candidate: 64 threads per MB, as in the intra commit.
+// Design.  inter_luma_tq: a warp per (candidate, MB) problem, eight a
+// block of 256 threads; lane 2 blk + h holds rows 2h and 2h + 1 of 4x4
+// block blk (below, before luma_kernel).  inter_chroma_tq: 8 threads per
+// MB (2 planes x 4 blocks), eight MBs per block.  i16_candidate: 64
+// threads per MB, as in the intra commit.
 //
-// Bound.  Operations: about 61 integer operations per coefficient for
-// transform, quant, RDOQ (a second inverse and forward transform) and
-// recon, and 12 float32 ones for RDOQ's cost, over the candidates' 256
-// samples per MB (chip_smoke.py OPS_INTER_TQ).
+// What held inter_luma_tq back, and what this design does about it.  Its
+// first version gave each thread a whole 4x4 block in five 16-int arrays:
+// 128 registers and a 64-byte stack frame, 25 % occupancy; coeff_cost
+// indexed a level array by a table value, so that array lived in local
+// memory; the RDOQ's dequant, inverse and forward transform ran serially
+// in one thread; and every load and store was a 4-byte access at a 16-int
+// stride.  Here two lanes share a block, eight coefficients each in
+// statically indexed registers (48 registers, no stack frame, 5 blocks of
+// 256 threads an SM: 62.5 % occupancy); a column pass costs each lane two
+// shuffles a column; coeff_cost is bit arithmetic on the block's zig-zag
+// masks; the 8x8 and MB thresholds, SSD and bits are xor shuffles within
+// the warp, with no shared memory or barrier; and each lane loads its
+// rows of pred and orig and stores its rows of rec and lev as 16-byte
+// vectors, a warp's accesses one contiguous 1 KB row of problems.  Two
+// lanes a block rather than four: the problem then fits one warp, and a
+// lane's rows keep their parity, so every quant, dequant and RDOQ
+// constant of a position is static and only the zig-zag index depends on
+// the lane (tests/test_torch_search_tq.py holds this lane-by-lane form
+// against the plain version).
 //
-// ptxas (sm_90a, nvcc -O3): luma_kernel and chroma_kernel 128 and 190
-// registers with 64- and 80-byte stack frames (the per-thread 4x4 arrays),
-// 768 B shared memory each; i16_kernel 64 registers, 4,056 B shared
-// memory; no spills.
+// Bound.  Bytes: pred and orig read, lev, rec, D8 and cb8 written once
+// (7.8 MB for a CIF P picture's six candidates, 0.0023 ms at 3.35 TB/s).
+// Operations, by chip_smoke.py's rule (OPS_INTER_LUMA, FOPS_INTER_TQ):
+// 58.5 integer operations per coefficient for transform, quant, RDOQ (a
+// second inverse and forward transform), coeff_cost and recon, the
+// residual and its forward transform in 16-bit pairs, and 12 float32 ones
+// for RDOQ's cost on the FP32 pipe; below the bytes at every size.
+//
+// ptxas (sm_90a, nvcc -O3): luma_kernel 48 registers, no stack frame, no
+// shared memory; chroma_kernel 128 registers with a 64-byte stack frame
+// (its per-thread 4x4 arrays), 768 B shared memory; i16_kernel 64
+// registers, 4,056 B shared memory; no spills.
 
 #include "common.cuh"
 
@@ -92,73 +115,231 @@ __device__ void rdoq4(const int* res, int* lev, int per, int rem, float lam32) {
   }
 }
 
-__global__ void __launch_bounds__(64)
+// ---------------------------------------------------------------------------
+// inter_luma_tq: a warp per (candidate, MB), two lanes per 4x4 block
+// ---------------------------------------------------------------------------
+// Lane 2 blk + h of a warp holds rows 2h and 2h + 1 of block blk = 4 br +
+// bc in registers.  Row passes run in the lane; a column pass needs the
+// partner's two rows only as two partial sums a column (lane ^ 1), because
+// every output of a 4-point pass is a sum of a term from rows 0-1 and one
+// from rows 2-3, the >> 1 of the inverse applying to single inputs.
+// Within a lane a row's parity is static, so quant, dequant and RDOQ
+// constants are too; only the zig-zag position depends on h.  Lane bits:
+// 0 h, 1-2 bc, 3-4 br, so an 8x8 unit's blocks differ in bits 1 and 3 and
+// the MB's units in bits 2 and 4.
+constexpr int kLumaWarps = 8;  // problems a block
+constexpr unsigned kFull = 0xffffffffu;
+
+// zig-zag index of raster position k = 4 y + x (inverse of kZz4), nibble k
+constexpr unsigned long long kZzOf = 0xFEA9DB83C7426510ULL;
+__device__ __forceinline__ constexpr int zz_of(int k) {
+  return (int)((kZzOf >> (4 * k)) & 15);
+}
+__device__ __forceinline__ constexpr int cls_of(int j, int x) {
+  return ((j | x) & 1) == 0 ? 0 : ((j & x) & 1) ? 1 : 2;
+}
+
+__device__ __forceinline__ void fwd_row(int (&v)[4]) {
+  const int t0 = v[0] + v[3], t1 = v[1] + v[2], t2 = v[1] - v[2],
+            t3 = v[0] - v[3];
+  v[0] = t0 + t1;
+  v[1] = shl(t3, 1) + t2;
+  v[2] = t0 - t1;
+  v[3] = t3 - shl(t2, 1);
+}
+
+__device__ __forceinline__ void inv_row(int (&v)[4]) {
+  const int e0 = v[0] + v[2], e1 = v[0] - v[2], e2 = (v[1] >> 1) - v[3],
+            e3 = v[1] + (v[3] >> 1);
+  v[0] = e0 + e3;
+  v[1] = e1 + e2;
+  v[2] = e1 - e2;
+  v[3] = e0 - e3;
+}
+
+// column pass of forward4x4: with rows p0..p3, lane h = 0 keeps b0 = (p0 +
+// p1) + (p2 + p3), b1 = (2 p0 + p1) + (-p2 - 2 p3); lane h = 1 keeps b2 =
+// (p0 - p1) + (p3 - p2), b3 = (p0 - 2 p1) + (2 p2 - p3)
+__device__ __forceinline__ void fwd_cols(int (&r0)[4], int (&r1)[4], int h) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int a = r0[x], b = r1[x];
+    const int k0 = h ? b - a : a + b, k1 = h ? shl(a, 1) - b : shl(a, 1) + b;
+    const int s0 = h ? a + b : a - b, s1 = h ? -a - shl(b, 1) : a - shl(b, 1);
+    r0[x] = k0 + __shfl_xor_sync(kFull, s0, 1);
+    r1[x] = k1 + __shfl_xor_sync(kFull, s1, 1);
+  }
+}
+
+// column pass of inverse4x4: with rows w0..w3, h = 0 keeps (w0 + w1) + (w2
+// + (w3 >> 1)), (w0 + (w1 >> 1)) + (-w2 - w3); h = 1 keeps (w0 - (w1 >>
+// 1)) + (w3 - w2), (w0 - w1) + (w2 - (w3 >> 1))
+__device__ __forceinline__ void inv_cols(int (&r0)[4], int (&r1)[4], int h) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int a = r0[x], b = r1[x], hb = b >> 1;
+    const int k0 = h ? b - a : a + b, k1 = h ? a - hb : a + hb;
+    const int s0 = h ? a + hb : a - hb, s1 = h ? -a - b : a - b;
+    r0[x] = k0 + __shfl_xor_sync(kFull, s0, 1);
+    r1[x] = k1 + __shfl_xor_sync(kFull, s1, 1);
+  }
+}
+
+// JM coeff_cost from the block's nonzero mask M and |level| > 1 mask B in
+// zig-zag order, scanned from position 0: a nonzero at z after a run of r
+// zeros costs kCostRun[r] = [r < 1] + [r < 3] + [r < 6] (9 when |level|
+// > 1).  r < k exactly when a nonzero, or the scan's start (bit 0 of E,
+// position -1), lies within k positions before z.
+__device__ __forceinline__ int coeff_cost_mask(unsigned M, unsigned B) {
+  const unsigned E = (M << 1) | 1u, S = (M & ~B) << 1;
+  const unsigned n1 = E << 1, n3 = n1 | (n1 << 1) | (n1 << 2),
+                 n6 = n3 | (n3 << 3);
+  return 9 * __popc(B) + __popc(S & n1) + __popc(S & n3) + __popc(S & n6);
+}
+
+__global__ void __launch_bounds__(32 * kLumaWarps)
 luma_kernel(const int* __restrict__ pred, const int* __restrict__ orig,
-            int n_prob, int n_mb, int qp, int lam, int* out_lev, int* out_rec,
-            int* out_d8, int* out_cb8) {
-  __shared__ int cost4[4][16], d4[4][16], cb4[4][16];
-  const int tid = threadIdx.x, sub = tid >> 4, blk = tid & 15;
-  const int p = blockIdx.x * 4 + sub;
-  const bool live = p < n_prob;
-  const int mb = live ? p % n_mb : 0;
-  const int br = blk >> 2, bc = blk & 3;
-  const int per = qp / 6, rem = qp % 6, off = 342 << (4 + per);
+            int n_prob, int n_mb, int qp, int lam, int* __restrict__ out_lev,
+            int* __restrict__ out_rec, int* __restrict__ out_d8,
+            int* __restrict__ out_cb8) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kLumaWarps + (threadIdx.x >> 5);
+  if (p >= n_prob) return;  // the whole warp
+  const int h = lane & 1, blk = lane >> 1, br = blk >> 2, bc = blk & 3;
+  const int per = qp / 6, rem = qp % 6, off = 342 << (4 + per),
+            qbits = 15 + per;
   const float lam32 = (float)lam;
-  int pb[16], ob[16], res[16], lev[16], c[16];
-  if (live) {
-    for (int k = 0; k < 16; ++k) {
-      int y = 4 * br + (k >> 2), x = 4 * bc + (k & 3);
-      pb[k] = pred[(size_t)p * 256 + 16 * y + x];
-      ob[k] = orig[(size_t)mb * 256 + 16 * y + x];
-      res[k] = ob[k] - pb[k];
-      c[k] = res[k];
-    }
-    forward4x4(c);
-    for (int k = 0; k < 16; ++k) lev[k] = quant(c[k], kM4[rem][cls4(k)], off, 15 + per);
-    rdoq4(res, lev, per, rem, lam32);
-    cost4[sub][blk] = coeff_cost(lev, 0);
+  int mf[3], vs[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    mf[c] = kM4[rem][c];
+    vs[c] = kV4[rem][c] * 16;
   }
-  __syncthreads();
-  if (live) {
-    // per 8x8: drop when its coeff_cost <= 4; then the MB when the kept
-    // total is <= 5
-    int c8[4], kept = 0;
-    for (int b8 = 0; b8 < 4; ++b8) {
-      int y8 = b8 >> 1, x8 = b8 & 1;
-      c8[b8] = cost4[sub][8 * y8 + 2 * x8] + cost4[sub][8 * y8 + 2 * x8 + 1] +
-               cost4[sub][8 * y8 + 4 + 2 * x8] + cost4[sub][8 * y8 + 5 + 2 * x8];
-      kept += c8[b8] <= 4 ? 0 : c8[b8];
-    }
-    const bool drop = c8[2 * (br >> 1) + (bc >> 1)] <= 4 || kept <= 5;
-    int rr[16];
-    for (int k = 0; k < 16; ++k) {
-      if (drop) lev[k] = 0;
-      rr[k] = dequant(lev[k], k, per, rem);
-    }
-    inverse4x4(rr);
-    int ssd = 0;
-    for (int k = 0; k < 16; ++k) {
-      int y = 4 * br + (k >> 2), x = 4 * bc + (k & 3);
-      int rec = drop ? clip255(pb[k]) : clip255((rr[k] + shl(pb[k], 6) + 32) >> 6);
-      int dd = ob[k] - rec;
-      ssd += dd * dd;
-      out_rec[(size_t)p * 256 + 16 * y + x] = rec;
-      out_lev[((size_t)p * 16 + blk) * 16 + k] = lev[k];
-    }
-    d4[sub][blk] = ssd;
-    cb4[sub][blk] = coef_bits16(lev);
+  // the lane's two rows: pixel (4 br + 2 h + j, 4 bc + x)
+  const size_t px = (size_t)16 * (4 * br + 2 * h) + 4 * bc;
+  const int4* pp = reinterpret_cast<const int4*>(pred + (size_t)p * 256 + px);
+  const int4* op =
+      reinterpret_cast<const int4*>(orig + (size_t)(p % n_mb) * 256 + px);
+  int res[2][4], c[2][4], lev[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int4 P = __ldg(pp + 4 * j), O = __ldg(op + 4 * j);
+    res[j][0] = O.x - P.x;
+    res[j][1] = O.y - P.y;
+    res[j][2] = O.z - P.z;
+    res[j][3] = O.w - P.w;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) c[j][x] = res[j][x];
+    fwd_row(c[j]);
   }
-  __syncthreads();
-  if (live && blk < 4) {
-    int y8 = blk >> 1, x8 = blk & 1, s = 0, b = 0;
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j) {
-        int q = 4 * (2 * y8 + i) + 2 * x8 + j;
-        s += d4[sub][q];
-        b += cb4[sub][q];
+  fwd_cols(c[0], c[1], h);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      lev[j][x] = quant(c[j][x], mf[cls_of(j, x)], off, qbits);
+
+  // RDOQ-lite (rd.py `_rdoq4`): F = forward4x4((res << 6) - inverse4x4(deq))
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      c[j][x] = (shl(mul(lev[j][x], vs[cls_of(j, x)]), per) + 8) >> 4;
+    inv_row(c[j]);
+  }
+  inv_cols(c[0], c[1], h);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) c[j][x] = shl(res[j][x], 6) - c[j][x];
+    fwd_row(c[j]);
+  }
+  fwd_cols(c[0], c[1], h);
+  unsigned nzm = 0, bigm = 0;  // zig-zag masks of the lane's coefficients
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int l = lev[j][x], v = vs[cls_of(j, x)];
+      const int lm = l > 0 ? l - 1 : l < 0 ? l + 1 : 0;
+      const int deq = (shl(mul(l, v), per) + 8) >> 4;
+      const float delta = (float)(((shl(mul(lm, v), per) + 8) >> 4) - deq);
+      const float n2 = (j ? 10.f : 16.f) * ((x & 1) ? 10.f : 16.f);
+      const float ss = (j ? 1.f : 2.f) * ((x & 1) ? 1.f : 2.f);
+      const float dD = __fsub_rn(
+          __fmul_rn(__fmul_rn(delta, delta), n2),
+          __fmul_rn(__fmul_rn(__fmul_rn(8.0f, delta), (float)c[j][x]), ss));
+      const int a = abs(l);
+      const float dJ = __fadd_rn(
+          dD, __fmul_rn(lam32, (float)(rdoq_bits(abs(lm)) - rdoq_bits(a))));
+      const int nl = a > 0 && dJ < 0.0f ? lm : l;
+      lev[j][x] = nl;
+      const unsigned bit = 1u << (h ? zz_of(8 + 4 * j + x) : zz_of(4 * j + x));
+      if (nl != 0) nzm |= bit;
+      if (abs(nl) > 1) bigm |= bit;
+    }
+  nzm |= __shfl_xor_sync(kFull, nzm, 1);
+  bigm |= __shfl_xor_sync(kFull, bigm, 1);
+
+  // JM thresholding: an 8x8 drops at coeff_cost <= 4, then the MB when the
+  // kept total is <= 5
+  const int cost = coeff_cost_mask(nzm, bigm);
+  int c8 = cost + __shfl_xor_sync(kFull, cost, 2);
+  c8 += __shfl_xor_sync(kFull, c8, 8);
+  int tot = c8 <= 4 ? 0 : c8;
+  tot += __shfl_xor_sync(kFull, tot, 4);
+  tot += __shfl_xor_sync(kFull, tot, 16);
+  const bool drop = c8 <= 4 || tot <= 5;
+
+  int lb = 0, nn = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      if (drop) lev[j][x] = 0;
+      const int a = abs(lev[j][x]);
+      if (a > 0) {
+        lb += 2 * bitlen(a) + 1;
+        ++nn;
       }
-    out_d8[(size_t)p * 4 + blk] = s;
-    out_cb8[(size_t)p * 4 + blk] = b;
+      c[j][x] = (shl(mul(lev[j][x], vs[cls_of(j, x)]), per) + 8) >> 4;
+    }
+    inv_row(c[j]);
+  }
+  inv_cols(c[0], c[1], h);
+  int4* rp = reinterpret_cast<int4*>(out_rec + (size_t)p * 256 + px);
+  int4* lp = reinterpret_cast<int4*>(out_lev +
+                                     ((size_t)p * 16 + blk) * 16 + 8 * h);
+  int ssd = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int4 P = __ldg(pp + 4 * j);
+    const int pb[4] = {P.x, P.y, P.z, P.w};
+    int rec[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      rec[x] = drop ? clip255(pb[x])
+                    : clip255((c[j][x] + shl(pb[x], 6) + 32) >> 6);
+      const int d = pb[x] + res[j][x] - rec[x];
+      ssd += d * d;
+    }
+    rp[4 * j] = make_int4(rec[0], rec[1], rec[2], rec[3]);
+    lp[j] = make_int4(lev[j][0], lev[j][1], lev[j][2], lev[j][3]);
+  }
+  // per 8x8 unit: SSD over its 8 lanes, coefficient bits over its blocks
+  lb += __shfl_xor_sync(kFull, lb, 1);
+  nn += __shfl_xor_sync(kFull, nn, 1);
+  int cb = nn > 0 ? lb + nn + 2 : 0;
+  ssd += __shfl_xor_sync(kFull, ssd, 1);
+#pragma unroll
+  for (int off8 = 2; off8 <= 8; off8 *= 4) {
+    ssd += __shfl_xor_sync(kFull, ssd, off8);
+    cb += __shfl_xor_sync(kFull, cb, off8);
+  }
+  if ((lane & 0b01011) == 0) {
+    const int b8 = 2 * (lane >> 4) + ((lane >> 2) & 1);
+    out_d8[(size_t)p * 4 + b8] = ssd;
+    out_cb8[(size_t)p * 4 + b8] = cb;
   }
 }
 
@@ -263,7 +444,8 @@ i16_kernel(const int* __restrict__ cur_y, int W, int n_mx, int qp,
 extern "C" int inter_luma_tq(const int* pred, const int* orig, int n_prob,
                              int n_mb, int qp, int lam, int* lev, int* rec,
                              int* d8, int* cb8, void* stream) {
-  luma_kernel<<<(n_prob + 3) / 4, 64, 0, (cudaStream_t)stream>>>(
+  luma_kernel<<<(n_prob + kLumaWarps - 1) / kLumaWarps, 32 * kLumaWarps, 0,
+                (cudaStream_t)stream>>>(
       pred, orig, n_prob, n_mb, qp, lam, lev, rec, d8, cb8);
   return (int)cudaGetLastError();
 }

@@ -11,12 +11,21 @@
 // Plain versions: h264_tpu_torch/encoder/rd_p.py `coarse_search_plain`,
 // `ssd_grid8_plain`, `ssd_grid4_plain`; wrapper kernels/search_grid.py.
 //
-// Design.  coarse_search and ssd_grid4: one block per (ref, MB) / unit;
-// the block loads its search window (weighted on the fly: wp_affine of
-// the G sample) and its source block into shared memory, then every
-// thread computes whole grid cells directly as sum (cur - ref)^2 (or |.|
-// for the coarse SAD); coarse_search takes the first minimum (strict <,
-// lowest index on ties) by a shared-memory tree.  ssd_grid8: one block per
+// Design.  coarse_search: two kernels launched by its one C entry on the
+// caller's stream.  decimate_kernel writes every reference's weighted,
+// 4x4-decimated widened G plane once per call into a u16 scratch plane
+// the wrapper allocates (NR x (Hp+128)/4 x (Wp+128)/4 cells, each at most
+// 16 x 255); coarse_kernel then searches each MB's 28 x 28 window of it
+// (below).  Two launches, not one: every MB of a reference reads cells
+// that other blocks decimate, so one kernel would need a grid-wide wait
+// between the phases (a cooperative launch, or counters as K1 and K6
+// keep).  Nor is the second a programmatic dependent launch (its blocks
+// starting during the decimation, reading their source sums, waiting at
+// griddepcontrol.wait): tried, it was slower at CIF (PERF.md).
+// ssd_grid4: one block per unit; the block loads its search window
+// (weighted on the fly: wp_affine of the G sample) and its source block
+// into shared memory, then every thread computes whole grid cells
+// directly as sum (cur - ref)^2.  ssd_grid8: one block per
 // (ref, MB) over the union of its four blocks' windows, the cross term by
 // __dp4a on packed u8 (ssd8_kernel below).  The reference widens the
 // banks by 64 samples of edge replication first; a read clamped to the
@@ -24,31 +33,51 @@
 // outside the widened bank, so the reference's dynamic_slice never clamps
 // its start (tests/test_torch_p_ops.py).
 //
-// Bound.  ssd_grid8: NR * n_b8 * (2R+1)^2 * 64 MACs (1.65 G at CIF, NR 5,
-// R 28) and an output of (NR, n_b8, 57, 57) int32 (103 MB at CIF, 0.94 GB
-// at 1280x720).  Its first version took each MAC as two shared-memory
-// loads, a subtract and a multiply-add, and was bound by the loads (one
-// warp-wide load a clock per SM: 0.41 ms at CIF against 0.44 measured).
-// Here a window sample read from shared memory feeds 32 MACs in 8
-// __dp4a, the route taken because a MAC costs a quarter instruction on the
-// integer pipe with no conversion of the u8 samples, where float32 FMAs
-// on CUDA cores (also exact below 2^24) cost one on a pipe twice as wide
-// and need the window as float; the union window, cut in units of 8
-// rows, computes 44 % more cells than the blocks need (72 x 65 x 4
-// against 57 x 57 x 4 at R 28) for one staged window instead of four.  A
-// tensor-core form (mma.m16n8k32 u8, a pair of union rows against the
-// four blocks' two rows) was also bit-exact, faster at 1280x720 and
-// slower at CIF, where its window staging and box sums set the time; this
-// simpler one stays until the fused partition reduction (ROADMAP), which
-// removes the output's stores that both forms pay, chooses again.  The
-// output's bytes are the bound.  coarse_search and ssd_grid4 keep their
-// first versions.
+// What held coarse_search back, and what this design does about it.  Its
+// first version ran a 640-thread block per (ref, MB) that decimated its
+// own 28 x 28 window again: 16 clamped 4-byte loads and WP evaluations a
+// cell, 12,544 a block, so each bank sample was read and weighted about
+// 34 times at 1280x720 (19 at CIF); its first minimum was a shared-memory
+// tree with ten barriers, and 13.4 KB of shared memory and 48 registers
+// allowed two blocks an SM.  Here each sample is read once, by a 16-byte
+// load, and weighted once, as the reference weights before it decimates
+// (rd.py:389); the search reads the small plane through a strip window
+// that 4 MBs share; a lane keeps its column's running minimum in
+// registers and the warp's first minimum is five (cost, index) shuffles.
+// The SAD terms are 32-bit __usad on unpacked samples, one VABSDIFF with
+// its accumulation each (1,000 SASS instructions a warp): packed 16-bit
+// pairs (__vsadu2) compile to about 12 instructions a pair on sm_90a.
+// What is left at CIF is the two launches' fixed cost: the decimation
+// alone takes about half the call there (PERF.md).
 //
-// ptxas (sm_90a, nvcc -O3): coarse_kernel 48 registers, 8,320 B static
-// shared memory; ssd8_kernel 147 registers (3 blocks of 128 threads an
-// SM), dynamic shared memory (8 ceil((2R+9)/8) + 7) rows x ceil((2R+20)/16)
-// x 16 B of window + 256 B (6.6 KB at R = 28); ssd4_kernel 32 registers,
-// (2RS+8)^2 + 64 ints (3.4 KB); no spills.
+// Bound.  coarse_search: the G plane of every reference read once (the
+// bytes), WP and the decimation once per sample, and per grid cell 16 SAD
+// terms of 12-bit sums in 16-bit pairs, the rate and the first minimum
+// (chip_smoke.py p_work): 18.9 M operations at CIF, 0.0011 ms (ops); about
+// 0.0095 ms at 1280x720.  ssd_grid8: NR * n_b8 * (2R+1)^2 * 64 MACs (1.65 G
+// at CIF, NR 5, R 28) and an output of (NR, n_b8, 57, 57) int32 (103 MB at
+// CIF, 0.94 GB at 1280x720).  Its first version took each MAC as two
+// shared-memory loads, a subtract and a multiply-add, and was bound by the
+// loads (one warp-wide load a clock per SM: 0.41 ms at CIF against 0.44
+// measured).  Here a window sample read from shared memory feeds 32 MACs
+// in 8 __dp4a, the route taken because a MAC costs a quarter instruction
+// on the integer pipe with no conversion of the u8 samples, where float32
+// FMAs on CUDA cores (also exact below 2^24) cost one on a pipe twice as
+// wide and need the window as float; the union window, cut in units of 8
+// rows, computes 44 % more cells than the blocks need (72 x 65 x 4 against
+// 57 x 57 x 4 at R 28) for one staged window instead of four.  A
+// tensor-core form (mma.m16n8k32 u8, a pair of union rows against the four
+// blocks' two rows) was also bit-exact, faster at 1280x720 and slower at
+// CIF, where its window staging and box sums set the time; this simpler
+// one stays until the fused partition reduction (ROADMAP), which removes
+// the output's stores that both forms pay, chooses again.  The output's
+// bytes are the bound.  ssd_grid4 keeps its first version.
+//
+// ptxas (sm_90a, nvcc -O3): decimate_kernel 32 registers; coarse_kernel
+// 32 registers, 4,928 B static shared memory; ssd8_kernel 147 registers (3 blocks of 128 threads an SM),
+// dynamic shared memory (8 ceil((2R+9)/8) + 7) rows x ceil((2R+20)/16) x
+// 16 B of window + 256 B (6.6 KB at R = 28); ssd4_kernel 32 registers,
+// (2RS+8)^2 + 64 ints (3.4 KB); no stack frames, no spills.
 
 #include <climits>
 
@@ -58,82 +87,146 @@ namespace {
 
 constexpr int kRC = 12;    // coarse range, 4-pel units
 constexpr int kDCo = 25;   // 2 * kRC + 1
-constexpr int kCoarseThreads = 640;
+constexpr int kE = 64;     // the reference's widening of the bank
+constexpr int kDecThreads = 256;
+constexpr int kStrip = 4;  // MBs of a row that one search block takes
+constexpr int kWinCols = 4 * kStrip + 28;  // staged window row, samples
+
+__device__ __forceinline__ int wp_or(int v, int use_wp, int w, int o) {
+  return use_wp ? wp_affine(v, w, o) : v;
+}
 
 // sample (y, x) of the G plane of one reference, bank coordinates clamped,
 // weighted when use_wp
 __device__ __forceinline__ int g_sample(const int* G, int Hp, int Wp, int y,
                                         int x, int use_wp, int w, int o) {
-  int v = G[(size_t)clampi(y, Hp - 1) * Wp + clampi(x, Wp - 1)];
-  return use_wp ? wp_affine(v, w, o) : v;
+  return wp_or(G[(size_t)clampi(y, Hp - 1) * Wp + clampi(x, Wp - 1)], use_wp,
+               w, o);
 }
 
-__global__ void __launch_bounds__(kCoarseThreads)
-coarse_kernel(const int* __restrict__ banks, const int* __restrict__ cur_y,
-              const int* __restrict__ wp_w, const int* __restrict__ wp_o,
-              int use_wp, int Hp, int Wp, int W, int n_mx, int lam_me,
-              int* cen_x, int* cen_y) {
-  __shared__ int win[kDCo + 3][kDCo + 3];
-  __shared__ int cb[4][4];
-  __shared__ int cost[kCoarseThreads];
-  __shared__ int idx[kCoarseThreads];
-  const int tid = threadIdx.x;
-  const int mb = blockIdx.x, r = blockIdx.y;
-  const int my = mb / n_mx, mx = mb % n_mx;
+// Phase A: cell (Y, X) of reference r's decimated plane (Hl x Wl, u16)
+// sums the (weighted) widened G samples 4Y + a, 4X + b, i.e. bank samples
+// (4Y + a - kE, 4X + b - kE) clamped.  Hp and Wp are multiples of 4, so a
+// cell's four columns are all inside the bank (one 16-byte load a row) or
+// all clamped to one edge column.
+__global__ void __launch_bounds__(kDecThreads)
+decimate_kernel(const int* __restrict__ banks, const int* __restrict__ wp_w,
+                const int* __restrict__ wp_o, int use_wp, int Hp, int Wp,
+                int Hl, int Wl, unsigned short* __restrict__ plane) {
+  const int cell = blockIdx.x * kDecThreads + threadIdx.x, r = blockIdx.y;
+  if (cell >= Hl * Wl) return;
+  const int Y = cell / Wl, X = cell - Y * Wl;
   const int* G = banks + (size_t)r * 4 * Hp * Wp;
   const int w = use_wp ? wp_w[r] : 32, o = use_wp ? wp_o[r] : 0;
-  // decimated window cell (wy, wx) sums the widened samples 4 (4 my + 12 +
-  // wy) + a, i.e. bank rows 16 my + 4 wy + a - 16 (and the same in x)
-  for (int k = tid; k < (kDCo + 3) * (kDCo + 3); k += kCoarseThreads) {
-    int wy = k / (kDCo + 3), wx = k % (kDCo + 3);
-    int y0 = 16 * my + 4 * wy - 16, x0 = 16 * mx + 4 * wx - 16, s = 0;
-    for (int a = 0; a < 4; ++a)
-      for (int b = 0; b < 4; ++b)
-        s += g_sample(G, Hp, Wp, y0 + a, x0 + b, use_wp, w, o);
-    win[wy][wx] = s;
-  }
-  if (tid < 16) {
-    int a = tid >> 2, b = tid & 3, s = 0;
-    for (int i = 0; i < 4; ++i)
-      for (int j = 0; j < 4; ++j)
-        s += cur_y[(size_t)(16 * my + 4 * a + i) * W + 16 * mx + 4 * b + j];
-    cb[a][b] = s;
-  }
-  __syncthreads();
-  int c = INT_MAX;
-  if (tid < kDCo * kDCo) {
-    int ky = tid / kDCo, kx = tid % kDCo, acc = 0;
-    for (int a = 0; a < 4; ++a)
-      for (int b = 0; b < 4; ++b) acc += abs(win[ky + a][kx + b] - cb[a][b]);
-    c = acc + lam_cost(lam_me, mv_bits((kx - kRC) * 16) +
-                                   mv_bits((ky - kRC) * 16));
-  }
-  cost[tid] = c;
-  idx[tid] = tid;
-  __syncthreads();
-  // first minimum: 640 = 512 + 128, fold the tail first
-  if (tid < kCoarseThreads - 512) {
-    int j = tid + 512;
-    if (cost[j] < cost[tid]) {
-      cost[tid] = cost[j];
-      idx[tid] = idx[j];
+  const int y0 = 4 * Y - kE, x0 = 4 * X - kE;
+  int s = 0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int* g = G + (size_t)clampi(y0 + a, Hp - 1) * Wp;
+    if (x0 >= 0 && x0 < Wp) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(g + x0));
+      s += wp_or(v.x, use_wp, w, o) + wp_or(v.y, use_wp, w, o) +
+           wp_or(v.z, use_wp, w, o) + wp_or(v.w, use_wp, w, o);
+    } else {
+      s += 4 * wp_or(g[clampi(x0, Wp - 1)], use_wp, w, o);
     }
   }
+  plane[((size_t)r * Hl + Y) * Wl + X] = (unsigned short)s;
+}
+
+// Phase B: one block per (ref, MB row, strip of kStrip MBs), one warp per
+// MB.  The strip's 28 x (4 kStrip + 24) window of the decimated plane is
+// staged as 32-bit samples; window cell (wy, wx) of MB (my, mx) is plane
+// cell (4 my + wy + 12, 4 mx + wx + 12) (rd.py:399-401).  Lane kx < 25
+// takes the grid column kx: down the 28 window rows it reads each row's
+// four samples once and adds their absolute differences from the MB's
+// 4x4 source sums (__usad: |a - b| + c) into the four cells (ky = row - a)
+// they belong to; a cell complete after its fourth row gets its rate and
+// enters the lane's first minimum (ky ascending).  The warp then takes the
+// first minimum over its lanes by a (cost, index) shuffle: strict <, the
+// lower raster index on a tie.
+__global__ void __launch_bounds__(32 * kStrip)
+coarse_kernel(const unsigned short* __restrict__ plane,
+              const int* __restrict__ cur_y, int Hl, int Wl, int W,
+              int n_mx, int n_strips, int lam_me, int* cen_x, int* cen_y) {
+  __shared__ unsigned win[kDCo + 3][kWinCols];
+  const int tid = threadIdx.x, lane = tid & 31, m = tid >> 5;
+  const int my = blockIdx.x / n_strips;
+  const int mx0 = (blockIdx.x - my * n_strips) * kStrip;
+  const int r = blockIdx.y, n_my = gridDim.x / n_strips;
+  // the window's rows as u16 pairs (Wl and the start column are even)
+  const unsigned* src = reinterpret_cast<const unsigned*>(
+      plane + ((size_t)r * Hl + 4 * my + 12) * Wl + 4 * mx0 + 12);
+  const int words = (Wl - 4 * mx0 - 12) >> 1;
+  for (int k = tid; k < (kDCo + 3) * (kWinCols / 2); k += 32 * kStrip) {
+    const int wy = k / (kWinCols / 2), wj = k - wy * (kWinCols / 2);
+    const unsigned v = wj < words ? src[(size_t)wy * (Wl >> 1) + wj] : 0u;
+    win[wy][2 * wj] = v & 0xffffu;
+    win[wy][2 * wj + 1] = v >> 16;
+  }
   __syncthreads();
-  for (int s = 256; s > 0; s >>= 1) {
-    if (tid < s) {
-      int j = tid + s;
-      if (cost[j] < cost[tid] || (cost[j] == cost[tid] && idx[j] < idx[tid])) {
-        cost[tid] = cost[j];
-        idx[tid] = idx[j];
+  const int mx = mx0 + m;
+  if (mx >= n_mx) return;
+  // the MB's 4x4 source sums, cb[a][b] from lane 4a + b
+  unsigned cs = 0;
+  if (lane < 16) {
+    const int* c = cur_y + (size_t)(16 * my + 4 * (lane >> 2)) * W + 16 * mx +
+                   4 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(c + (size_t)i * W));
+      cs += v.x + v.y + v.z + v.w;
+    }
+  }
+  unsigned cb[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      cb[a][b] = __shfl_sync(0xffffffffu, cs, 4 * a + b);
+  const int kx = min(lane, kDCo - 1);
+  const unsigned* col = &win[0][4 * m + kx];
+  const int bx = mv_bits((kx - kRC) * 16);
+  unsigned acc[4] = {0u, 0u, 0u, 0u};
+  int best = INT_MAX, bidx = 0;
+#pragma unroll
+  for (int t = 0; t < kDCo + 3; ++t) {
+    unsigned w[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) w[b] = col[t * kWinCols + b];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int ky = t - a;
+      if (ky < 0 || ky >= kDCo) continue;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        acc[ky & 3] = __usad(w[b], cb[a][b], acc[ky & 3]);
+    }
+    if (t >= 3) {
+      const int ky = t - 3;
+      const int cost = (int)acc[ky & 3] +
+                       lam_cost(lam_me, bx + mv_bits((ky - kRC) * 16));
+      acc[ky & 3] = 0u;
+      if (cost < best) {
+        best = cost;
+        bidx = ky * kDCo + kx;
       }
     }
-    __syncthreads();
   }
-  if (tid == 0) {
-    int k = idx[0], n = r * gridDim.x + mb;
-    cen_x[n] = (k % kDCo - kRC) * 4;
-    cen_y[n] = (k / kDCo - kRC) * 4;
+  if (lane >= kDCo) best = INT_MAX;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int oc = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
+    if (oc < best || (oc == best && oi < bidx)) {
+      best = oc;
+      bidx = oi;
+    }
+  }
+  if (lane == 0) {
+    const int n = (r * n_my + my) * n_mx + mx;
+    cen_x[n] = (bidx % kDCo - kRC) * 4;
+    cen_y[n] = (bidx / kDCo - kRC) * 4;
   }
 }
 
@@ -314,11 +407,19 @@ ssd4_kernel(const int* __restrict__ banks, const int* __restrict__ cur_y,
 extern "C" int coarse_search(const int* banks, const int* cur_y,
                              const int* wp_w, const int* wp_o, int use_wp,
                              int NR, int Hp, int Wp, int H, int W, int lam_me,
-                             int* cen_x, int* cen_y, void* stream) {
-  dim3 grid((H / 16) * (W / 16), NR);
-  coarse_kernel<<<grid, kCoarseThreads, 0, (cudaStream_t)stream>>>(
-      banks, cur_y, wp_w, wp_o, use_wp, Hp, Wp, W, W / 16, lam_me, cen_x,
-      cen_y);
+                             unsigned short* plane, int* cen_x, int* cen_y,
+                             void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int Hl = (Hp + 2 * kE) / 4, Wl = (Wp + 2 * kE) / 4;
+  dim3 dgrid((Hl * Wl + kDecThreads - 1) / kDecThreads, NR);
+  decimate_kernel<<<dgrid, kDecThreads, 0, st>>>(banks, wp_w, wp_o, use_wp,
+                                                 Hp, Wp, Hl, Wl, plane);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const int n_mx = W / 16, n_strips = (n_mx + kStrip - 1) / kStrip;
+  dim3 grid((H / 16) * n_strips, NR);
+  coarse_kernel<<<grid, 32 * kStrip, 0, st>>>(plane, cur_y, Hl, Wl, W, n_mx,
+                                              n_strips, lam_me, cen_x, cen_y);
   return (int)cudaGetLastError();
 }
 

@@ -50,9 +50,13 @@ def coarse_search(banks, cur_y, wp, lam_me: int):
         "coarse_search", banks, cur_y, wp)
     cen_x = torch.empty((NR, H // 16, W // 16), dtype=_I32, device=banks.device)
     cen_y = torch.empty_like(cen_x)
-    rc = kernel_fn("search_grid", "coarse_search", "ppppiiiiiiippp")(
+    # the kernel's scratch: every reference's decimated plane, u16 cells
+    plane = torch.empty((NR, (Hp + 2 * rd_p.E) // 4, (Wp + 2 * rd_p.E) // 4),
+                        dtype=torch.int16, device=banks.device)
+    rc = kernel_fn("search_grid", "coarse_search", "ppppiiiiiiipppp")(
         banks.data_ptr(), cur_y.data_ptr(), pw, po, use_wp, NR, Hp, Wp, H, W,
-        int(lam_me), cen_x.data_ptr(), cen_y.data_ptr(), stream_of(banks))
+        int(lam_me), plane.data_ptr(), cen_x.data_ptr(), cen_y.data_ptr(),
+        stream_of(banks))
     check_launch(rc, "coarse_search")
     coarse_search.launches += 1
     return cen_x, cen_y

@@ -1,20 +1,22 @@
-"""K4 ``qpel_refine`` and K6 ``deblock`` on the main path's inputs, on one
-CUDA card: per-shape and per-picture times, K6's chain and launch
-profile, and K1 on P and B pictures.  ``chip_smoke.py`` times with the
-same functions.
+"""K3 ``coarse_search``, K4 ``qpel_refine``, K5 ``inter_luma_tq`` and K6
+``deblock`` on the main path's inputs, on one CUDA card: per-call,
+per-shape and per-picture times, K6's chain and launch profile, and K1 on
+P and B pictures.  ``chip_smoke.py`` times with the same functions.
 
-    python -m h264_tpu_torch.tools.time_refine_deblock [--out DIR]
-    python h264_tpu_torch/tools/time_refine_deblock.py --root DIR [--out DIR]
-    python -m h264_tpu_torch.tools.time_refine_deblock --trial [--out DIR]
+    python -m h264_tpu_torch.tools.time_kernels [--out DIR]
+    python h264_tpu_torch/tools/time_kernels.py --root DIR [--out DIR]
+    python -m h264_tpu_torch.tools.time_kernels --trial [--out DIR]
 
 Encodes the bench configuration (IPB, one B picture between anchors, QP
 28, 5 references, search range 28, explicit WP; ``moving_frames``, 5
 frames) at CIF and 1280x720 with every P and B kernel entry recorded, and
 times on the second P and the second B picture's inputs:
-- each ``qpel_refine`` call (one shape each), its device time queued
-  behind a spin of the card (the host's launch time excluded), and the
-  picture's calls back to back (CUDA events, as ``chip_smoke.py`` times
-  every kernel; the median of 5 rounds);
+- ``coarse_search`` (P) and ``inter_luma_tq`` (P and B), one call a
+  picture each: its device time queued behind a spin of the card (the
+  host's launch time excluded), and back to back (CUDA events and the
+  host's clock; the median of 5 rounds);
+- each ``qpel_refine`` call (one shape each) on the device, and the
+  picture's calls on the device and back to back;
 - the ``deblock`` call, the same two ways;
 - K1 ``intra_commit_scan`` on the picture's scan state (its intra MBs).
 Then K6's chain on built inputs: a 16x16 picture, an MB's step along a
@@ -22,13 +24,15 @@ row (1280x16) and down a column (16x1088), CIF and 1280x720 pictures
 beside their chain (``deblock_chain``); and ``torch.profiler`` over one
 ``deblock`` call and over an I + P encode: the device kernels, copies and
 memsets each makes.  With ``--trial``, also K6 built without the fence
-before each release, beside K6 as it is (``trial_no_fence``).
+before each release, beside K6 as it is (``trial_no_fence``), and K3
+with strips of 8, 4 and 2 MBs, its decimation alone, an empty launch of
+the decimation's grid and its search alone (``trial_coarse``).
 
 With ``--root`` the package is imported from the checkout DIR, so that an
 earlier version of the kernels is timed by the same script in the same
 call on the same card.  Prints the card's name and power limit and one
-JSON object (also written to DIR/time_refine_deblock[-TAG].json with
-``--out``).  Needs a CUDA card.
+JSON object (also written to DIR/time_kernels[-TAG].json with ``--out``).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -191,12 +195,14 @@ def record_bench(size):
 
 
 def picture_times(calls, scan, reps: int = 20) -> dict:
-    """K4 per shape and per picture, K6 and K1 of one recorded picture: on
-    the device, and back to back (the median of 5 rounds, each round's
-    beside it, on the host's clock too)."""
+    """K3 and K5's luma entry, K4 per shape and per picture, K6 and K1 of
+    one recorded picture: on the device, and back to back (the median of 5
+    rounds, each round's beside it, on the host's clock too)."""
     from h264_tpu_torch.kernels import deblock as K6
     from h264_tpu_torch.kernels import intra_commit as K1
+    from h264_tpu_torch.kernels import inter_tq as K5
     from h264_tpu_torch.kernels import qpel as K4
+    from h264_tpu_torch.kernels import search_grid as K3
 
     refine = [a for n, a in calls if n == "qpel_refine"]
     dbk = [a for n, a in calls if n == "deblock"][0]
@@ -208,7 +214,15 @@ def picture_times(calls, scan, reps: int = 20) -> dict:
     shapes = [[a[11], a[12], int(a[2].numel()),
                spin_ms(lambda a=a: K4.qpel_refine(*a), reps)] for a in refine]
     k1 = copy_scan(scan)
+    one_call = {}
+    for name, fn in (("coarse_search", K3.coarse_search),
+                     ("inter_luma_tq", K5.inter_luma_tq)):
+        for a in [a for n, a in calls if n == name]:
+            one_call[name] = {"device_ms": spin_ms(lambda: fn(*a), reps),
+                              **back_to_back(lambda: fn(*a), reps),
+                              "launches": 1}
     return {
+        **one_call,
         "qpel_refine": {
             "shapes": shapes,  # [h, w, units, device ms] of each call
             "device_ms": sum(x[3] for x in shapes),
@@ -272,6 +286,27 @@ def deblock_chain(reps: int = 20) -> dict:
             "pictures": pictures}
 
 
+def _trial_lib(name: str, sources: dict, entry: str, sig: str):
+    """The C entry `entry` of a trial library built from `sources` (file
+    name -> text) in build/.../trial."""
+    import ctypes
+
+    from h264_tpu_torch import device as D
+
+    trial = D.BUILD_DIR / "trial"
+    trial.mkdir(parents=True, exist_ok=True)
+    for fname, text in sources.items():
+        (trial / fname).write_text(text)
+    so = trial / f"lib{name}_sm90a.so"
+    main = next(f for f in sources if f.endswith(".cu"))
+    subprocess.run([D._nvcc(), *D.NVCC_FLAGS, "-o", str(so),
+                    str(trial / main)], check=True, capture_output=True)
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    fn.argtypes = [D._CTYPES[c] for c in sig]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def trial_no_fence(reps: int = 20) -> dict:
     """A trial: K6 built from copies of csrc/deblock.cu and common.cuh
     whose ``publish`` has no fence before the release, beside the kernel
@@ -288,18 +323,10 @@ def trial_no_fence(reps: int = 20) -> dict:
     common = (D.CSRC / "common.cuh").read_text()
     if common.count(fence) != 1:
         raise RuntimeError("trial: publish's fence in common.cuh moved")
-    trial = D.BUILD_DIR / "trial"
-    trial.mkdir(parents=True, exist_ok=True)
-    (trial / "common.cuh").write_text(
-        common.replace(fence, "    st_release(p, v);"))
-    (trial / "deblock.cu").write_text((D.CSRC / "deblock.cu").read_text())
-    so = trial / "libdeblock_nofence_sm90a.so"
-    subprocess.run([D._nvcc(), *D.NVCC_FLAGS, "-o", str(so),
-                    str(trial / "deblock.cu")], check=True,
-                   capture_output=True)
-    fn = ctypes.CDLL(str(so)).deblock
-    fn.argtypes = [D._CTYPES[c] for c in "pppppiipppppp"]
-    fn.restype = ctypes.c_int
+    fn = _trial_lib("deblock_nofence", {
+        "deblock.cu": (D.CSRC / "deblock.cu").read_text(),
+        "common.cuh": common.replace(fence, "    st_release(p, v);")},
+        "deblock", "pppppiipppppp")
 
     def no_fence(y, u, v, bsv, bsh, qp, qp_c):
         H, W = y.shape
@@ -322,6 +349,70 @@ def trial_no_fence(reps: int = 20) -> dict:
         res[f"{W}x{H}"] = {
             "fence_ms": spin_ms(lambda: K6.deblock(*case), reps),
             "no_fence_ms": spin_ms(lambda: no_fence(*case), reps)}
+    return res
+
+
+def trial_coarse(reps: int = 20) -> dict:
+    """A trial: K3 ``coarse_search`` built with strips of 8, 4 and 2 MBs a
+    search block, with the decimation alone (the entry returning after
+    its first launch), with that launch's grid doing no work (the floor
+    of a launch), and with the search alone, beside the kernel as it is,
+    on the bench configuration's second P picture at CIF and 1280x720;
+    each strip variant held equal to the kernel.  Device ms per call."""
+    import torch
+    from h264_tpu_torch import device as D
+    from h264_tpu_torch.kernels import search_grid as K3
+
+    src = (D.CSRC / "search_grid.cu").read_text()
+    common = (D.CSRC / "common.cuh").read_text()
+    strip = "constexpr int kStrip = 4;"
+    entry = "  const int n_mx = W / 16, n_strips"
+    body = "  const int cell = blockIdx.x * kDecThreads + threadIdx.x"
+    dec = "  decimate_kernel<<<"
+    if any(src.count(x) != 1 for x in (strip, entry, body, dec)):
+        raise RuntimeError("trial: coarse_search's source moved")
+    texts = {f"strip{k}": src.replace(strip, f"constexpr int kStrip = {k};")
+             for k in (8, 4, 2)}
+    texts["decimate_only"] = src.replace(entry, "  if (NR > 0) return 0;\n"
+                                         + entry)
+    # the decimation's grid with no work in it, and the search alone (on
+    # a plane left as it was)
+    texts["launch_floor"] = texts["decimate_only"].replace(
+        body, "  if (Hl > 0) return;\n" + body)
+    texts["search_only"] = src.replace(dec, "  if (NR < 0)\n" + dec)
+    fns = {n: _trial_lib(f"coarse_{n}", {f"coarse_{n}.cu": t,
+                                         "common.cuh": common},
+                         "coarse_search", "ppppiiiiiiipppp")
+           for n, t in texts.items()}
+
+    def call(fn, banks, cur_y, wp, lam):
+        NR, _, Hp, Wp = banks.shape
+        H, W = cur_y.shape
+        cen = [torch.empty((NR, H // 16, W // 16), dtype=torch.int32,
+                           device=banks.device) for _ in range(2)]
+        plane = torch.empty((NR, (Hp + 128) // 4, (Wp + 128) // 4),
+                            dtype=torch.int16, device=banks.device)
+        w = (wp[0].data_ptr(), wp[1].data_ptr(), 1) if wp else (None, None, 0)
+        rc = fn(banks.data_ptr(), cur_y.data_ptr(), *w, NR, Hp, Wp, H, W,
+                int(lam), plane.data_ptr(), cen[0].data_ptr(),
+                cen[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"trial coarse_search: CUDA error {rc}")
+        return cen
+
+    res = {}
+    for size in (CIF, HD):
+        calls, _ = record_bench(size)["P"][1]
+        a = [x for n, x in calls if n == "coarse_search"][0]
+        want = K3.coarse_search(*a)
+        out = {"kernel_ms": spin_ms(lambda: K3.coarse_search(*a), reps)}
+        for name, fn in fns.items():
+            if name.startswith("strip"):
+                got = call(fn, *a)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise RuntimeError(f"trial {name} {size}: differs")
+            out[f"{name}_ms"] = spin_ms(lambda fn=fn: call(fn, *a), reps)
+        res[f"{size[0]}x{size[1]}"] = out
     return res
 
 
@@ -379,14 +470,16 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="directory for the JSON report")
     ap.add_argument("--tag", default="", help="suffix of the report's name")
     ap.add_argument("--trial", action="store_true",
-                    help="also time K6 without the fence before each release")
+                    help="also time K6 without the fence before each "
+                    "release, and K3 with other strips and its decimation "
+                    "alone")
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
     import torch
 
     if not torch.cuda.is_available():
-        print("time_refine_deblock: no CUDA device", file=sys.stderr)
+        print("time_kernels: no CUDA device", file=sys.stderr)
         return 2
     import h264_tpu_torch
     from h264_tpu_torch import device as D
@@ -395,7 +488,7 @@ def main(argv=None) -> int:
     card = power_line()
     print(card)
     D.build_cuda(STEMS)
-    for stem in ("qpel", "deblock"):
+    for stem in ("search_grid", "qpel", "inter_tq", "deblock"):
         for ln in D.build_log.get(stem, "").splitlines():
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 print(f"  ptxas {stem}: {ln.strip()}")
@@ -409,12 +502,13 @@ def main(argv=None) -> int:
     report["deblock_profile"] = deblock_profile()
     if args.trial:
         report["trial_no_fence"] = trial_no_fence()
+        report["trial_coarse"] = trial_coarse()
     report["seconds"] = time.perf_counter() - t0
     line = json.dumps(report)
     if args.out:
         out = pathlib.Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
-        name = "time_refine_deblock" + (f"-{args.tag}" if args.tag else "")
+        name = "time_kernels" + (f"-{args.tag}" if args.tag else "")
         (out / f"{name}.json").write_text(line + "\n")
     print(line)
     return 0

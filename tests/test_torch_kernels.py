@@ -52,6 +52,10 @@ from h264_tpu_torch.tools.p16_cases import CASES as P16_CASES
 from h264_tpu_torch.tools.p16_cases import built_case as p16_built_case
 from h264_tpu_torch.tools.p16_cases import reached_sides as p16_reached
 from h264_tpu_torch.tools.rows_cases import edge_motion
+from h264_tpu_torch.tools.search_tq_cases import (COARSE_CONTENTS,
+                                                  CORNER_CENTRES,
+                                                  LUMA_CONTENTS, coarse_case,
+                                                  corner_mbs, luma_case)
 from h264_tpu_torch.tools.slab_cases import CONTENTS as SLAB_CONTENTS
 from h264_tpu_torch.tools.slab_cases import built_slab
 from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
@@ -344,6 +348,61 @@ def test_ssd_grid8_matches_plain_built(cuda, W, H, R, content, kind):
     assert got.dtype == want.dtype and torch.equal(got, want)
     if content != "random" and wp is None:
         assert int(want.max()) == 64 * 255 ** 2
+
+
+@pytest.mark.parametrize("content", COARSE_CONTENTS)
+@pytest.mark.parametrize("wp", [False, True], ids=["nowp", "wp"])
+@pytest.mark.parametrize("NR", [1, 5])
+@pytest.mark.parametrize("W,H", [(352, 288), (1280, 720)],
+                         ids=lambda v: str(v))
+def test_coarse_search_matches_plain_built(cuda, W, H, NR, wp, content):
+    """coarse_search (the decimation, then the strip search) at CIF and
+    720p, NR 1 and 5, WP off and at its extremes, on random content, on
+    corner MBs whose best cell lies in the clamped corner of the widened
+    bank, on flat content (at lam_me 0 every cell ties and the first
+    wins) and on 0/255 checkerboards; the lambdas of QP 0 and 51 and 0;
+    10 launches each on unchanged inputs."""
+    banks, cur_y, wpt = coarse_case(content, W, H, NR, wp, seed=W + NR)
+    banks, cur_y = banks.to(cuda), cur_y.to(cuda)
+    if wpt is not None:
+        wpt = tuple(x.to(cuda) for x in wpt)
+    for lam_me in (0, 2 * _lam(0), 2 * _lam(51)):
+        want = K3.coarse_search_plain(banks, cur_y, wpt, lam_me)
+        before = K3.coarse_search.launches
+        for _ in range(10):
+            got = K3.coarse_search(banks, cur_y, wpt, lam_me)
+            torch.cuda.synchronize()
+            for g, x in zip(got, want):
+                assert g.dtype == x.dtype and torch.equal(g, x), lam_me
+        assert K3.coarse_search.launches == before + 10
+        if content == "corners" and lam_me == 2 * _lam(0):
+            for (my, mx), c in zip(corner_mbs(W, H), CORNER_CENTRES):
+                assert (int(got[0][0, my, mx]), int(got[1][0, my, mx])) == c
+        if content == "flat" and lam_me == 0:
+            assert bool((got[0] == -48).all() and (got[1] == -48).all())
+
+
+@pytest.mark.parametrize("qp", [0, 28, 51])
+@pytest.mark.parametrize("content", LUMA_CONTENTS)
+@pytest.mark.parametrize("n_mb", [1, 13, 99])
+@pytest.mark.parametrize("NC", [1, 6, 8])
+def test_inter_luma_tq_matches_plain_built(cuda, NC, n_mb, content, qp):
+    """inter_luma_tq (a warp per candidate and MB, 8 a block) for 1, 6 and
+    8 candidates of 1, 13 and 99 MBs (each count but 8 x 1, 8 x 13 and
+    8 x 99 leaves a partial last block), QP 0, 28 and 51, on residuals
+    up to +-40, of +-255 and sparse ones whose 8x8 units and MBs drop
+    (tools/search_tq_cases.py); two launches each."""
+    pred, orig = (x.to(cuda) for x in luma_case(content, NC, n_mb,
+                                                seed=NC * n_mb + qp))
+    lam = _lam(qp)
+    want = K5.inter_luma_tq_plain(pred, orig, qp, lam)
+    before = K5.inter_luma_tq.launches
+    for _ in range(2):
+        got = K5.inter_luma_tq(pred, orig, qp, lam)
+        torch.cuda.synchronize()
+        for name, g, x in zip(("lev", "rec", "D8", "cb8"), got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), name
+    assert K5.inter_luma_tq.launches == before + 2
 
 
 REFINE_SHAPES = [(16, 16), (8, 16), (16, 8), (8, 8), (4, 8), (8, 4), (4, 4)]
