@@ -36,8 +36,10 @@
    down a 16x1088 column, CIF and 720p pictures beside their chain), and
    requires, by ``torch.profiler``, one kernel and no copy per ``deblock``
    call and one ``deblock`` kernel in an I + P encode
-   (h264_tpu_torch/tools/time_kernels.py, which also gives ``coarse_search``
-   and ``inter_luma_tq`` their device times on those pictures);
+   (h264_tpu_torch/tools/time_kernels.py, which also gives ``coarse_search``,
+   ``inter_luma_tq``, ``inter_chroma_tq`` and ``b_direct`` their device
+   times on those pictures, the last two beside an empty launch of their
+   grid);
 4. holds every entry of the B pipeline (its own K7 ``b_direct``,
    ``mc_luma_win``, ``mc_chroma_b``, ``strengths_b``, and the K3-K6
    entries it shares) against its plain version on the card, bit for bit,
@@ -251,10 +253,11 @@ OPS_I4 = OPS_TQ + 3
 # decision: 29) and the coeff_cost scan (3); its float32 part (three
 # conversions, six products, a difference and a sum: 12, FP32 pipe)
 OPS_INTER_TQ, FOPS_INTER_TQ = OPS_TQ + 32, 12
-# inter_luma_tq: the same, with the residual (|d| <= 255) and its forward
-# transform (|c| <= 36 x 255) in 16-bit pairs, a half each (1 + 4 -> 2.5);
-# inter_chroma_tq keeps OPS_INTER_TQ
-OPS_INTER_LUMA = OPS_INTER_TQ - 2.5
+# inter_luma_tq and inter_chroma_tq: the same, with the residual (|d| <=
+# 255) and its forward transform (|c| <= 36 x 255) in 16-bit pairs, a half
+# each (1 + 4 -> 2.5); chroma's 2x2 DC transforms, a few operations per
+# plane, are not counted
+OPS_INTER_LUMA = OPS_INTER_CHROMA = OPS_INTER_TQ - 2.5
 # qpel_refine (csrc/qpel.cu): per distinct quarter-pel sample of a unit
 # the two bank samples' rounded mean, a quarter (__vavgu4, 4 u8 samples);
 # per sample of a candidate its residual (1), Hadamard share (4), absolute
@@ -350,6 +353,8 @@ SOURCES = {
     "ref_bank_rows": ("h264_tpu_torch/csrc/ref_bank.cu",
                       "h264_tpu/encoder/rd.py:2662"),
 }
+# the entries tools/time_kernels.py times one call a picture on the device
+ONE_CALL = ("coarse_search", "inter_luma_tq", "inter_chroma_tq", "b_direct")
 # the legacy path's entries (fast.LKernels) and its encodes' pipeline depth
 LEGACY = ("p16_search", "p16_refine", "strengths", "deblock", "ref_bank")
 DEPTH = {"IPPP-legacy": 8}
@@ -573,7 +578,8 @@ def p_work(name: str, args):
     if name == "inter_chroma_tq":
         n_mb = args[0].shape[0]
         return (nb(args[0], args[1]) + n_mb * (128 + 8 + 128) * 4,
-                n_mb * 128 * OPS_INTER_TQ, n_mb * 128 * FOPS_INTER_TQ)
+                int(n_mb * 128 * OPS_INTER_CHROMA),
+                n_mb * 128 * FOPS_INTER_TQ)
     if name == "i16_candidate":
         cur_y = args[0]
         n_mb = cur_y.numel() // 256
@@ -1366,9 +1372,9 @@ def main(argv=None) -> int:
         refine = [a for n, a in calls if n == "qpel_refine"]
         for x, a in zip(t["qpel_refine"]["shapes"], refine):
             x.append(bound_ms(*p_work("qpel_refine", a))[0])
-        for name in ("coarse_search", "inter_luma_tq"):
+        for name in ONE_CALL:
             for a in [a for n, a in calls if n == name]:
-                t[name]["bound_ms"] = bound_ms(*p_work(name, a))[0]
+                t[name]["bound_ms"] = bound_ms(*entry_work(name, a))[0]
         on_device.setdefault(f"{size[0]}x{size[1]}", {})[kind] = t
 
     for size in (CIF, HD):
@@ -1404,15 +1410,18 @@ def main(argv=None) -> int:
                               for n in K3_LIB))
 
     def print_device(size, kind):
-        """One picture's K3 and K5 luma, K4 (per shape, with each call's
+        """One picture's K3, K5 and K7, K4 (per shape, with each call's
         bound), K6 and K1 device times."""
         t = on_device[f"{size[0]}x{size[1]}"][kind]
         q, d = t["qpel_refine"], t["deblock"]
         print(f"time {size[0]}x{size[1]} per {kind} picture on the device "
-              "(ms; back to back, median of 5 rounds; bound): " + ", ".join(
+              "(ms; back to back, median of 5 rounds; bound; an empty launch "
+              "of each design's grid): " + ", ".join(
                   f"{n} {t[n]['device_ms']:.4f} ({t[n]['events_ms']:.4f}; "
-                  f"{t[n]['bound_ms']:.5f})"
-                  for n in ("coarse_search", "inter_luma_tq") if n in t))
+                  f"{t[n]['bound_ms']:.5f}"
+                  + "".join(f"; {g} {ms:.4f}" for g, ms in
+                            t[n].get("empty_launch_ms", {}).items()) + ")"
+                  for n in ONE_CALL if n in t))
         print(f"time {size[0]}x{size[1]} per {kind} picture on the device "
               f"(ms; back to back, median of {len(q['events_rounds_ms'])} "
               f"rounds): qpel_refine {q['picture_device_ms']:.4f} "

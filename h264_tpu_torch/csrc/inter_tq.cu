@@ -25,94 +25,63 @@
 //
 // Design.  inter_luma_tq: a warp per (candidate, MB) problem, eight a
 // block of 256 threads; lane 2 blk + h holds rows 2h and 2h + 1 of 4x4
-// block blk (below, before luma_kernel).  inter_chroma_tq: 8 threads per
-// MB (2 planes x 4 blocks), eight MBs per block.  i16_candidate: 64
-// threads per MB, as in the intra commit.
+// block blk (below, before luma_kernel).  inter_chroma_tq: the same lane
+// form, 16 lanes per MB (2 planes x 4 blocks x 2 lanes), two MBs a warp,
+// as many warps a block (up to 4) as leave a block for each of the 132
+// SMs (CIF's 396 MBs: 198 blocks of one warp; 1280x720: 450 of four).
+// i16_candidate: 64 threads per MB, as in the intra commit.
 //
-// What held inter_luma_tq back, and what this design does about it.  Its
-// first version gave each thread a whole 4x4 block in five 16-int arrays:
-// 128 registers and a 64-byte stack frame, 25 % occupancy; coeff_cost
-// indexed a level array by a table value, so that array lived in local
-// memory; the RDOQ's dequant, inverse and forward transform ran serially
-// in one thread; and every load and store was a 4-byte access at a 16-int
-// stride.  Here two lanes share a block, eight coefficients each in
-// statically indexed registers (48 registers, no stack frame, 5 blocks of
-// 256 threads an SM: 62.5 % occupancy); a column pass costs each lane two
-// shuffles a column; coeff_cost is bit arithmetic on the block's zig-zag
-// masks; the 8x8 and MB thresholds, SSD and bits are xor shuffles within
+// What held inter_luma_tq and inter_chroma_tq back, and what this design
+// does about it.  Their first versions gave each thread a whole 4x4 block
+// in 16-int arrays (pb, res, c, lev and the RDOQ's deq, levm, e): 128
+// registers and a 64-byte stack frame; coeff_cost indexed a level array
+// by a table value, so that array lived in local memory; the RDOQ's
+// dequant, inverse and forward transform ran serially in one thread;
+// every load and store was a 4-byte access at a 16-int (chroma: 8-int)
+// stride; and chroma's 2x2 DC transform and AC drop went through shared
+// memory between two barriers, eight threads an MB in blocks of 64, so
+// that a CIF picture made 50 blocks for 132 SMs.  Here two lanes share a
+// block, eight coefficients each in statically indexed registers (luma 48
+// registers, no stack frame, 5 blocks of 256 threads an SM: 62.5 %
+// occupancy); a column pass costs each lane two shuffles a column;
+// coeff_cost is bit arithmetic on the block's zig-zag masks (chroma's
+// from position 1; a chroma warp whose levels are all zero skips the
+// RDOQ, which only lowers nonzero levels); luma's 8x8 and MB thresholds,
+// SSD and bits, and chroma's DC Hadamard pair (quant, then its inverse
+// and the truncating dequant) and plane cost sum, are xor shuffles within
 // the warp, with no shared memory or barrier; and each lane loads its
 // rows of pred and orig and stores its rows of rec and lev as 16-byte
-// vectors, a warp's accesses one contiguous 1 KB row of problems.  Two
-// lanes a block rather than four: the problem then fits one warp, and a
-// lane's rows keep their parity, so every quant, dequant and RDOQ
-// constant of a position is static and only the zig-zag index depends on
-// the lane (tests/test_torch_search_tq.py holds this lane-by-lane form
-// against the plain version).
+// vectors.  Two lanes a
+// block rather than four: a luma problem then fits one warp, and a lane's
+// rows keep their parity, so every quant, dequant and RDOQ constant of a
+// position is static and only the zig-zag index depends on the lane
+// (tests/test_torch_search_tq.py and tests/test_torch_direct_chroma.py
+// hold this lane-by-lane form against the plain versions).
 //
 // Bound.  Bytes: pred and orig read, lev, rec, D8 and cb8 written once
-// (7.8 MB for a CIF P picture's six candidates, 0.0023 ms at 3.35 TB/s).
-// Operations, by chip_smoke.py's rule (OPS_INTER_LUMA, FOPS_INTER_TQ):
-// 58.5 integer operations per coefficient for transform, quant, RDOQ (a
-// second inverse and forward transform), coeff_cost and recon, the
-// residual and its forward transform in 16-bit pairs, and 12 float32 ones
-// for RDOQ's cost on the FP32 pipe; below the bytes at every size.
+// (7.8 MB for a CIF P picture's six candidates, 0.0023 ms at 3.35 TB/s;
+// chroma 0.82 MB, 0.00025 ms).  Operations, by chip_smoke.py's rule
+// (OPS_INTER_LUMA, FOPS_INTER_TQ): 58.5 integer operations per
+// coefficient for transform, quant, RDOQ (a second inverse and forward
+// transform), coeff_cost and recon, the residual and its forward
+// transform in 16-bit pairs, and 12 float32 ones for RDOQ's cost on the
+// FP32 pipe; below the bytes at every size.  A chroma call is far below a
+// launch: its device time is the launch and one pass of dependent
+// arithmetic.
 //
 // ptxas (sm_90a, nvcc -O3): luma_kernel 48 registers, no stack frame, no
-// shared memory; chroma_kernel 128 registers with a 64-byte stack frame
-// (its per-thread 4x4 arrays), 768 B shared memory; i16_kernel 64
-// registers, 4,056 B shared memory; no spills.
+// shared memory; i16_kernel 64 registers, 4,056 B shared memory; no
+// spills; chroma_kernel: see PERF.md §6 (the build's report, printed by
+// chip_smoke.py and tools/time_kernels.py).
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
-__constant__ int kZz4[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
-__constant__ int kCostRun[16] = {3, 2, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-__constant__ float kN2[4] = {16.f, 10.f, 16.f, 10.f};
-__constant__ float kSS[4] = {2.f, 1.f, 2.f, 1.f};
-
-// JM coeff_cost of a raster 4x4 level block from zig-zag position `first`
-__device__ int coeff_cost(const int* lev, int first) {
-  int cost = 0, run = 0;
-  for (int z = first; z < 16; ++z) {
-    int v = lev[kZz4[z]];
-    if (v != 0) {
-      cost += abs(v) > 1 ? 9 : kCostRun[run];
-      run = 0;
-    } else {
-      ++run;
-    }
-  }
-  return cost;
-}
-
 __device__ __forceinline__ int rdoq_bits(int a) {
   return a > 0 ? 2 * bitlen(a) + 2 : 0;
-}
-
-// RDOQ-lite (rd.py `_rdoq4`) of one raster block: res pixel residuals,
-// lev levels (updated in place)
-__device__ void rdoq4(const int* res, int* lev, int per, int rem, float lam32) {
-  int deq[16], levm[16], e[16];
-  for (int k = 0; k < 16; ++k) {
-    deq[k] = dequant(lev[k], k, per, rem);
-    levm[k] = lev[k] > 0 ? lev[k] - 1 : lev[k] < 0 ? lev[k] + 1 : 0;
-    e[k] = deq[k];
-  }
-  inverse4x4(e);
-  for (int k = 0; k < 16; ++k) e[k] = shl(res[k], 6) - e[k];
-  forward4x4(e);
-  for (int k = 0; k < 16; ++k) {
-    float delta = (float)(dequant(levm[k], k, per, rem) - deq[k]);
-    float n2 = kN2[k >> 2] * kN2[k & 3], ss = kSS[k >> 2] * kSS[k & 3];
-    float dD = __fsub_rn(__fmul_rn(__fmul_rn(delta, delta), n2),
-                         __fmul_rn(__fmul_rn(__fmul_rn(8.0f, delta), (float)e[k]),
-                                   ss));
-    int a = abs(lev[k]);
-    float dJ = __fadd_rn(dD, __fmul_rn(lam32, (float)(rdoq_bits(abs(levm[k]))
-                                                      - rdoq_bits(a))));
-    if (a > 0 && dJ < 0.0f) lev[k] = levm[k];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -130,7 +99,8 @@ __device__ void rdoq4(const int* res, int* lev, int per, int rem, float lam32) {
 constexpr int kLumaWarps = 8;  // problems a block
 constexpr unsigned kFull = 0xffffffffu;
 
-// zig-zag index of raster position k = 4 y + x (inverse of kZz4), nibble k
+// zig-zag index of raster position k = 4 y + x (inverse of the 4x4
+// zig-zag scan), nibble k
 constexpr unsigned long long kZzOf = 0xFEA9DB83C7426510ULL;
 __device__ __forceinline__ constexpr int zz_of(int k) {
   return (int)((kZzOf >> (4 * k)) & 15);
@@ -186,12 +156,14 @@ __device__ __forceinline__ void inv_cols(int (&r0)[4], int (&r1)[4], int h) {
 }
 
 // JM coeff_cost from the block's nonzero mask M and |level| > 1 mask B in
-// zig-zag order, scanned from position 0: a nonzero at z after a run of r
-// zeros costs kCostRun[r] = [r < 1] + [r < 3] + [r < 6] (9 when |level|
-// > 1).  r < k exactly when a nonzero, or the scan's start (bit 0 of E,
-// position -1), lies within k positions before z.
-__device__ __forceinline__ int coeff_cost_mask(unsigned M, unsigned B) {
-  const unsigned E = (M << 1) | 1u, S = (M & ~B) << 1;
+// zig-zag order (no bit below `first`), scanned from position `first`: a
+// nonzero at z after a run of r zeros costs JM's COEFF_COST4x4[r] = [r <
+// 1] + [r < 3] + [r < 6] (9 when |level| > 1).  r < k exactly when a
+// nonzero, or the scan's start (bit `first` of E, position first - 1),
+// lies within k positions before z.
+__device__ __forceinline__ int coeff_cost_mask(unsigned M, unsigned B,
+                                               int first = 0) {
+  const unsigned E = (M << 1) | (1u << first), S = (M & ~B) << 1;
   const unsigned n1 = E << 1, n3 = n1 | (n1 << 1) | (n1 << 2),
                  n6 = n3 | (n3 << 3);
   return 9 * __popc(B) + __popc(S & n1) + __popc(S & n3) + __popc(S & n6);
@@ -343,67 +315,168 @@ luma_kernel(const int* __restrict__ pred, const int* __restrict__ orig,
   }
 }
 
-__global__ void __launch_bounds__(64)
+// ---------------------------------------------------------------------------
+// inter_chroma_tq: 16 lanes per MB, two lanes per 4x4 block
+// ---------------------------------------------------------------------------
+// Lane bits: 0 h, 1-2 the block cb = 2 cby + cbx of the plane, 3 the plane,
+// 4 the MB of the warp.  As in luma_kernel, lane h holds rows 2h and 2h + 1
+// of its block.  The plane's 2x2 DC Hadamard runs on the blocks' DC lanes
+// (h = 0) by xor shuffles over bits 1 and 2, which leave each lane with
+// its own block's entry; so do the cost sum of JM's AC drop.
+constexpr int kChromaWarps = 4;  // warps (two MBs each) a block, at most
+constexpr int kSMs = 132;        // an H100's SMs
+
+// the 2x2 Hadamard of the values of the lanes that differ in bits 1 and 2
+// (blocks cb = 0..3 of a plane), entry cb to block cb's lanes
+__device__ __forceinline__ int hadamard_blocks(int v, int cb) {
+  int p = __shfl_xor_sync(kFull, v, 2);
+  v = (cb & 1) ? p - v : v + p;
+  p = __shfl_xor_sync(kFull, v, 4);
+  return (cb & 2) ? p - v : v + p;
+}
+
+__global__ void __launch_bounds__(32 * kChromaWarps)
 chroma_kernel(const int* __restrict__ pred, const int* __restrict__ orig,
-              int n_mb, int qp_c, int lam, int* out_lev, int* out_dc,
-              int* out_rec) {
-  __shared__ int dc[8][2][4], dcdeq[8][2][4], acc[8][2][4];
-  const int tid = threadIdx.x, sub = tid >> 3;
-  const int pl = (tid >> 2) & 1, cb = tid & 3, cby = cb >> 1, cbx = cb & 1;
-  const int mb = blockIdx.x * 8 + sub;
-  const bool live = mb < n_mb;
-  const int per = qp_c / 6, rem = qp_c % 6, off = 342 << (4 + per);
+              int n_mb, int qp_c, int lam, int* __restrict__ out_lev,
+              int* __restrict__ out_dc, int* __restrict__ out_rec) {
+  const int lane = threadIdx.x & 31;
+  const int h = lane & 1, cb = (lane >> 1) & 3, pl = (lane >> 3) & 1;
+  const int mb_at =
+      2 * (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) + (lane >> 4);
+  // a half warp past the last MB codes the last MB again, unstored: the
+  // shuffles need every lane
+  const bool live = mb_at < n_mb;
+  const int mb = live ? mb_at : n_mb - 1;
+  const int per = qp_c / 6, rem = qp_c % 6, off = 342 << (4 + per),
+            qbits = 15 + per;
   const float lam32 = (float)lam;
-  const size_t base = ((size_t)mb * 2 + pl) * 64;
-  int pb[16], res[16], c[16], lev[16];
-  if (live) {
-    for (int k = 0; k < 16; ++k) {
-      int y = 4 * cby + (k >> 2), x = 4 * cbx + (k & 3);
-      pb[k] = pred[base + 8 * y + x];
-      res[k] = orig[base + 8 * y + x] - pb[k];
-      c[k] = res[k];
-    }
-    forward4x4(c);
-    dc[sub][pl][cb] = c[0];
+  int mf[3], vs[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    mf[k] = kM4[rem][k];
+    vs[k] = kV4[rem][k] * 16;
   }
-  __syncthreads();
-  if (live && cb == 0) {
-    const int* d = dc[sub][pl];
-    int h[4] = {d[0] + d[1] + d[2] + d[3], d[0] - d[1] + d[2] - d[3],
-                d[0] + d[1] - d[2] - d[3], d[0] - d[1] - d[2] + d[3]};
-    int l[4];
-    for (int k = 0; k < 4; ++k) {
-      l[k] = quant(h[k], kM4[rem][0], 2 * off, 16 + per);
-      out_dc[((size_t)mb * 2 + pl) * 4 + k] = l[k];
-    }
-    int g[4] = {l[0] + l[1] + l[2] + l[3], l[0] - l[1] + l[2] - l[3],
-                l[0] + l[1] - l[2] - l[3], l[0] - l[1] - l[2] + l[3]};
-    for (int k = 0; k < 4; ++k) {  // truncating chroma-DC dequant
-      int v = mul(g[k], kV4[rem][0] * 16);
-      dcdeq[sub][pl][k] = per < 5 ? v >> (5 - per) : shl(v, per - 5);
-    }
+  // the lane's two rows: sample (4 cby + 2 h + j, 4 cbx + x) of its plane
+  const size_t px = ((size_t)mb * 2 + pl) * 64 + 8 * (4 * (cb >> 1) + 2 * h)
+                    + 4 * (cb & 1);
+  const int4* pp = reinterpret_cast<const int4*>(pred + px);
+  const int4* op = reinterpret_cast<const int4*>(orig + px);
+  int res[2][4], c[2][4], lev[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int4 P = __ldg(pp + 2 * j), O = __ldg(op + 2 * j);
+    res[j][0] = O.x - P.x;
+    res[j][1] = O.y - P.y;
+    res[j][2] = O.z - P.z;
+    res[j][3] = O.w - P.w;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) c[j][x] = res[j][x];
+    fwd_row(c[j]);
   }
-  if (live) {
-    for (int k = 0; k < 16; ++k)
-      lev[k] = k == 0 ? 0 : quant(c[k], kM4[rem][cls4(k)], off, 15 + per);
-    rdoq4(res, lev, per, rem, lam32);
-    lev[0] = 0;
-    acc[sub][pl][cb] = coeff_cost(lev, 1);
-  }
-  __syncthreads();
-  if (live) {
-    const int* a = acc[sub][pl];
-    if (a[0] + a[1] + a[2] + a[3] < 4)
-      for (int k = 0; k < 16; ++k) lev[k] = 0;
-    int rr[16];
-    for (int k = 0; k < 16; ++k)
-      rr[k] = k == 0 ? dcdeq[sub][pl][cb] : dequant(lev[k], k, per, rem);
-    inverse4x4(rr);
-    for (int k = 0; k < 16; ++k) {
-      int y = 4 * cby + (k >> 2), x = 4 * cbx + (k & 3);
-      out_rec[base + 8 * y + x] = clip255((rr[k] + shl(pb[k], 6) + 32) >> 6);
-      out_lev[(((size_t)mb * 2 + pl) * 4 + cb) * 16 + k] = lev[k];
+  fwd_cols(c[0], c[1], h);
+
+  // the DC: 2x2 Hadamard of the plane's four DCs, quant (twice the offset,
+  // shift 16 + per), its own Hadamard and the truncating dequant
+  const int dl = quant(hadamard_blocks(c[0][0], cb), mf[0], 2 * off,
+                       16 + per);
+  if (live && h == 0) out_dc[((size_t)mb * 2 + pl) * 4 + cb] = dl;
+  const int dg = mul(hadamard_blocks(dl, cb), vs[0]);
+  const int dc_deq = per < 5 ? dg >> (5 - per) : shl(dg, per - 5);
+
+  // the AC with the DC slot zero, then RDOQ-lite (rd.py `_rdoq4`) as in
+  // luma_kernel; it only lowers nonzero levels, so a warp whose levels are
+  // all zero skips it
+  bool nonzero = false;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      lev[j][x] = h == 0 && j == 0 && x == 0
+                      ? 0
+                      : quant(c[j][x], mf[cls_of(j, x)], off, qbits);
+      nonzero |= lev[j][x] != 0;
     }
+  if (__any_sync(kFull, nonzero)) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        c[j][x] = (shl(mul(lev[j][x], vs[cls_of(j, x)]), per) + 8) >> 4;
+      inv_row(c[j]);
+    }
+    inv_cols(c[0], c[1], h);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) c[j][x] = shl(res[j][x], 6) - c[j][x];
+      fwd_row(c[j]);
+    }
+    fwd_cols(c[0], c[1], h);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int l = lev[j][x], v = vs[cls_of(j, x)];
+        const int lm = l > 0 ? l - 1 : l < 0 ? l + 1 : 0;
+        const int deq = (shl(mul(l, v), per) + 8) >> 4;
+        const float delta =
+            (float)(((shl(mul(lm, v), per) + 8) >> 4) - deq);
+        const float n2 = (j ? 10.f : 16.f) * ((x & 1) ? 10.f : 16.f);
+        const float ss = (j ? 1.f : 2.f) * ((x & 1) ? 1.f : 2.f);
+        const float dD = __fsub_rn(
+            __fmul_rn(__fmul_rn(delta, delta), n2),
+            __fmul_rn(__fmul_rn(__fmul_rn(8.0f, delta), (float)c[j][x]), ss));
+        const int a = abs(l);
+        const float dJ = __fadd_rn(
+            dD, __fmul_rn(lam32, (float)(rdoq_bits(abs(lm)) - rdoq_bits(a))));
+        if (a > 0 && dJ < 0.0f) lev[j][x] = lm;
+      }
+  }
+  unsigned nzm = 0, bigm = 0;  // zig-zag masks of the lane's coefficients
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const unsigned bit = 1u << (h ? zz_of(8 + 4 * j + x) : zz_of(4 * j + x));
+      if (lev[j][x] != 0) nzm |= bit;
+      if (abs(lev[j][x]) > 1) bigm |= bit;
+    }
+  nzm |= __shfl_xor_sync(kFull, nzm, 1);
+  bigm |= __shfl_xor_sync(kFull, bigm, 1);
+
+  // JM's chroma AC drop: the plane's four AC costs (from zig-zag position
+  // 1) summed below 4
+  int tot = coeff_cost_mask(nzm, bigm, 1);
+  tot += __shfl_xor_sync(kFull, tot, 2);
+  tot += __shfl_xor_sync(kFull, tot, 4);
+  const bool drop = tot < 4;
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      if (drop) lev[j][x] = 0;
+      c[j][x] = h == 0 && j == 0 && x == 0
+                    ? dc_deq
+                    : (shl(mul(lev[j][x], vs[cls_of(j, x)]), per) + 8) >> 4;
+    }
+    inv_row(c[j]);
+  }
+  inv_cols(c[0], c[1], h);
+  if (!live) return;
+  int4* rp = reinterpret_cast<int4*>(out_rec + px);
+  int4* lp = reinterpret_cast<int4*>(
+      out_lev + (((size_t)mb * 2 + pl) * 4 + cb) * 16 + 8 * h);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int4 P = __ldg(pp + 2 * j);
+    const int pb[4] = {P.x, P.y, P.z, P.w};
+    int rec[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      rec[x] = clip255((c[j][x] + shl(pb[x], 6) + 32) >> 6);
+    rp[2 * j] = make_int4(rec[0], rec[1], rec[2], rec[3]);
+    lp[j] = make_int4(lev[j][0], lev[j][1], lev[j][2], lev[j][3]);
   }
 }
 
@@ -453,7 +526,11 @@ extern "C" int inter_luma_tq(const int* pred, const int* orig, int n_prob,
 extern "C" int inter_chroma_tq(const int* pred, const int* orig, int n_mb,
                                int qp_c, int lam, int* lev, int* dc, int* rec,
                                void* stream) {
-  chroma_kernel<<<(n_mb + 7) / 8, 64, 0, (cudaStream_t)stream>>>(
+  // as many warps a block as leave a block for every SM, up to kChromaWarps
+  const int n_warps = (n_mb + 1) / 2;
+  const int warps = std::max(1, std::min(kChromaWarps, n_warps / kSMs));
+  chroma_kernel<<<(n_warps + warps - 1) / warps, 32 * warps, 0,
+                  (cudaStream_t)stream>>>(
       pred, orig, n_mb, qp_c, lam, lev, dc, rec);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-"""Built inputs of K3 ``coarse_search`` and K5 ``inter_luma_tq``, beside
-the recorded ones of the P and B pictures.
+"""Built inputs of K3 ``coarse_search``, K5 ``inter_luma_tq`` and
+``inter_chroma_tq`` and K7 ``b_direct``, beside the recorded ones of the P
+and B pictures.
 
 ``coarse_case(content, W, H, NR, wp, seed)`` returns (banks (NR, 4, H+64,
 W+64), cur_y (H, W), wp or None), int32 CPU tensors:
@@ -26,6 +27,23 @@ orig (n_mb, 16, 16)), int32 CPU tensors:
 - ``sparse``: residuals of a few levels in a few samples, MB by MB of an
   amplitude from 0 to 24, so that at QP 28 some 8x8 units drop, some MBs
   drop whole and some keep everything (``drop_kinds`` counts them).
+
+``chroma_case(content, n_mb, seed, qp_c)`` returns (pred, orig) (n_mb,
+2, 8, 8), int32 CPU tensors: ``random`` as above; ``extreme`` residuals of
+0 and +-255, sample by sample; ``sparse`` the residual of 0-2 AC levels
+of +-1 or +-2 a block at ``qp_c``, so that the planes' AC coefficient
+costs land around JM's drop threshold of 4, below it in some planes and
+at or above it in others (``chroma_ac_costs`` gives them).
+
+``direct_case(W, H, NR, seed)`` returns the inputs of ``b_direct``:
+random banks (NR, 4, H+64, W+64) and (1, 4, H+64, W+64), a colocated
+snapshot (H/4, W/4) and the DistScaleFactor and anchor flags of list 0
+(reference POCs ``DIRECT_POCS[:NR]`` around a B picture at POC 6 whose
+list-1 anchor is POC 8), int32 / bool CPU tensors.  The snapshot holds
+intra blocks, units whose list-0 reference is the anchor (unscaled),
+indices NR and NR + 1 past the list (clamped to NR - 1 by the lookups),
+and mvs up to +-90 pel, so that scaled mvs are negative and windows start
+outside the padded banks (``direct_kinds`` counts each).
 """
 
 from __future__ import annotations
@@ -33,12 +51,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..decoder.mv import dist_scale_factor
 from ..encoder import rd as RD
+from ..encoder import rd_b as RB
 from ..ops import quant as Q
 from ..ops import transforms as TR
 
 COARSE_CONTENTS = ("random", "corners", "flat", "checker")
 LUMA_CONTENTS = ("random", "extreme", "sparse")
+# the list-0 reference POCs of direct_case (the anchor, POC 8, second) and
+# the B picture's POC
+DIRECT_POCS, DIRECT_CUR, DIRECT_ANCHOR = (4, 8, 0), 6, 8
 
 # the corner MBs' centres in "corners" (top-left, top-right, bottom-left,
 # bottom-right), full-pel (cen_x, cen_y)
@@ -124,3 +147,83 @@ def drop_kinds(pred, orig, qp: int, lam: int) -> dict:
     return {"units_dropped": int((c8 <= 4).sum()),
             "mbs_dropped_whole": int((any_kept & (kept <= 5)).sum()),
             "mbs_kept": int((kept > 5).sum())}
+
+
+def chroma_case(content: str, n_mb: int, seed: int, qp_c: int = 28):
+    rs = np.random.RandomState(seed)
+    shape = (n_mb, 2, 8, 8)
+    if content == "extreme":
+        orig = rs.randint(0, 2, shape) * 255
+        pred = np.where(rs.rand(*shape) < 0.8, 255 - orig, orig)
+    elif content == "sparse":
+        # 0-2 AC levels of +-1 or +-2 a block, reconstructed at qp_c
+        pred = rs.randint(0, 256, shape)
+        lev = np.zeros((n_mb, 2, 2, 2, 16), np.int64)
+        k = rs.randint(0, 3, lev.shape[:-1])
+        for i in np.ndindex(k.shape):
+            pos = rs.choice(np.arange(1, 16), k[i], replace=False)
+            lev[i + (pos,)] = rs.choice([-2, -1, -1, 1, 1, 2], k[i])
+        lev = torch.as_tensor(lev.reshape(n_mb, 2, 2, 2, 4, 4))
+        rr = TR.inverse4x4(Q.dequant4x4(lev, qp_c))
+        res = ((rr + 32) >> 6).transpose(-3, -2).reshape(shape).numpy()
+        orig = (pred + res).clip(0, 255)
+    else:
+        orig = rs.randint(0, 256, shape)
+        pred = (orig + rs.randint(-40, 41, shape)).clip(0, 255)
+    return _t(pred), _t(orig)
+
+
+def chroma_ac_costs(pred, orig, qp_c: int, lam: int):
+    """Each plane's summed JM AC coefficient cost (from zig-zag position
+    1) after quant and RDOQ-lite, (n_mb, 2): JM drops the plane's AC below
+    4."""
+    res = orig - pred
+    blk = res.reshape(*res.shape[:-2], 2, 4, 2, 4).transpose(-3, -2)
+    lev = Q.quant4x4(TR.forward4x4(blk), qp_c, Q.default_offset4(qp_c, False))
+    lev[..., 0, 0] = 0
+    lev = RD._rdoq4(blk, lev, qp_c, lam)
+    return RD._block4_coeff_cost(lev, first=1).sum((-1, -2))
+
+
+def direct_case(W: int, H: int, NR: int, seed: int):
+    rs = np.random.RandomState(seed)
+    Hp, Wp = H + 64, W + 64
+    H4, W4 = H // 4, W // 4
+    banks0 = rs.randint(0, 256, (NR, 4, Hp, Wp))
+    banks1 = rs.randint(0, 256, (1, 4, Hp, Wp))
+    ci = rs.rand(H4, W4) < 0.2
+    cr = rs.randint(0, NR + 2, (H4, W4))  # NR, NR + 1: past the list
+    cmx, cmy = (rs.randint(-360, 361, (H4, W4)) for _ in range(2))
+    pocs = DIRECT_POCS[:NR]
+    dsf = [dist_scale_factor(DIRECT_CUR, p, DIRECT_ANCHOR)
+           if p != DIRECT_ANCHOR else 0 for p in pocs]
+    eq = np.asarray([p == DIRECT_ANCHOR for p in pocs])
+    return (_t(banks0), _t(banks1), torch.as_tensor(ci), _t(cr), _t(cmx),
+            _t(cmy), _t(dsf), torch.as_tensor(eq))
+
+
+def direct_kinds(args) -> dict:
+    """How many of ``direct_case``'s units take each branch: intra
+    colocated, list-0 reference the anchor, index past the list, scaled
+    mv negative, list-0 or list-1 window starting outside the bank."""
+    b0, _, ci, *_ = args
+    NR, _, Hp, Wp = b0.shape
+    idx, l0x, l0y, l1x, l1y = RB.direct_mvs(*args[2:])
+    n_mx = (Wp - 64) // 16
+    _, _, y0, x0 = RB._units(idx.shape[0], n_mx, "cpu")
+    mb, b8 = torch.arange(idx.shape[0])[:, None], torch.arange(4)[None]
+    ry = 4 * (mb // n_mx) + 3 * (b8 >> 1)
+    rx = 4 * (mb % n_mx) + 3 * (b8 & 1)
+    intra = ci[ry, rx]
+    eq = args[7][RB._slice_start(idx, NR, 1).long()] & ~intra
+
+    def outside(y, x, my, mx):
+        sy = y + (my >> 2) + RD.PAD
+        sx = x + (mx >> 2) + RD.PAD
+        return (sy < 0) | (sy > Hp - 10) | (sx < 0) | (sx > Wp - 10)
+
+    return {"intra": int(intra.sum()), "anchor": int(eq.sum()),
+            "past_list": int((idx >= NR).sum()),
+            "negative": int(((l0x < 0) & ~eq & ~intra).sum()),
+            "outside_l0": int(outside(y0, x0, l0y, l0x).sum()),
+            "outside_l1": int(outside(y0, x0, l1y, l1x).sum())}

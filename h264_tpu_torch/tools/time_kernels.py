@@ -1,24 +1,33 @@
-"""K3 ``coarse_search``, K4 ``qpel_refine``, K5 ``inter_luma_tq`` and K6
-``deblock`` on the main path's inputs, on one CUDA card: per-call,
-per-shape and per-picture times, K6's chain and launch profile, and K1 on
-P and B pictures.  ``chip_smoke.py`` times with the same functions.
+"""K3 ``coarse_search``, K4 ``qpel_refine``, K5 ``inter_luma_tq`` and
+``inter_chroma_tq``, K6 ``deblock`` and K7 ``b_direct`` on the main path's
+inputs, on one CUDA card: per-call, per-shape and per-picture times, K6's
+chain and launch profile, and K1 on P and B pictures.  ``chip_smoke.py``
+times with the same functions.
 
     python -m h264_tpu_torch.tools.time_kernels [--out DIR]
     python h264_tpu_torch/tools/time_kernels.py --root DIR [--out DIR]
     python -m h264_tpu_torch.tools.time_kernels --trial [--out DIR]
+    python -m h264_tpu_torch.tools.time_kernels --ab DIR [--out DIR]
 
 Encodes the bench configuration (IPB, one B picture between anchors, QP
 28, 5 references, search range 28, explicit WP; ``moving_frames``, 5
 frames) at CIF and 1280x720 with every P and B kernel entry recorded, and
 times on the second P and the second B picture's inputs:
-- ``coarse_search`` (P) and ``inter_luma_tq`` (P and B), one call a
-  picture each: its device time queued behind a spin of the card (the
-  host's launch time excluded), and back to back (CUDA events and the
-  host's clock; the median of 5 rounds);
+- ``coarse_search`` (P), ``inter_luma_tq`` and ``inter_chroma_tq`` (P and
+  B) and ``b_direct`` (B), one call a picture each: its device time queued
+  behind a spin of the card (the host's launch time excluded), and back to
+  back (CUDA events and the host's clock; the median of 5 rounds); for
+  ``inter_chroma_tq`` and ``b_direct`` also an empty kernel launched on
+  the grid of each of their two designs (``empty_launch_ms``: the floor of
+  a launch of that grid);
 - each ``qpel_refine`` call (one shape each) on the device, and the
   picture's calls on the device and back to back;
 - the ``deblock`` call, the same two ways;
-- K1 ``intra_commit_scan`` on the picture's scan state (its intra MBs).
+- K1 ``intra_commit_scan`` on the picture's scan state (its intra MBs);
+- for ``b_direct``, the distinct 32-byte sectors its gathers touch
+  (``sector_bytes``, with the fields and outputs, and their time at
+  3.35 TB/s, ``sector_bound_ms``): the least traffic of its reads at the
+  memory's granularity, where the byte bound counts only the samples.
 Then K6's chain on built inputs: a 16x16 picture, an MB's step along a
 row (1280x16) and down a column (16x1088), CIF and 1280x720 pictures
 beside their chain (``deblock_chain``); and ``torch.profiler`` over one
@@ -30,7 +39,13 @@ the decimation's grid and its search alone (``trial_coarse``).
 
 With ``--root`` the package is imported from the checkout DIR, so that an
 earlier version of the kernels is timed by the same script in the same
-call on the same card.  Prints the card's name and power limit and one
+call on the same card.  With ``--ab DIR`` the package of the checkout DIR
+is imported beside this one (as ``h264_tpu_torch_ab``), and the wrappers
+of ``b_direct`` and ``inter_chroma_tq`` of both run back to back on the
+same recorded inputs in turns, 15 rounds a b b a ... (``ab``): the host's
+speed wanders between processes and over seconds, so only calls taken
+in turns in one process compare their wrappers' host time; with it, the
+host time of each part of this ``b_direct`` wrapper (``parts_us``).  Prints the card's name and power limit and one
 JSON object (also written to DIR/time_kernels[-TAG].json with ``--out``).
 Needs a CUDA card.
 """
@@ -39,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -194,10 +210,190 @@ def record_bench(size):
             for kind, calls in (("P", pcalls), ("B", bcalls))}
 
 
+def _grid(warps: int):
+    """(blocks, threads) of `warps` warps, as many a block (up to 4) as
+    leave a block for each of an H100's 132 SMs."""
+    per = max(1, min(4, warps // 132))
+    return (warps + per - 1) // per, 32 * per
+
+
+# (blocks, threads) of the launches of inter_chroma_tq and b_direct for
+# n_mb MBs: this design's grid, then the first design's
+GRIDS = {"inter_chroma_tq": lambda n: [_grid((n + 1) // 2), ((n + 7) // 8, 64)],
+         "b_direct": lambda n: [_grid(n), (n, 256)]}
+
+
+def empty_launch_ms(blocks: int, threads: int, reps: int = 20) -> float:
+    """Device time of an empty kernel launched on a (blocks, threads)
+    grid, queued behind a spin as ``spin_ms`` times a call."""
+    import torch
+
+    fn = _empty_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(blocks, threads, stream):
+            raise RuntimeError("empty launch: CUDA error")
+
+    return spin_ms(launch, reps)
+
+
+@functools.lru_cache(maxsize=None)
+def _empty_lib():
+    return _trial_lib("empty", {"empty.cu": EMPTY_CU}, "empty_launch", "iip")
+
+
+EMPTY_CU = """#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+HBM_BPS = 3.35e12  # an H100's memory rate
+
+
+def direct_sector_bytes(args) -> int:
+    """Bytes of the distinct 32-byte sectors that one ``b_direct`` call's
+    gathers touch (each tap plane's 8 rows of 8 samples per unit and list,
+    a row in one sector or two), plus the colocated fields and tables read
+    and the outputs written once."""
+    import torch
+    from h264_tpu_torch.encoder import rd, rd_b
+
+    b0, b1 = args[:2]
+    NR0, _, Hp, Wp = b0.shape
+    idx, l0x, l0y, l1x, l1y = (a.long() for a in rd_b.direct_mvs(*args[2:]))
+    n_mb = idx.shape[0]
+    dev = idx.device
+    _, _, y0, x0 = rd_b._units(n_mb, (Wp - 64) // 16, dev)
+    q = torch.as_tensor(rd._QTAB, device=dev).long()
+    rows = torch.arange(8, device=dev)
+    ends = []
+    # list 1's bank after list 0's: a separate allocation, never shared
+    for base, r, mx, my in ((0, rd_b._slice_start(idx, NR0, 1), l0x, l0y),
+                            (NR0 * 4 * Hp * Wp, 0, l1x, l1y)):
+        iy = rd_b._slice_start(y0 + (my >> 2) + rd.PAD, Hp, 10)
+        ix = rd_b._slice_start(x0 + (mx >> 2) + rd.PAD, Wp, 10)
+        t = q[(my & 3) * 4 + (mx & 3)]
+        for k in (0, 3):
+            row0 = (r * 4 + t[..., k]) * Hp + iy + t[..., k + 1]
+            start = (base + (row0[..., None] + rows) * Wp
+                     + (ix + t[..., k + 2])[..., None])
+            ends += [start // 8, (start + 7) // 8]  # 8 int32 a sector
+    sectors = int(torch.unique(torch.cat([e.reshape(-1) for e in ends])
+                               ).numel())
+    fields = sum(a.numel() * a.element_size() for a in args[2:])
+    return sectors * 32 + fields + n_mb * 276 * 4
+
+
+def load_ab(root):
+    """The h264_tpu_torch package of the checkout `root`, imported as
+    h264_tpu_torch_ab beside this one (the package imports itself only
+    relatively)."""
+    import importlib.util
+
+    pkg = pathlib.Path(root).resolve() / "h264_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "h264_tpu_torch_ab", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["h264_tpu_torch_ab"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ab_times(fa, fb, reps: int = 20, rounds: int = 15) -> dict:
+    """fa ("this") and fb ("ab") back to back in turns, a b b a ...: each
+    round's mean ms a call by CUDA events and on the host's clock, their
+    medians, and the ratio of this one's to the other's."""
+    import statistics
+
+    out = {"this": {"events": [], "host": []}, "ab": {"events": [], "host": []}}
+    for i in range(rounds):
+        order = (("this", fa), ("ab", fb))
+        for key, fn in order if i % 2 == 0 else order[::-1]:
+            ev, host = events_rounds(fn, reps, rounds=1)
+            out[key]["events"] += ev
+            out[key]["host"] += host
+    for key in ("this", "ab"):
+        for m in ("events", "host"):
+            out[key][f"{m}_ms"] = statistics.median(out[key][m])
+    out["events_ratio"] = out["this"]["events_ms"] / out["ab"]["events_ms"]
+    out["host_ratio"] = out["this"]["host_ms"] / out["ab"]["host_ms"]
+    return out
+
+
+def picture_ab(calls, other) -> dict:
+    """``ab_times`` of the ``b_direct`` and ``inter_chroma_tq`` calls of
+    one recorded picture: this package's wrappers against `other`'s."""
+    import importlib
+
+    from h264_tpu_torch.kernels import b_direct as K7
+    from h264_tpu_torch.kernels import inter_tq as K5
+
+    theirs = {n: getattr(importlib.import_module(
+        f"{other.__name__}.kernels.{m}"), n)
+        for n, m in (("b_direct", "b_direct"), ("inter_chroma_tq", "inter_tq"))}
+    mine = {"b_direct": K7.b_direct, "inter_chroma_tq": K5.inter_chroma_tq}
+    res = {}
+    for name in mine:
+        for a in [a for n, a in calls if n == name]:
+            res[name] = ab_times(lambda: mine[name](*a),
+                                 lambda: theirs[name](*a))
+            if name == "b_direct":
+                res[name]["parts_us"] = wrapper_parts(a)
+    return res
+
+
+def wrapper_parts(a, n: int = 300) -> dict:
+    """Host µs a call of each part of the ``b_direct`` wrapper on its
+    inputs `a` (the mean of n calls on the host's clock): the combined
+    check, the allocation, the six views, the pointers, the stream, the
+    entry's lookup, the ctypes call with its launch, and the whole
+    wrapper.  n stays below the launch queue's depth, so that the host
+    never waits for the card."""
+    import torch
+    from h264_tpu_torch import device as D
+    from h264_tpu_torch.kernels import b_direct as K7
+
+    banks0 = a[0]
+    NR0, _, Hp, Wp = banks0.shape
+    n_mb = (Hp - 64) // 16 * ((Wp - 64) // 16)
+    sig = "p" * 8 + "iii" + "pp"
+    out = torch.empty((69, n_mb, 4), dtype=torch.int32, device=banks0.device)
+    fn = D.kernel_fn("b_direct", "b_direct", sig)
+    ptrs = [x.data_ptr() for x in a]
+    stream = D.stream_of(banks0)
+    parts = {
+        "check": lambda: K7._accepts(a),
+        "allocate": lambda: torch.empty((69, n_mb, 4), dtype=torch.int32,
+                                        device=banks0.device),
+        "views": lambda: (out[:64].view(n_mb, 16, 16), *out[64:].unbind()),
+        "pointers": lambda: [x.data_ptr() for x in a],
+        "stream": lambda: D.stream_of(banks0),
+        "lookup": lambda: D.kernel_fn("b_direct", "b_direct", sig),
+        "launch": lambda: fn(*ptrs, NR0, Hp, Wp, out.data_ptr(), stream),
+        "whole": lambda: K7.b_direct(*a)}
+    res = {}
+    for name, f in parts.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        res[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return res
+
+
 def picture_times(calls, scan, reps: int = 20) -> dict:
-    """K3 and K5's luma entry, K4 per shape and per picture, K6 and K1 of
-    one recorded picture: on the device, and back to back (the median of 5
+    """K3, K5's two entries and K7 one call each, K4 per shape and per
+    picture, K6 and K1 of one recorded picture: on the device, and back to back (the median of 5
     rounds, each round's beside it, on the host's clock too)."""
+    from h264_tpu_torch.kernels import b_direct as K7
     from h264_tpu_torch.kernels import deblock as K6
     from h264_tpu_torch.kernels import intra_commit as K1
     from h264_tpu_torch.kernels import inter_tq as K5
@@ -216,11 +412,23 @@ def picture_times(calls, scan, reps: int = 20) -> dict:
     k1 = copy_scan(scan)
     one_call = {}
     for name, fn in (("coarse_search", K3.coarse_search),
-                     ("inter_luma_tq", K5.inter_luma_tq)):
+                     ("inter_luma_tq", K5.inter_luma_tq),
+                     ("inter_chroma_tq", K5.inter_chroma_tq),
+                     ("b_direct", K7.b_direct)):
         for a in [a for n, a in calls if n == name]:
             one_call[name] = {"device_ms": spin_ms(lambda: fn(*a), reps),
                               **back_to_back(lambda: fn(*a), reps),
                               "launches": 1}
+            if name == "b_direct":
+                nb = direct_sector_bytes(a)
+                one_call[name]["sector_bytes"] = nb
+                one_call[name]["sector_bound_ms"] = nb / HBM_BPS * 1e3
+            if name in GRIDS:
+                n_mb = (a[0].shape[0] if name == "inter_chroma_tq"
+                        else a[2].numel() // 16)
+                one_call[name]["empty_launch_ms"] = {
+                    f"{b}x{t}": empty_launch_ms(b, t, reps)
+                    for b, t in GRIDS[name](n_mb)}
     return {
         **one_call,
         "qpel_refine": {
@@ -469,6 +677,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", help="import h264_tpu_torch from this checkout")
     ap.add_argument("--out", help="directory for the JSON report")
     ap.add_argument("--tag", default="", help="suffix of the report's name")
+    ap.add_argument("--ab", help="also time the b_direct and inter_chroma_tq "
+                    "wrappers of this checkout in turns with these")
     ap.add_argument("--trial", action="store_true",
                     help="also time K6 without the fence before each "
                     "release, and K3 with other strips and its decimation "
@@ -488,16 +698,22 @@ def main(argv=None) -> int:
     card = power_line()
     print(card)
     D.build_cuda(STEMS)
-    for stem in ("search_grid", "qpel", "inter_tq", "deblock"):
+    for stem in ("search_grid", "qpel", "inter_tq", "deblock", "b_direct"):
         for ln in D.build_log.get(stem, "").splitlines():
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 print(f"  ptxas {stem}: {ln.strip()}")
     report = {"package": str(pathlib.Path(h264_tpu_torch.__file__).parent),
               "device": torch.cuda.get_device_name(0), "card": card}
+    other = load_ab(args.ab) if args.ab else None
     for size in (CIF, HD):
         pics = record_bench(size)
         report[f"{size[0]}x{size[1]}"] = {
             kind: picture_times(*pics[kind][1]) for kind in ("P", "B")}
+        if other is not None:
+            report.setdefault("ab", {"package": str(pathlib.Path(
+                other.__file__).parent)})[f"{size[0]}x{size[1]}"] = {
+                kind: picture_ab(pics[kind][1][0], other)
+                for kind in ("P", "B")}
     report["deblock_chain"] = deblock_chain()
     report["deblock_profile"] = deblock_profile()
     if args.trial:

@@ -54,8 +54,10 @@ from h264_tpu_torch.tools.p16_cases import reached_sides as p16_reached
 from h264_tpu_torch.tools.rows_cases import edge_motion
 from h264_tpu_torch.tools.search_tq_cases import (COARSE_CONTENTS,
                                                   CORNER_CENTRES,
-                                                  LUMA_CONTENTS, coarse_case,
-                                                  corner_mbs, luma_case)
+                                                  LUMA_CONTENTS, chroma_case,
+                                                  coarse_case, corner_mbs,
+                                                  direct_case, direct_kinds,
+                                                  luma_case)
 from h264_tpu_torch.tools.slab_cases import CONTENTS as SLAB_CONTENTS
 from h264_tpu_torch.tools.slab_cases import built_slab
 from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
@@ -403,6 +405,83 @@ def test_inter_luma_tq_matches_plain_built(cuda, NC, n_mb, content, qp):
         for name, g, x in zip(("lev", "rec", "D8", "cb8"), got, want):
             assert g.dtype == x.dtype and torch.equal(g, x), name
     assert K5.inter_luma_tq.launches == before + 2
+
+
+@pytest.mark.parametrize("qp_c", [0, 29, 39, 51])
+@pytest.mark.parametrize("content", LUMA_CONTENTS)
+@pytest.mark.parametrize("n_mb", [1, 41, 396, 3600])
+def test_inter_chroma_tq_matches_plain_built(cuda, n_mb, content, qp_c):
+    """inter_chroma_tq (16 lanes an MB, two MBs a warp and a block) for 1,
+    41, 396 (CIF) and 3600 (1280x720) MBs (odd counts leave a half warp
+    coding the last MB again, unstored), chroma QP 0, 29, 39 and 51, on
+    residuals up to +-40, of 0 and +-255, and sparse ones whose planes'
+    AC costs fall on both sides of JM's drop threshold
+    (tools/search_tq_cases.py); two launches each."""
+    pred, orig = (x.to(cuda) for x in chroma_case(content, n_mb,
+                                                  seed=n_mb + qp_c, qp_c=qp_c))
+    lam = _lam(qp_c)
+    want = K5.inter_chroma_tq_plain(pred, orig, qp_c, lam)
+    before = K5.inter_chroma_tq.launches
+    for _ in range(2):
+        got = K5.inter_chroma_tq(pred, orig, qp_c, lam)
+        torch.cuda.synchronize()
+        for name, g, x in zip(("levc", "dcc", "recc"), got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), name
+    assert K5.inter_chroma_tq.launches == before + 2
+
+
+DIRECT_OUTS = ("pred", "idx", "l0x", "l0y", "l1x", "l1y")
+
+
+@pytest.mark.parametrize("NR", [1, 3])
+@pytest.mark.parametrize("W,H", [(16, 16), (176, 144), (352, 288),
+                                 (1280, 720)], ids=lambda v: str(v))
+def test_b_direct_matches_plain_built(cuda, W, H, NR):
+    """b_direct (a warp per MB, the motion derived once per unit) on built
+    colocated fields: intra blocks, units whose reference is the anchor,
+    indices past the list, negative scaled mvs, mvs up to +-90 pel whose
+    windows start outside the padded banks (tools/search_tq_cases.py);
+    one MB, QCIF (an odd MB count: a partial last block), CIF and
+    1280x720; two launches each."""
+    args = tuple(a.to(cuda) for a in direct_case(W, H, NR, seed=W + NR))
+    if W > 16:
+        kinds = direct_kinds(tuple(a.cpu() for a in args))
+        assert all(v > 0 for k, v in kinds.items() if k != "anchor" or NR > 1)
+    want = K7.b_direct_plain(*args)
+    before = K7.b_direct.launches
+    for _ in range(2):
+        got = K7.b_direct(*args)
+        torch.cuda.synchronize()
+        for name, g, x in zip(DIRECT_OUTS, got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), name
+    assert K7.b_direct.launches == before + 2
+
+
+def test_b_direct_returns_views_of_one_buffer(cuda):
+    """The prediction and the five fields are contiguous views of one
+    int32 buffer, in that order, with the plain version's shapes; a later
+    call allocates anew and leaves an earlier call's results as they
+    were."""
+    args = tuple(a.to(cuda) for a in direct_case(176, 144, 3, seed=5))
+    first = K7.b_direct(*args)
+    want = K7.b_direct_plain(*args)
+    base = first[0].untyped_storage().data_ptr()
+    at = first[0].data_ptr()
+    for name, g, x in zip(DIRECT_OUTS, first, want):
+        assert g.is_contiguous() and g.shape == x.shape, name
+        assert g.dtype == torch.int32, name
+        assert g.untyped_storage().data_ptr() == base, name
+        assert g.data_ptr() == at, name  # each follows the one before
+        at += g.numel() * 4
+    kept = [g.clone() for g in first]
+    args2 = tuple(a.to(cuda) for a in direct_case(176, 144, 3, seed=6))
+    second = K7.b_direct(*args2)
+    torch.cuda.synchronize()
+    assert second[0].untyped_storage().data_ptr() != base
+    for name, g, k, x in zip(DIRECT_OUTS, first, kept, want):
+        assert torch.equal(g, k) and torch.equal(g, x), name
+    for name, g, x in zip(DIRECT_OUTS, second, K7.b_direct_plain(*args2)):
+        assert torch.equal(g, x), name
 
 
 REFINE_SHAPES = [(16, 16), (8, 16), (16, 8), (8, 8), (4, 8), (8, 4), (4, 4)]
