@@ -36,19 +36,19 @@
    down a 16x1088 column, CIF and 720p pictures beside their chain), and
    requires, by ``torch.profiler``, one kernel and no copy per ``deblock``
    call and one ``deblock`` kernel in an I + P encode
-   (h264_tpu_torch/tools/time_kernels.py, which also gives ``coarse_search``,
-   ``inter_luma_tq``, ``inter_chroma_tq`` and ``b_direct`` their device
-   times on those pictures, the last two beside an empty launch of their
-   grid);
+   (h264_tpu_torch/tools/time_kernels.py, which also gives every entry of
+   its ``ONE_CALL`` its device time on those pictures, one call, beside an
+   empty launch of its grid);
 4. holds every entry of the B pipeline (its own K7 ``b_direct``,
-   ``mc_luma_win``, ``mc_chroma_b``, ``strengths_b``, and the K3-K6
-   entries it shares) against its plain version on the card, bit for bit,
-   on the real inputs of B pictures (an IPB stream of 5 frames) at CIF
-   and 1280x720, B pictures at QP 30 and 51, and b_direct, mc_luma_win
-   and mc_chroma_b also on inputs built so that their windows start
-   outside the padded banks (the reference's ``dynamic_slice``
-   placement), and strengths_b also on inputs built so that every branch
-   of its pairing rule decides some edges (tools/strengths_cases.py);
+   ``mc_luma_win``, ``mc_chroma_b``, and the K3-K6 entries it shares,
+   ``strengths`` with two lists among them) against its plain version on
+   the card, bit for bit, on the real inputs of B pictures (an IPB stream
+   of 5 frames) at CIF and 1280x720, B pictures at QP 30 and 51, and
+   b_direct, mc_luma_win and mc_chroma_b also on inputs built so that
+   their windows start outside the padded banks (the reference's
+   ``dynamic_slice`` placement), and strengths also on B and P inputs
+   built so that every branch of its rule decides some edges
+   (tools/strengths_cases.py);
    times kernel and plain version per B picture at both sizes (QP 28),
    ``ssd_grid8`` also beside its library route;
 5. drives the all-intra path (4 CIF + 2 1280x720 pictures), the IPPP
@@ -277,8 +277,10 @@ OPS_BILIN = 5
 # samplers (a bilinear prediction per list, their rounded mean, the
 # select)
 OPS_DIRECT, OPS_CHROMA_B = 12, 2 * OPS_BILIN + 3
-# per 4x4 block edge of strengths_b (the pairing rule, four mv pairs)
-OPS_BS_B = 40
+# per 4x4 block edge of strengths: the two-list pairing rule (four mv
+# pairs) and the one-list rule; per 4x4 block reading the 16 levels of
+# its 4x4 block, or 64 of its 8x8 one, a quarter each (one 16-byte OR)
+OPS_BS_B, OPS_BS_P = 40, 12
 # per sample of the 8x8 transform path (csrc/t8.cu): forward and inverse
 # 8-point butterflies, two passes each (16), quant 5, bits 6, dequant 2,
 # rounding and recon 4, the SSD of the 8x8 and of the 4x4 recon (4)
@@ -328,7 +330,7 @@ SOURCES = {
     "i16_candidate": ("h264_tpu_torch/csrc/inter_tq.cu",
                       "h264_tpu/encoder/rd.py:984"),
     "strengths": ("h264_tpu_torch/csrc/deblock.cu",
-                  "h264_tpu/encoder/rd.py:1713"),
+                  "h264_tpu/encoder/rd.py:1713, :1928"),
     "deblock": ("h264_tpu_torch/csrc/deblock.cu",
                 "h264_tpu/encoder/rd.py:1800"),
     "b_direct": ("h264_tpu_torch/csrc/b_direct.cu",
@@ -337,8 +339,6 @@ SOURCES = {
                     "h264_tpu/encoder/rd.py:1911"),
     "mc_chroma_b": ("h264_tpu_torch/csrc/qpel.cu",
                     "h264_tpu/encoder/rd.py:2453"),
-    "strengths_b": ("h264_tpu_torch/csrc/deblock.cu",
-                    "h264_tpu/encoder/rd.py:1928"),
     "decode_inter": ("h264_tpu_torch/csrc/decode_inter.cu",
                      "h264_tpu/decoder/device.py:99"),
     "t8_decide": ("h264_tpu_torch/csrc/t8.cu", "h264_tpu/encoder/rd.py:1071"),
@@ -353,8 +353,6 @@ SOURCES = {
     "ref_bank_rows": ("h264_tpu_torch/csrc/ref_bank.cu",
                       "h264_tpu/encoder/rd.py:2662"),
 }
-# the entries tools/time_kernels.py times one call a picture on the device
-ONE_CALL = ("coarse_search", "inter_luma_tq", "inter_chroma_tq", "b_direct")
 # the legacy path's entries (fast.LKernels) and its encodes' pipeline depth
 LEGACY = ("p16_search", "p16_refine", "strengths", "deblock", "ref_bank")
 DEPTH = {"IPPP-legacy": 8}
@@ -452,9 +450,6 @@ def b_work(name: str, args):
         lists = int(u0.sum()) + int((u1 | ~u0).sum())  # list 1 if not u0
         return (lists * 2 * 25 * 4 + n_mb * 4 * (5 * 4 + 2)
                 + n_mb * 128 * 4, n_mb * 128 * OPS_CHROMA_B)
-    if name == "strengths_b":
-        n = args[0].numel()
-        return n * (4 * 1 + 6 * 4) + 2 * n * 4, 2 * n * OPS_BS_B
     raise KeyError(name)
 
 
@@ -585,8 +580,13 @@ def p_work(name: str, args):
         n_mb = cur_y.numel() // 256
         return nb(cur_y) + n_mb * 258 * 4, n_mb * 256 * (4 * OPS_SATD + OPS_TQ)
     if name == "strengths":
-        n = args[0].numel()
-        return nb(*args) + 2 * n * 4, 2 * n * 12
+        # the fields and levels read once, both bS planes written once
+        a = (*args, *(None,) * (15 - len(args)))
+        n = 16 * a[0] * a[1]
+        coef = sum(t.numel() // n for t in (a[2], a[7])
+                   if isinstance(t, torch.Tensor))
+        ops = OPS_BS_B if a[11] is not None else OPS_BS_P
+        return nb(*a[2:]) + 2 * n * 4, n * (2 * ops + coef // 4)
     if name == "deblock":
         y, u, v, bsv, bsh = args[:5]
         # filtered lines: 4 luma and 2 chroma lines per plane per 4-sample
@@ -1115,8 +1115,9 @@ def main(argv=None) -> int:
     from h264_tpu_torch.tools.slab_cases import CONTENTS as SLAB_CONTENTS
     from h264_tpu_torch.tools.slab_cases import built_slab
     from h264_tpu_torch.tools.rows_cases import edge_motion
-    from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
-                                                      strengths_b_inputs)
+    from h264_tpu_torch.tools.strengths_cases import branches as \
+        strengths_branches
+    from h264_tpu_torch.tools.strengths_cases import strengths_inputs
     from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
     from h264_tpu_torch.tools.t8_cases import built_cases as t8_cases
     from h264_tpu_torch.tools import time_kernels as TK
@@ -1372,7 +1373,9 @@ def main(argv=None) -> int:
         refine = [a for n, a in calls if n == "qpel_refine"]
         for x, a in zip(t["qpel_refine"]["shapes"], refine):
             x.append(bound_ms(*p_work("qpel_refine", a))[0])
-        for name in ONE_CALL:
+        for name in TK.ONE_CALL:
+            if name == "ref_bank" and name in t:
+                t[name]["bound_ms"] = bound_ms(*k2_work(*size[::-1]))[0]
             for a in [a for n, a in calls if n == name]:
                 t[name]["bound_ms"] = bound_ms(*entry_work(name, a))[0]
         on_device.setdefault(f"{size[0]}x{size[1]}", {})[kind] = t
@@ -1421,7 +1424,7 @@ def main(argv=None) -> int:
                   f"{t[n]['bound_ms']:.5f}"
                   + "".join(f"; {g} {ms:.4f}" for g, ms in
                             t[n].get("empty_launch_ms", {}).items()) + ")"
-                  for n in ONE_CALL if n in t))
+                  for n in TK.ONE_CALL if n in t))
         print(f"time {size[0]}x{size[1]} per {kind} picture on the device "
               f"(ms; back to back, median of {len(q['events_rounds_ms'])} "
               f"rounds): qpel_refine {q['picture_device_ms']:.4f} "
@@ -1602,8 +1605,10 @@ def main(argv=None) -> int:
     def built_cases(calls, seed):
         """The first call of each B entry with windows, its mvs replaced
         by far ones (and the colocated field made all inter); and
-        strengths_b on built inputs of the same shape that take every
-        branch of its pairing rule."""
+        strengths on built B inputs of the same shape that take every
+        branch of its pairing rule, and on built P inputs (with the 8x8
+        transform's fields) that take every branch of its one-list
+        rule."""
         first = {}
         for name, a in calls:
             first.setdefault(name, a)
@@ -1618,17 +1623,19 @@ def main(argv=None) -> int:
                  out_of_bank(uy >> 1, far_c, 3, Hcp, 5))
         if min(n_out) == 0:
             fail("clamp cases: no window starts outside the banks")
-        bs_args = strengths_b_inputs(*first["strengths_b"][0].shape, seed,
-                                     dev)
-        branches = strengths_b_branches(bs_args)
-        if min(branches.values()) == 0:
-            fail(f"strengths_b cases: a branch is not taken ({branches})")
+        n_my, n_mx = first["strengths"][:2]
+        bs_args = strengths_inputs(n_my, n_mx, seed, dev)
+        bs_p = strengths_inputs(n_my, n_mx, seed + 1, dev, lists=1, t8=True)
+        branches = strengths_branches(bs_args)
+        if min([*branches.values(),
+                *strengths_branches(bs_p).values()]) == 0:
+            fail(f"strengths cases: a branch is not taken ({branches})")
         return [("b_direct", (b0, b1, torch.zeros_like(ci), cr, far(cmx),
                               far(cmy), dsf, eq)),
                 ("mc_luma_win", (banks, ref, far(mvx), far_y, y0, x0, h, w)),
                 ("mc_chroma_b", (c0, c1, idx0, far(m0x), far_c, far(m1x),
                                  far(m1y), u0, u1)),
-                ("strengths_b", bs_args)], n_out, branches
+                ("strengths", bs_args), ("strengths", bs_p)], n_out, branches
 
     timing_b = {}
     for size in (CIF, HD):
@@ -1651,7 +1658,7 @@ def main(argv=None) -> int:
                   "calls "
                   f"of the {len(rd_b.B_ENTRIES)} B entries, b_direct, "
                   f"mc_luma_win, mc_chroma_b with far mvs ({n_out[0]} luma "
-                  f"and {n_out[1]} chroma windows moved) and strengths_b on "
+                  f"and {n_out[1]} chroma windows moved) and strengths on "
                   f"built inputs (edges per branch {branches}), equal to "
                   "their plain versions (tolerance 0: bit-exact)")
             if qp == 28:

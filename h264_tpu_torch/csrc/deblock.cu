@@ -1,24 +1,40 @@
 // K6: boundary strengths and the in-loop deblocking filter of P and B
 // pictures, for Hopper (sm_90a).
 //
-// Replaces h264_tpu/encoder/rd.py:1713 `strengths_full` and :1800
-// `deblock_device_full` (with `_edge_luma_full` :1741 and
-// `_edge_chroma_full` :1784), as `rd_p_pipeline` calls them (:1124-1160)
-// and `rd_b_pipeline` (:2503-2507), and :1928 `strengths_full_b`.
-// Plain versions: h264_tpu_torch/encoder/rd_p.py `strengths_plain`,
-// `deblock_plain`, rd_b.py `strengths_b_plain`; wrapper kernels/deblock.py.
+// Replaces h264_tpu/encoder/rd.py:1713 `strengths_full`, :1928
+// `strengths_full_b` (and, through them, encoder/fast.py:327
+// `strengths_device_p`) and :1800 `deblock_device_full` (with
+// `_edge_luma_full` :1741 and `_edge_chroma_full` :1784), as
+// `rd_p_pipeline` calls them (:1124-1160) and `rd_b_pipeline`
+// (:2487-2507).  Plain versions: h264_tpu_torch/encoder/strengths.py
+// `strengths_plain`, rd_p.py `deblock_plain`; wrapper kernels/deblock.py.
 //
-// strengths: one thread per 4x4 block computes the bS 0..4 of its left
-// and its top edge (0 on picture edges): 4/3 when either side is intra
-// (MB edge / inside), else 2 with coefficients, else 1 on a reference or
-// >= 4 quarter-pel mv difference.
-//
-// strengths_b: the same per-thread layout with the B picture's two-list
-// rule (ldecod/src/loopFilter.c): a list's reference id is the POC of its
-// picture where the block uses the list, else -10^9; the pairs match
-// straight (p0 = q0, p1 = q1) or crossed (p0 = q1, p1 = q0), else bS 1;
-// matched blocks compare the mvs of the matching lists (both pairings
-// when the two refs of q are one picture).
+// strengths: one kernel for every P, B and legacy picture.  One thread
+// per 4x4 block computes the bS 0..4 of its left and its top edge (0 on
+// picture edges): 4/3 when either side is intra (MB edge / inside), else
+// 2 with coefficients, else the pairing rule: with one list (P) 1 on a
+// reference index or >= 4 quarter-pel mv difference; with two lists (B,
+// ldecod/src/loopFilter.c) a list's reference id is the POC of its
+// picture where the block uses the list, else -10^9, the pairs match
+// straight (p0 = q0, p1 = q1) or crossed (p0 = q1, p1 = q0), else bS 1,
+// and matched blocks compare the mvs of the matching lists (both
+// pairings when the two refs of q are one picture).  The P rule is the
+// two-list rule with list 1 absent.  The thread reads every field at the
+// glue's own granularity (per MB, per 8x8 unit or per block of a unit;
+// the 4x4 levels per MB, or in raster for the legacy picture) through
+// six strides, looks list 0's POC up by the clamped index in a table in
+// shared memory, and ORs the block's 4x4 (and 8x8) levels itself, so
+// the host builds no per-block plane for it.  Both
+// edges go to one (2, H4, W4) buffer; 8x8-transform MBs (an optional
+// per-MB flag) get 0 on their odd edges.  Design: tiles of 4 rows of 32
+// blocks; every load of a thread is unconditional and independent of the
+// others (absent fields read a zero word), so they are all in flight in
+// one round: short-circuit tests between groups of loads had made them
+// dependent rounds and cost 1-2 us (PERF.md); the neighbours come from
+// shared memory, the tile's edge threads loading the halo.  Bound: the
+// levels, the fields and the outputs once (1280x720 about 4.2 MB, 1.25 us
+// at 3.35 TB/s), so the launch binds it at CIF and the levels' bytes add
+// to it at 1280x720.
 //
 // deblock: the reference filters MBs in raster order, per MB luma
 // vertical edges 0-3, luma horizontal edges 0-3, then U and V, vertical
@@ -65,9 +81,8 @@
 // 12 %) but a CIF or 720p picture by 2 %: 17 or 44 of its steps are
 // hand-overs.
 //
-// ptxas (sm_90a, nvcc -O3): strengths_kernel 23 registers, strengths_b
-// 40, deblock_kernel 60 registers, 3,076 B shared memory, 3 barriers; no
-// spills.
+// ptxas (sm_90a, nvcc -O3): deblock_kernel 60 registers, 3,076 B shared
+// memory, 3 barriers; no spills.
 
 #include "common.cuh"
 
@@ -78,81 +93,189 @@ struct Thr {
   int alpha, beta, c0[4];
 };
 
-__global__ void strengths_kernel(const unsigned char* __restrict__ nz4,
-                                 const int* __restrict__ mvx4,
-                                 const int* __restrict__ mvy4,
-                                 const int* __restrict__ ref4,
-                                 const unsigned char* __restrict__ intra4,
-                                 int H4, int W4, int* bsv, int* bsh) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= H4 * W4) return;
-  const int y = k / W4, x = k % W4;
-  for (int dir = 0; dir < 2; ++dir) {
-    int* out = dir == 0 ? bsv : bsh;
-    const int pos = dir == 0 ? x : y;
-    if (pos == 0) {
-      out[k] = 0;
-      continue;
-    }
-    const int p = dir == 0 ? k - 1 : k - W4;
-    int bs;
-    if (intra4[k] || intra4[p]) {
-      bs = pos % 4 == 0 ? 4 : 3;
-    } else if (nz4[k] || nz4[p]) {
-      bs = 2;
-    } else {
-      bs = (abs(mvx4[k] - mvx4[p]) >= 4 || abs(mvy4[k] - mvy4[p]) >= 4 ||
-            ref4[k] != ref4[p]) ? 1 : 0;
-    }
-    out[k] = bs;
-  }
+// ---- strengths ------------------------------------------------------------
+// A field read at the glue's granularity: the element offset of block
+// (y4, x4) is the dot product of (MB row, MB column, unit row, unit
+// column, block row, block column) with s; a zero stride broadcasts.
+struct Field {
+  const void* p;
+  int s[6];
+};
+
+constexpr int kFields = 11;
+enum { kCoef, kCoef8, kIntra, kT8, kRef0, kMv0x, kMv0y, kUse0, kMv1x, kMv1y,
+       kUse1 };
+
+struct SParams {
+  Field f[kFields];
+  const int* pocs;  // list 0's POCs (two lists), else null
+  int npocs, poc1, H4, W4;
+};
+
+constexpr int kNone = -1000000000;
+constexpr int kMaxPocs = 64;  // list-0 POCs the kernel's table holds
+
+// what an absent field reads (its strides are 0): no intra MB, no 8x8
+// transform, reference index 0, no list-1 motion
+__device__ __align__(16) int kZeros[4];
+
+__device__ __forceinline__ int foff(const Field& F, int y, int x) {
+  return F.s[0] * (y >> 2) + F.s[1] * (x >> 2) + F.s[2] * ((y >> 1) & 1) +
+         F.s[3] * ((x >> 1) & 1) + F.s[4] * (y & 1) + F.s[5] * (x & 1);
 }
 
-__global__ void strengths_b_kernel(
-    const unsigned char* __restrict__ nz4,
-    const unsigned char* __restrict__ intra4,
-    const unsigned char* __restrict__ v0, const int* __restrict__ r0,
-    const int* __restrict__ m0x, const int* __restrict__ m0y,
-    const unsigned char* __restrict__ v1, const int* __restrict__ r1,
-    const int* __restrict__ m1x, const int* __restrict__ m1y, int H4, int W4,
-    int* bsv, int* bsh) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= H4 * W4) return;
-  const int kNone = -1000000000;
-  const int y = k / W4, x = k % W4;
-  for (int dir = 0; dir < 2; ++dir) {
-    int* out = dir == 0 ? bsv : bsh;
-    const int pos = dir == 0 ? x : y;
-    if (pos == 0) {
-      out[k] = 0;
-      continue;
-    }
-    const int p = dir == 0 ? k - 1 : k - W4;
-    int bs;
-    if (intra4[k] || intra4[p]) {
-      bs = pos % 4 == 0 ? 4 : 3;
-    } else if (nz4[k] || nz4[p]) {
-      bs = 2;
-    } else {
-      const int rq0 = v0[k] ? r0[k] : kNone, rq1 = v1[k] ? r1[k] : kNone;
-      const int rp0 = v0[p] ? r0[p] : kNone, rp1 = v1[p] ? r1[p] : kNone;
-      if ((rq0 == rp0 && rq1 == rp1) || (rq0 == rp1 && rq1 == rp0)) {
-        const bool d00 = abs(m0x[k] - m0x[p]) >= 4 || abs(m0y[k] - m0y[p]) >= 4;
-        const bool d11 = abs(m1x[k] - m1x[p]) >= 4 || abs(m1y[k] - m1y[p]) >= 4;
-        const bool d01 = abs(m0x[k] - m1x[p]) >= 4 || abs(m0y[k] - m1y[p]) >= 4;
-        const bool d10 = abs(m1x[k] - m0x[p]) >= 4 || abs(m1y[k] - m0y[p]) >= 4;
-        bool mv_d;
-        if (rq0 != rq1)
-          mv_d = rq0 == rp0 ? (d00 || d11) : (d01 || d10);
-        else
-          mv_d = (d00 || d11) && (d01 || d10);
-        bs = mv_d ? 1 : 0;
-      } else {
-        bs = 1;
-      }
-    }
-    out[k] = bs;
+template <typename T>
+__device__ __forceinline__ const T* at(const Field& F, int y, int x) {
+  return (const T*)(F.p ? F.p : (const void*)kZeros) + foff(F, y, x);
+}
+
+template <typename T>
+__device__ __forceinline__ int ld(const Field& F, int y, int x) {
+  return (int)__ldg(at<T>(F, y, x));
+}
+
+// the OR of the N int32 levels of block (y, x): N a multiple of 4, at a
+// 16-byte aligned offset
+template <int N>
+__device__ __forceinline__ int or_all(const Field& F, int y, int x) {
+  const int* p = at<int>(F, y, x);
+  int acc = 0;
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const int4 v = __ldg((const int4*)(p + i));
+    acc |= v.x | v.y | v.z | v.w;
   }
+  return acc;
+}
+
+// a block's fields as loaded: list 0's reference index (its POC is looked
+// up once the block's POC table is in shared memory)
+struct Raw {
+  int idx0, m0x, m0y, m1x, m1y;
+  bool intra, coded, use0, use1;
+};
+
+// every load unconditional and independent of the others, so that a
+// thread's loads are in flight together
+template <bool kC8, bool kTwo>
+__device__ __forceinline__ Raw load_raw(const SParams& P, int y, int x) {
+  Raw b;
+  b.intra = ld<unsigned char>(P.f[kIntra], y, x) != 0;
+  b.coded = (or_all<16>(P.f[kCoef], y, x) |
+             (kC8 ? or_all<64>(P.f[kCoef8], y, x) : 0)) != 0;
+  b.idx0 = ld<int>(P.f[kRef0], y, x);
+  b.m0x = ld<int>(P.f[kMv0x], y, x);
+  b.m0y = ld<int>(P.f[kMv0y], y, x);
+  b.use0 = b.use1 = false;
+  b.m1x = b.m1y = 0;
+  if (kTwo) {
+    b.use0 = ld<unsigned char>(P.f[kUse0], y, x) != 0;
+    b.use1 = ld<unsigned char>(P.f[kUse1], y, x) != 0;
+    b.m1x = ld<int>(P.f[kMv1x], y, x);
+    b.m1y = ld<int>(P.f[kMv1y], y, x);
+  }
+  return b;
+}
+
+struct Blk {
+  bool intra, coded;
+  int r0, r1, m0x, m0y, m1x, m1y;
+};
+
+// the block's reference ids: one list, the index; two lists, the POC
+// where the block uses the list, else kNone
+template <bool kTwo>
+__device__ __forceinline__ Blk ids(const Raw& b, const int* pocs, int npocs,
+                                   int poc1) {
+  Blk o;
+  o.intra = b.intra;
+  o.coded = b.coded;
+  o.m0x = b.m0x;
+  o.m0y = b.m0y;
+  o.m1x = b.m1x;
+  o.m1y = b.m1y;
+  o.r0 = kTwo ? (b.use0 ? pocs[min(max(b.idx0, 0), npocs - 1)] : kNone)
+              : b.idx0;
+  o.r1 = kTwo && b.use1 ? poc1 : kNone;
+  return o;
+}
+
+__device__ __forceinline__ bool mv_far(int ax, int ay, int bx, int by) {
+  return abs(ax - bx) >= 4 || abs(ay - by) >= 4;
+}
+
+// bS of the edge between q and p (p left of or above q); mb_edge: the
+// edge is an MB's
+template <bool kTwo>
+__device__ __forceinline__ int edge_bs(const Blk& q, const Blk& p,
+                                       bool mb_edge) {
+  if (q.intra || p.intra) return mb_edge ? 4 : 3;
+  if (q.coded || p.coded) return 2;
+  const bool d00 = mv_far(q.m0x, q.m0y, p.m0x, p.m0y);
+  if (!kTwo) return (q.r0 != p.r0 || d00) ? 1 : 0;
+  const bool straight = q.r0 == p.r0 && q.r1 == p.r1;
+  const bool crossed = q.r0 == p.r1 && q.r1 == p.r0;
+  if (!straight && !crossed) return 1;
+  const bool d11 = mv_far(q.m1x, q.m1y, p.m1x, p.m1y);
+  const bool d01 = mv_far(q.m0x, q.m0y, p.m1x, p.m1y);
+  const bool d10 = mv_far(q.m1x, q.m1y, p.m0x, p.m0y);
+  bool mv_d;
+  if (q.r0 != q.r1)
+    mv_d = q.r0 == p.r0 ? (d00 || d11) : (d01 || d10);
+  else
+    mv_d = (d00 || d11) && (d01 || d10);
+  return mv_d ? 1 : 0;
+}
+
+// A thread per 4x4 block, a tile of kTileY rows of kTileX blocks a thread
+// block (a warp a tile row).  Each thread loads its own block's fields in
+// one round; the threads of the tile's first column and row also load
+// their left or upper neighbour's (a branch on the thread's place, not on
+// loaded data, so those loads are in flight with the rest), and the
+// block's threads load list 0's POC table into shared memory.  After one
+// barrier each thread reads its neighbours from shared memory and writes
+// the bS of its left edge into bs[0] and of its top edge into bs[1] (0 on
+// the picture's edges and, in 8x8-transform MBs, on the odd edges).
+constexpr int kTileX = 32, kTileY = 4;
+
+template <bool kC8, bool kTwo>
+__global__ void __launch_bounds__(kTileX * kTileY)
+strengths_kernel(const __grid_constant__ SParams P, int* __restrict__ bs) {
+  __shared__ Raw tile[kTileY][kTileX];
+  __shared__ int pocs[kMaxPocs];
+  const int tx = threadIdx.x % kTileX, ty = threadIdx.x / kTileX;
+  const int x = blockIdx.x * kTileX + tx, y = blockIdx.y * kTileY + ty;
+  // threads past the picture's edge load a block inside it and store
+  // nothing; their neighbours inside never read them
+  const int cx = min(x, P.W4 - 1), cy = min(y, P.H4 - 1);
+  const Raw q = load_raw<kC8, kTwo>(P, cy, cx);
+  const bool t8 = ld<int>(P.f[kT8], cy, cx) > 0;
+  Raw l = q, t = q;
+  if (tx == 0) l = load_raw<kC8, kTwo>(P, cy, max(cx - 1, 0));
+  if (ty == 0) t = load_raw<kC8, kTwo>(P, max(cy - 1, 0), cx);
+  if (kTwo && (int)threadIdx.x < P.npocs)
+    pocs[threadIdx.x] = __ldg(P.pocs + threadIdx.x);
+  tile[ty][tx] = q;
+  __syncthreads();
+  if (tx) l = tile[ty][tx - 1];
+  if (ty) t = tile[ty - 1][tx];
+  if (x >= P.W4 || y >= P.H4) return;
+  const Blk bq = ids<kTwo>(q, pocs, P.npocs, P.poc1);
+  const Blk bl = ids<kTwo>(l, pocs, P.npocs, P.poc1);
+  const Blk bt = ids<kTwo>(t, pocs, P.npocs, P.poc1);
+  const int k = y * P.W4 + x;
+  bs[k] = (x == 0 || (t8 && (x & 1))) ? 0
+                                        : edge_bs<kTwo>(bq, bl, (x & 3) == 0);
+  bs[P.H4 * P.W4 + k] = (y == 0 || (t8 && (y & 1)))
+                            ? 0
+                            : edge_bs<kTwo>(bq, bt, (y & 3) == 0);
+}
+
+template <bool kC8, bool kTwo>
+int launch_strengths(const SParams& P, int* bs, cudaStream_t s) {
+  const dim3 grid((P.W4 + kTileX - 1) / kTileX, (P.H4 + kTileY - 1) / kTileY);
+  strengths_kernel<kC8, kTwo><<<grid, kTileX * kTileY, 0, s>>>(P, bs);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ int clip3(int lo, int hi, int v) {
@@ -431,27 +554,32 @@ deblock_kernel(const int* __restrict__ y_in, const int* __restrict__ u_in,
 
 }  // namespace
 
-extern "C" int strengths(const unsigned char* nz4, const int* mvx4,
-                         const int* mvy4, const int* ref4,
-                         const unsigned char* intra4, int H4, int W4,
-                         int* bsv, int* bsh, void* stream) {
-  const int n = H4 * W4;
-  strengths_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      nz4, mvx4, mvy4, ref4, intra4, H4, W4, bsv, bsh);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int strengths_b(const unsigned char* nz4,
-                           const unsigned char* intra4,
-                           const unsigned char* v0, const int* r0,
-                           const int* m0x, const int* m0y,
-                           const unsigned char* v1, const int* r1,
-                           const int* m1x, const int* m1y, int H4, int W4,
-                           int* bsv, int* bsh, void* stream) {
-  const int n = H4 * W4;
-  strengths_b_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      nz4, intra4, v0, r0, m0x, m0y, v1, r1, m1x, m1y, H4, W4, bsv, bsh);
-  return (int)cudaGetLastError();
+// ptr: the fields' base pointers in Field order, then pocs0 (null where
+// absent); lay: their six strides each (0 where absent), then npocs (0
+// with one list, else 1 .. kMaxPocs) (kernels/deblock.py checks them);
+// bs: (2, 4 n_my, 4 n_mx) int32, BSV then BSH
+extern "C" int strengths(const void* const* ptr, const int* lay, int poc1,
+                         int n_my, int n_mx, int* bs, void* stream) {
+  SParams P;
+  for (int i = 0; i < kFields; ++i) {
+    P.f[i].p = ptr[i];
+    for (int j = 0; j < 6; ++j) P.f[i].s[j] = lay[6 * i + j];
+  }
+  P.pocs = (const int*)ptr[kFields];
+  P.npocs = lay[6 * kFields];
+  P.poc1 = poc1;
+  P.H4 = 4 * n_my;
+  P.W4 = 4 * n_mx;
+  if (P.npocs > kMaxPocs || !ptr[kCoef]) return (int)cudaErrorInvalidValue;
+  // the levels' int4 reads
+  if ((size_t)ptr[kCoef] % 16 || (size_t)ptr[kCoef8] % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool c8 = ptr[kCoef8] != nullptr, two = P.pocs != nullptr;
+  return c8 ? (two ? launch_strengths<true, true>(P, bs, s)
+                   : launch_strengths<true, false>(P, bs, s))
+            : (two ? launch_strengths<false, true>(P, bs, s)
+                   : launch_strengths<false, false>(P, bs, s));
 }
 
 // thr: alpha, beta, C0[bS 0..3] for luma, then the same for chroma;

@@ -13,8 +13,8 @@ The PyTorch counterpart of the reference package's encoder/fast.py (its
      chroma 1/8-pel prediction, 4x4 transform with the 2x2 DC Hadamard,
      quantization and recon of U and V (kernel K13, ``csrc/p16_refine.cu``);
   3. the boundary strengths of an all-inter single-reference picture and
-     the bS <= 2 filter (K6 ``strengths`` and ``deblock``: with every block
-     inter and one reference their rules are the reference's
+     the bS <= 2 filter (K6 ``strengths`` and ``deblock``: with no intra
+     block and one reference their rules are the reference's
      ``strengths_device_p`` and ``deblock_device_p``);
   4. the next reference: the padded planes and the 6-tap half-pel planes
      (K2 ``ref_bank``, whose bank holds b, h and j shifted by 2 samples).
@@ -41,7 +41,8 @@ from ..ops import transforms as TR
 from .rd import _bank_from_pad, _lam_cost, ref_entry_plain
 from .rd import _mv_bits as mv_bits
 from .rd_b import _slice_start
-from .rd_p import deblock_plain, strengths_plain
+from .rd_p import deblock_plain
+from .strengths import strengths_plain
 
 PAD = 32
 I32 = torch.int32
@@ -300,19 +301,19 @@ def ref_resources(Y, U, V, device=None, impl=None):
             cpad[1])
 
 
-def strengths_device_p(nz4, mvx, mvy, impl=None):
-    """bS of an all-inter single-reference picture (fast.py:327): nz4
-    (4 n_my, 4 n_mx) bool, mvx/mvy (n_my, n_mx) int32 -> (BSV, BSH):
-    2 with coefficients on either side, else 1 where a component differs
-    by 4 or more.  K6's ``strengths`` with every block inter on reference
-    0 is that rule."""
+def strengths_device_p(lev, mvx, mvy, impl=None):
+    """bS of an all-inter single-reference picture (fast.py:327): lev the
+    4x4 levels (4 n_my, 4 n_mx, 4, 4) or coefficient flags (4 n_my,
+    4 n_mx), int32; mvx/mvy int32 per MB, (n_my, n_mx) -> (BSV, BSH): 2
+    with coefficients on either side, else 1 where a component differs by
+    4 or more.  K6's ``strengths`` with one list, no intra MB and every
+    block on reference 0 is that rule; it reads the per-MB mvs as they
+    are."""
     if impl is None:
         impl = default_kernels().strengths
-    mvx4, mvy4 = (m.repeat_interleave(4, 0).repeat_interleave(4, 1)
-                  .contiguous() for m in (mvx, mvy))
-    zero = torch.zeros_like(mvx4)
-    return impl(nz4.contiguous(), mvx4, mvy4, zero,
-                torch.zeros_like(nz4, dtype=torch.bool))
+    n_my, n_mx = mvx.shape
+    return impl(n_my, n_mx, lev, None, None, mvx.reshape(-1),
+                mvy.reshape(-1))
 
 
 def deblock_device_p(rec_y, rec_u, rec_v, BSV, BSH, qp: int, qp_c: int,
@@ -361,8 +362,7 @@ def p_frame_pipeline(cur_y8, cur_u8, cur_v8, ref_pad, bpl, hpl, jpl,
      _) = p_frame_core(*cur, ref_pad, bpl, hpl, jpl, ref_u_pad, ref_v_pad,
                        H, W, R, qp, qp_c, lambda_me, k)
     n_my, n_mx = H // 16, W // 16
-    nz4 = lev.reshape(H // 4, W // 4, 16).ne(0).any(-1)
-    BSV, BSH = strengths_device_p(nz4, mvx.reshape(n_my, n_mx),
+    BSV, BSH = strengths_device_p(lev, mvx.reshape(n_my, n_mx),
                                   mvy.reshape(n_my, n_mx), impl=k.strengths)
     recon = deblock_device_p(rec_y, rec_u, rec_v, BSV, BSH, qp, qp_c,
                              impl=k.deblock)

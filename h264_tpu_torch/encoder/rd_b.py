@@ -17,10 +17,10 @@ entry with the colocated snapshot.  The host tail reads the flat
 
 The per-pixel and per-candidate work goes through hand-written CUDA
 kernels (``BKernels``): the P picture's K3 ``ssd_grid8`` (zero centres, no
-WP), K4 ``qpel_refine``, K5, K1, K6 ``deblock`` and K2, and four entries of
-their own, whose plain versions are below: K7 ``b_direct``, ``mc_luma_win``
-and ``mc_chroma_b`` (in ``csrc/qpel.cu``) and ``strengths_b`` (in
-``csrc/deblock.cu``).  Everything else is glue on small tensors.
+WP), K4 ``qpel_refine``, K5, K1, K6 (``strengths`` with two lists, and
+``deblock``) and K2, and three entries of their own, whose plain versions
+are below: K7 ``b_direct``, ``mc_luma_win`` and ``mc_chroma_b`` (in
+``csrc/qpel.cu``).  Everything else is glue on small tensors.
 
 Window starts.  The B pipeline reads the unwidened banks (PAD = 32)
 through ``jax.lax.dynamic_slice``, which places a whole window by its
@@ -52,8 +52,8 @@ from .rd import (_QTAB, B_BI, B_DIRECT, B_DIRECT_ZERO, B_I4, B_I16, B_L0,
 from .rd_p import (_mb_tiles, _med_neighbors, deblock_plain,
                    i16_candidate_plain, inter_chroma_tq_plain,
                    inter_luma_tq_plain, qpel_refine_plain, ssd_grid8_plain)
+from .strengths import strengths_plain
 
-_NONE = -(10 ** 9)  # reference id of an unused list (strengths_full_b)
 
 
 # ---------------------------------------------------------------------------
@@ -204,50 +204,6 @@ def mc_chroma_b_plain(cpads0, cpads1, idx0, m0x, m0y, m1x, m1y, u0, u1):
     return g.reshape(n_mb, 2, 8, 8).to(I32)
 
 
-def strengths_b_plain(nz4, intra4, v0, r0, m0x, m0y, v1, r1, m1x, m1y):
-    """Boundary strengths of a B picture (rd.py:1928 `strengths_full_b`):
-    the two-list reference pairing rule, with a list's reference id the
-    POC of its picture (r0/r1) where the list is used (v0/v1), else -10^9.
-    Inputs (4 n_my, 4 n_mx): nz4/intra4/v0/v1 bool, the rest int32.
-    Returns (BSV, BSH) int32, 0 on picture edges."""
-    H4, W4 = nz4.shape
-    dev = nz4.device
-    rid0 = torch.where(v0, r0, _NONE)
-    rid1 = torch.where(v1, r1, _NONE)
-
-    def bs(q, p, mb_edge):
-        ei = intra4[q] | intra4[p]
-        coef = nz4[q] | nz4[p]
-        rq0, rq1 = rid0[q], rid1[q]
-        rp0, rp1 = rid0[p], rid1[p]
-        straight = (rq0 == rp0) & (rq1 == rp1)
-        crossed = (rq0 == rp1) & (rq1 == rp0)
-
-        def diff(ax, ay, bx, by):
-            return ((ax[q] - bx[p]).abs() >= 4) | ((ay[q] - by[p]).abs() >= 4)
-
-        d00 = diff(m0x, m0y, m0x, m0y)
-        d11 = diff(m1x, m1y, m1x, m1y)
-        d01 = diff(m0x, m0y, m1x, m1y)
-        d10 = diff(m1x, m1y, m0x, m0y)
-        mv_two = torch.where(rq0 == rp0, d00 | d11, d01 | d10)
-        mv_same = (d00 | d11) & (d01 | d10)
-        mv_d = torch.where(rq0 != rq1, mv_two, mv_same)
-        inter = torch.where(coef, 2, torch.where(straight | crossed,
-                                                 mv_d.to(I32), 1))
-        return torch.where(ei, torch.where(mb_edge, 4, 3), inter).to(I32)
-
-    colv = (torch.arange(1, W4, device=dev) % 4 == 0)[None, :]
-    BSV = torch.zeros((H4, W4), dtype=I32, device=dev)
-    BSV[:, 1:] = bs((slice(None), slice(1, None)),
-                    (slice(None), slice(0, W4 - 1)), colv)
-    rowh = (torch.arange(1, H4, device=dev) % 4 == 0)[:, None]
-    BSH = torch.zeros((H4, W4), dtype=I32, device=dev)
-    BSH[1:, :] = bs((slice(1, None), slice(None)),
-                    (slice(0, H4 - 1), slice(None)), rowh)
-    return BSV, BSH
-
-
 # ---------------------------------------------------------------------------
 # the kernel entries a B picture goes through
 # ---------------------------------------------------------------------------
@@ -265,7 +221,7 @@ class BKernels:
     inter_luma_tq: object
     inter_chroma_tq: object
     i16_candidate: object
-    strengths_b: object
+    strengths: object
     deblock: object
     intra_scan: object
     ref_bank: object
@@ -277,7 +233,7 @@ class BKernels:
 PLAIN = BKernels(
     ssd_grid8_plain, qpel_refine_plain, b_direct_plain, mc_luma_win_plain,
     mc_chroma_b_plain, inter_luma_tq_plain, inter_chroma_tq_plain,
-    i16_candidate_plain, strengths_b_plain, deblock_plain, RD._intra_scan,
+    i16_candidate_plain, strengths_plain, deblock_plain, RD._intra_scan,
     RD.ref_entry_plain)
 
 
@@ -295,7 +251,7 @@ def default_kernels() -> BKernels:
     return BKernels(
         K3.ssd_grid8, K4.qpel_refine, K7.b_direct, K4.mc_luma_win,
         K4.mc_chroma_b, K5.inter_luma_tq, K5.inter_chroma_tq,
-        K5.i16_candidate, K6.strengths_b, K6.deblock, K1.intra_commit_scan,
+        K5.i16_candidate, K6.strengths, K6.deblock, K1.intra_commit_scan,
         K2.ref_bank)
 
 
@@ -669,23 +625,12 @@ def _to4(f: BFrame, a8):
 
 def b_deblock(f: BFrame) -> None:
     """Boundary strengths with the two-list pairing rule and the in-loop
-    filter (rd.py:2487-2507)."""
-    n_my, n_mx = f.n_my, f.n_mx
-    nz4 = (f.w_lev != 0).any(-1).any(-1)
-    nz4 = nz4 | (f.is_intra[:, None, None]
-                 & (f.lum_dc != 0).any(-1).any(-1)[:, None, None])
-    nz4 = nz4.reshape(n_my, n_mx, 4, 4).permute(0, 2, 1, 3).reshape(
-        4 * n_my, 4 * n_mx).contiguous()
-    f.intra4 = (f.is_intra.reshape(n_my, n_mx).repeat_interleave(4, 0)
-                .repeat_interleave(4, 1)).contiguous()
-    f.v0_4 = (_to4(f, f.u0_8) & ~f.intra4).contiguous()
-    f.v1_4 = (_to4(f, f.u1_8) & ~f.intra4).contiguous()
-    f.idx4 = _to4(f, f.w_idx0)
-    f.m4 = [_to4(f, a) for a in (f.w_m0x, f.w_m0y, f.w_m1x, f.w_m1y)]
-    r0_4 = f.pocs0[f.idx4.clamp(0, f.NR0 - 1).long()].contiguous()
-    r1_4 = torch.full_like(r0_4, f.poc1)
-    BSV, BSH = f.k.strengths_b(nz4, f.intra4, f.v0_4, r0_4, f.m4[0], f.m4[1],
-                               f.v1_4, r1_4, f.m4[2], f.m4[3])
+    filter (rd.py:2487-2507): the strengths read the winners' per-unit
+    fields as they are, list 0's reference id the POC at the clamped
+    index, list 1's the anchor's POC."""
+    BSV, BSH = f.k.strengths(f.n_my, f.n_mx, f.w_lev, f.is_intra, f.w_idx0,
+                             f.w_m0x, f.w_m0y, None, None, f.pocs0, f.u0_8,
+                             f.w_m1x, f.w_m1y, f.u1_8, f.poc1)
     f.dy, f.du, f.dv = f.k.deblock(
         f.rec_y.contiguous(), f.rec_u.contiguous(), f.rec_v.contiguous(),
         BSV, BSH, f.qp, f.qp_c)
@@ -707,11 +652,15 @@ def b_outputs(f: BFrame):
     if not f.make_ref:
         return host_out, recon
     bank, cpad = f.k.ref_bank(f.dy, f.du, f.dv)
-    v0 = f.v0_4
-    col = ((f.intra4 | ~(v0 | f.v1_4)).contiguous(),
-           torch.where(v0, f.idx4, f.NR0).to(I32).contiguous(),
-           torch.where(v0, f.m4[0], f.m4[2]).contiguous(),
-           torch.where(v0, f.m4[1], f.m4[3]).contiguous())
+    n_my, n_mx = f.n_my, f.n_mx
+    intra4 = (f.is_intra.reshape(n_my, n_mx).repeat_interleave(4, 0)
+              .repeat_interleave(4, 1))
+    v0 = _to4(f, f.u0_8) & ~intra4
+    v1 = _to4(f, f.u1_8) & ~intra4
+    col = ((intra4 | ~(v0 | v1)).contiguous(),
+           torch.where(v0, _to4(f, f.w_idx0), f.NR0).to(I32).contiguous(),
+           torch.where(v0, _to4(f, f.w_m0x), _to4(f, f.w_m1x)).contiguous(),
+           torch.where(v0, _to4(f, f.w_m0y), _to4(f, f.w_m1y)).contiguous())
     return host_out, recon, (bank, cpad, col)
 
 
@@ -759,9 +708,9 @@ def rd_b_pipeline(cur_y, cur_u, cur_v, banks0, cpads0, banks1, cpads1,
 
 B_ENTRIES = ("ssd_grid8", "qpel_refine", "b_direct", "mc_luma_win",
              "mc_chroma_b", "inter_luma_tq", "inter_chroma_tq",
-             "i16_candidate", "strengths_b", "deblock")
+             "i16_candidate", "strengths", "deblock")
 # the entries only B pictures have
-B_OWN = ("b_direct", "mc_luma_win", "mc_chroma_b", "strengths_b")
+B_OWN = ("b_direct", "mc_luma_win", "mc_chroma_b")
 
 
 def recording(k: BKernels):

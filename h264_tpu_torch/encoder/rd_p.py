@@ -55,6 +55,7 @@ from .rd import (_QTAB, _REFINE, I32, PAD, _bitlen, _chroma_tq,
                  _coef_bits, _i16_pred_all, _i16_tq, _lam_cost,
                  _mc_chroma_unit, _med3, _mv_bits, _rdoq4, _satd,
                  _threshold_inter_luma, _wp_affine, lam_satd_of)
+from .strengths import strengths_plain
 
 # candidate mode indices (winner codes in host_out)
 C_P16x16, C_P16x8, C_P8x16, C_P8x8, C_SKIP, C_P16PMV = 0, 1, 2, 3, 4, 5
@@ -354,32 +355,6 @@ def t8_decide_plain(orig_mb, w_pred, w_rec, w_lev, win, w_sub, is_intra,
     u5 = use8[:, None, None, None, None]
     return (use8.to(I32), torch.where(u5, lev8, 0), torch.where(u5, 0, w_lev),
             torch.where(use8[:, None, None], rec8, w_rec))
-
-
-def strengths_plain(nz4, mvx4, mvy4, ref4, intra4):
-    """Boundary strengths (rd.py:1713 `strengths_full`): per 4x4 block
-    the bS 0..4 of its left (BSV) and top (BSH) edge, 0 on picture edges.
-    Inputs (4 n_my, 4 n_mx): nz4/intra4 bool, the rest int32."""
-    H4, W4 = nz4.shape
-    dev = nz4.device
-
-    def bs(q, p, mb_edge):
-        ei = intra4[q] | intra4[p]
-        coef = nz4[q] | nz4[p]
-        mv_d = (((mvx4[q] - mvx4[p]).abs() >= 4)
-                | ((mvy4[q] - mvy4[p]).abs() >= 4) | (ref4[q] != ref4[p]))
-        inter = torch.where(coef, 2, mv_d.to(I32))
-        return torch.where(ei, torch.where(mb_edge, 4, 3), inter).to(I32)
-
-    colv = (torch.arange(1, W4, device=dev) % 4 == 0)[None, :]
-    BSV = torch.zeros((H4, W4), dtype=I32, device=dev)
-    BSV[:, 1:] = bs((slice(None), slice(1, None)),
-                    (slice(None), slice(0, W4 - 1)), colv)
-    rowh = (torch.arange(1, H4, device=dev) % 4 == 0)[:, None]
-    BSH = torch.zeros((H4, W4), dtype=I32, device=dev)
-    BSH[1:, :] = bs((slice(1, None), slice(None)),
-                    (slice(0, H4 - 1), slice(None)), rowh)
-    return BSV, BSH
 
 
 def _edge_luma(L, S, alpha, beta, clip_row):
@@ -1044,43 +1019,37 @@ def p_commit(f: PFrame) -> None:
 
 
 def p_deblock(f: PFrame) -> None:
-    """Boundary strengths and the in-loop filter (rd.py:1124-1160)."""
+    """Boundary strengths and the in-loop filter (rd.py:1124-1160): the
+    strengths read the winners' fields as they are (the 8x8 levels and
+    transform flags with the 8x8 transform, whose MBs filter only their
+    8-pel-grid edges)."""
+    t8 = f.w_lev8 is not None
+    BSV, BSH = f.k.strengths(f.n_my, f.n_mx, f.w_lev, f.is_intra, f.w_ref8,
+                             f.w_mv4x, f.w_mv4y,
+                             f.w_lev8.contiguous() if t8 else None,
+                             f.w_t8 if t8 else None)
+    f.dy, f.du, f.dv = f.k.deblock(
+        f.rec_y.contiguous(), f.rec_u.contiguous(), f.rec_v.contiguous(),
+        BSV, BSH, f.qp, f.qp_c)
+
+
+def p_colocated(f: PFrame):
+    """The colocated snapshot of a P picture for later B pictures
+    (rd.py:1178): its final list-0 motion per 4x4 block as (4 n_my,
+    4 n_mx) planes (intra bool, ref, mvx, mvy int32)."""
     n_my, n_mx = f.n_my, f.n_mx
-    nz4 = (f.w_lev != 0).any(-1).any(-1)
-    nz4 = nz4 | (f.is_intra[:, None, None]
-                 & (f.lum_dc != 0).any(-1).any(-1)[:, None, None])
-    if f.w_lev8 is not None:
-        # T8 MBs: a nonzero 8x8 block marks all four of its 4x4 cells
-        nz8 = (f.w_lev8 != 0).any(-1).any(-1)  # (n_mb, 2, 2)
-        nz4 = nz4 | nz8.repeat_interleave(2, 1).repeat_interleave(2, 2)
-    nz4 = nz4.reshape(n_my, n_mx, 4, 4).permute(0, 2, 1, 3).reshape(
-        4 * n_my, 4 * n_mx)
 
     def mv4_pic(a):  # (n_mb, unit, subpos) -> (4 n_my, 4 n_mx)
         return (a.reshape(n_my, n_mx, 2, 2, 2, 2).permute(0, 2, 4, 1, 3, 5)
                 .reshape(4 * n_my, 4 * n_mx))
 
-    f.mvx4 = mv4_pic(f.w_mv4x).contiguous()
-    f.mvy4 = mv4_pic(f.w_mv4y).contiguous()
-    f.ref4 = (f.w_ref8.reshape(n_my, n_mx, 2, 2).permute(0, 2, 1, 3)
-              .reshape(2 * n_my, 2 * n_mx).repeat_interleave(2, 0)
-              .repeat_interleave(2, 1)).contiguous()
-    f.intra4 = (f.is_intra.reshape(n_my, n_mx).repeat_interleave(4, 0)
-                .repeat_interleave(4, 1)).contiguous()
-    BSV, BSH = f.k.strengths(nz4.contiguous(), f.mvx4, f.mvy4, f.ref4,
-                             f.intra4)
-    if f.w_lev8 is not None:
-        # 8x8-transform MBs filter only their 8-pel-grid edges
-        # (ldecod/src/loopFilter.c: !(t8 && (edge & 1)))
-        t8 = ((f.w_t8 > 0).reshape(n_my, n_mx).repeat_interleave(4, 0)
+    ref4 = (f.w_ref8.reshape(n_my, n_mx, 2, 2).permute(0, 2, 1, 3)
+            .reshape(2 * n_my, 2 * n_mx).repeat_interleave(2, 0)
+            .repeat_interleave(2, 1))
+    intra4 = (f.is_intra.reshape(n_my, n_mx).repeat_interleave(4, 0)
               .repeat_interleave(4, 1))
-        odd_v = (torch.arange(4 * n_mx, device=f.dev) % 2 == 1)[None, :]
-        odd_h = (torch.arange(4 * n_my, device=f.dev) % 2 == 1)[:, None]
-        BSV = torch.where(t8 & odd_v, 0, BSV).contiguous()
-        BSH = torch.where(t8 & odd_h, 0, BSH).contiguous()
-    f.dy, f.du, f.dv = f.k.deblock(
-        f.rec_y.contiguous(), f.rec_u.contiguous(), f.rec_v.contiguous(),
-        BSV, BSH, f.qp, f.qp_c)
+    return (intra4.contiguous(), ref4.contiguous(),
+            mv4_pic(f.w_mv4x).contiguous(), mv4_pic(f.w_mv4y).contiguous())
 
 
 def p_host_out(f: PFrame):
@@ -1099,8 +1068,7 @@ def p_outputs(f: PFrame):
     """The flat host_out, the recon, and the next reference entry: the
     bank (K2) and the colocated snapshot for B pictures."""
     bank, cpad = f.k.ref_bank(f.dy, f.du, f.dv)
-    col = (f.intra4, f.ref4, f.mvx4, f.mvy4)
-    return p_host_out(f), (f.dy, f.du, f.dv), (bank, cpad, col)
+    return p_host_out(f), (f.dy, f.du, f.dv), (bank, cpad, p_colocated(f))
 
 
 P_STAGES = (p_search, p_partitions, p_refine, p_sub8, p_decide, p_winner,

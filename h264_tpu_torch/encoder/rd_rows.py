@@ -115,7 +115,7 @@ def rd_p_rows_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int,
                      lmes[g], nref, k)
         host_outs.append(RDP.p_host_out(f))
         recons.append((f.dy, f.du, f.dv))
-        cols.append((f.intra4, f.ref4, f.mvx4, f.mvy4))
+        cols.append(RDP.p_colocated(f))
     Yf, Uf, Vf = (torch.cat([r[i] for r in recons]) for i in range(3))
     bank, cpad = k.ref_bank(Yf, Uf, Vf)
     col = tuple(torch.cat([c[i] for c in cols]) for i in range(4))

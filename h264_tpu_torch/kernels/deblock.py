@@ -2,72 +2,116 @@
 
 Kernel: ``csrc/deblock.cu`` (replaces the reference's ``encoder/rd.py:1713
 strengths_full``, ``:1928 strengths_full_b`` and ``:1800
-deblock_device_full``).  Plain versions: ``encoder.rd_p``
-``strengths_plain``, ``deblock_plain``; ``encoder.rd_b``
-``strengths_b_plain``.  CPU tensors run the plain version; CUDA tensors
-launch the kernel, or raise.
+deblock_device_full``).  Plain versions: ``encoder.strengths``
+``strengths_plain`` and ``encoder.rd_p`` ``deblock_plain``.  CPU tensors
+run the plain version; CUDA tensors launch the kernel, or raise.
+
+``strengths`` serves every P, B and legacy picture.  It reads the fields
+the glue holds, at their own granularity (``encoder/strengths.py``), and
+costs its host time more than its kernel's, so the wrapper makes one
+combined test of every input's device, dtype, layout and contiguity
+(cached by what it sees) and one allocation: BSV and BSH are the two
+views of one (2, H4, W4) buffer.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..device import check_launch, check_tensor, kernel_fn, stream_of
-from ..encoder import rd_b, rd_p
+from ..encoder import rd_p
+from ..encoder import strengths as ST
 
-strengths_plain = rd_p.strengths_plain
-strengths_b_plain = rd_b.strengths_b_plain
+strengths_plain = ST.strengths_plain
 deblock_plain = rd_p.deblock_plain
 
 _I32 = torch.int32
+# the C entry's inputs, in its order: the fields, then pocs0
+_INPUTS = (*ST.FIELDS, "pocs0")
+_DTYPES = {"intra": torch.bool, "use0": torch.bool, "use1": torch.bool}
+_REQUIRED = ("coef", "mv0x", "mv0y")
+_MAX_POCS = 64  # the kernel's table of list-0 POCs (csrc/deblock.cu)
 
 
-def strengths(nz4, mvx4, mvy4, ref4, intra4):
-    """(4 n_my, 4 n_mx) per-4x4 fields (nz4/intra4 bool) -> (BSV, BSH)
-    int32 bS of every block's left and top edge."""
-    if nz4.device.type == "cpu":
-        return strengths_plain(nz4, mvx4, mvy4, ref4, intra4)
-    dev = nz4.device
-    H4, W4 = nz4.shape
-    for name, x, dt in (("nz4", nz4, torch.bool), ("mvx4", mvx4, _I32),
-                        ("mvy4", mvy4, _I32), ("ref4", ref4, _I32),
-                        ("intra4", intra4, torch.bool)):
-        check_tensor("strengths", name, x, (H4, W4), dt, dev)
-    bsv = torch.empty((H4, W4), dtype=_I32, device=dev)
-    bsh = torch.empty_like(bsv)
-    rc = kernel_fn("deblock", "strengths", "pppppiippp")(
-        nz4.data_ptr(), mvx4.data_ptr(), mvy4.data_ptr(), ref4.data_ptr(),
-        intra4.data_ptr(), H4, W4, bsv.data_ptr(), bsh.data_ptr(),
-        stream_of(nz4))
+@functools.lru_cache(maxsize=256)
+def _plan(seen: tuple, n_my: int, n_mx: int):
+    """The C entry's layout array for inputs that look like `seen` (per
+    input None or its (shape, dtype, device, contiguous)): every field's
+    six strides, then the POCs' count.  Raises ValueError naming the
+    first input the kernel does not take."""
+    given = dict(zip(_INPUTS, seen))
+    for name in _REQUIRED:
+        if given[name] is None:
+            raise ValueError(f"strengths: {name} is required")
+    dev = given["mv0x"][2]
+    ST.check_lists({k: given[k] for k in ST.TWO_LISTS})
+    lay = []
+    for name, g in given.items():
+        if g is None:
+            if name != "pocs0":
+                lay += [0] * 6
+            continue
+        shape, dtype, device, contiguous = g
+        want = _DTYPES.get(name, _I32)
+        if device != dev or dtype != want or not contiguous:
+            raise ValueError(f"strengths: {name} must be a contiguous {want} "
+                             f"tensor on {dev}, got {dtype} on {device}")
+        if name == "pocs0":
+            if len(shape) != 1 or not 1 <= shape[0] <= _MAX_POCS:
+                raise ValueError(f"strengths: pocs0 must be (NR0,), NR0 <= "
+                                 f"{_MAX_POCS}, got {tuple(shape)}")
+            continue
+        lay += ST.layout(tuple(shape), n_my, n_mx, name)[0]
+    pocs = given["pocs0"]
+    lay.append(pocs[0][0] if pocs else 0)
+    return (ctypes.c_int * len(lay))(*lay)
+
+
+def _inputs(n_my, n_mx, coef, intra, ref0, mv0x, mv0y, coef8=None, t8=None,
+            pocs0=None, use0=None, mv1x=None, mv1y=None, use1=None, poc1=0):
+    """The C entry's tensor inputs of a ``strengths`` call, in its order:
+    the fields, then pocs0."""
+    return (coef, coef8, intra, t8, ref0, mv0x, mv0y, use0, mv1x, mv1y, use1,
+            pocs0)
+
+
+def layout_of(*args):
+    """The C entry's layout array for the arguments of a ``strengths``
+    call: the combined test of every input, cached by what it sees;
+    raises ValueError for what the kernel does not take."""
+    try:
+        seen = tuple(None if x is None else
+                     (x.shape, x.dtype, x.device, x.is_contiguous())
+                     for x in _inputs(*args))
+    except AttributeError:  # not a tensor
+        raise ValueError("strengths: every input must be a tensor or None")
+    return _plan(seen, int(args[0]), int(args[1]))
+
+
+def strengths(n_my, n_mx, coef, intra, ref0, mv0x, mv0y, coef8=None,
+              t8=None, pocs0=None, use0=None, mv1x=None, mv1y=None,
+              use1=None, poc1=0):
+    """(BSV, BSH) int32 (4 n_my, 4 n_mx), the bS of every 4x4 block's left
+    and top edge, from the picture's fields at their own granularity
+    (``encoder.strengths.strengths_plain`` has the arguments)."""
+    args = (n_my, n_mx, coef, intra, ref0, mv0x, mv0y, coef8, t8, pocs0,
+            use0, mv1x, mv1y, use1, poc1)
+    if mv0x.device.type == "cpu":
+        return strengths_plain(*args)
+    lay = layout_of(*args)
+    ptrs = (ctypes.c_void_p * 12)(*(None if x is None else x.data_ptr()
+                                    for x in _inputs(*args)))
+    out = torch.empty((2, 4 * n_my, 4 * n_mx), dtype=_I32,
+                      device=mv0x.device)
+    rc = kernel_fn("deblock", "strengths", "ppiiipp")(
+        ctypes.addressof(ptrs), ctypes.addressof(lay), int(poc1), n_my, n_mx,
+        out.data_ptr(), stream_of(mv0x))
     check_launch(rc, "strengths")
     strengths.launches += 1
-    return bsv, bsh
-
-
-def strengths_b(nz4, intra4, v0, r0, m0x, m0y, v1, r1, m1x, m1y):
-    """(4 n_my, 4 n_mx) per-4x4 fields of a B picture (nz4/intra4/v0/v1
-    bool, reference POCs r0/r1 and mvs int32) -> (BSV, BSH) int32."""
-    if nz4.device.type == "cpu":
-        return strengths_b_plain(nz4, intra4, v0, r0, m0x, m0y, v1, r1, m1x,
-                                 m1y)
-    dev = nz4.device
-    H4, W4 = nz4.shape
-    args = (("nz4", nz4, torch.bool), ("intra4", intra4, torch.bool),
-            ("v0", v0, torch.bool), ("r0", r0, _I32), ("m0x", m0x, _I32),
-            ("m0y", m0y, _I32), ("v1", v1, torch.bool), ("r1", r1, _I32),
-            ("m1x", m1x, _I32), ("m1y", m1y, _I32))
-    for name, x, dt in args:
-        check_tensor("strengths_b", name, x, (H4, W4), dt, dev)
-    bsv = torch.empty((H4, W4), dtype=_I32, device=dev)
-    bsh = torch.empty_like(bsv)
-    rc = kernel_fn("deblock", "strengths_b", "p" * 10 + "ii" + "ppp")(
-        *(x.data_ptr() for _, x, _ in args), H4, W4, bsv.data_ptr(),
-        bsh.data_ptr(), stream_of(nz4))
-    check_launch(rc, "strengths_b")
-    strengths_b.launches += 1
-    return bsv, bsh
+    return out.unbind(0)
 
 
 def _thresholds(qp: int):
@@ -105,5 +149,4 @@ def deblock(rec_y, rec_u, rec_v, BSV, BSH, qp: int, qp_c: int):
 
 
 strengths.launches = 0
-strengths_b.launches = 0
 deblock.launches = 0

@@ -5,8 +5,8 @@ Kernel: ``csrc/ref_bank.cu`` (replaces the reference's
 ``encoder/rd.py:101 ref_entry_from_planes`` / ``:113 _bank_from_pad``,
 and the sharded GOP encoder's ``bank_of``, ``:2662-2672``).  Plain
 versions: ``encoder.rd.ref_entry_plain`` and ``ref_bank_rows_plain``.
-CPU tensors run the plain version; CUDA tensors launch the kernel, or
-raise.
+CPU tensors run the plain version; CUDA tensors launch the kernel (one
+launch over output tiles staged in shared memory), or raise.
 """
 
 from __future__ import annotations
@@ -18,6 +18,13 @@ from ..encoder import rd
 
 ref_bank_plain = rd.ref_entry_plain
 ref_bank_rows_plain = rd.ref_bank_rows_plain
+
+
+def _check_size(fn: str, Hp: int, Wp: int) -> None:
+    """The kernel's offsets are int: refuse a bank of 2^31 samples."""
+    if 4 * Hp * Wp >= 2 ** 31:
+        raise ValueError(f"{fn}: a ({Hp}, {Wp}) bank has 2^31 or more "
+                         "samples")
 
 
 def ref_bank(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor):
@@ -32,6 +39,7 @@ def ref_bank(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor):
     if H % 2 or W % 2:
         raise ValueError(f"ref_bank: odd picture size {H}x{W}")
     P = rd.PAD
+    _check_size("ref_bank", H + 2 * P, W + 2 * P)
     bank = torch.empty((4, H + 2 * P, W + 2 * P), dtype=torch.int32,
                        device=Y.device)
     cpad = torch.empty((2, H // 2 + 2 * P, W // 2 + 2 * P), dtype=torch.int32,
@@ -65,6 +73,7 @@ def ref_bank_rows(extY: torch.Tensor, extU: torch.Tensor,
         raise ValueError(f"ref_bank_rows: slab sizes {Hs}x{W}, {Hcs} chroma "
                          "rows")
     P = rd.PAD
+    _check_size("ref_bank_rows", Hs, W + 2 * P)
     bank = torch.empty((4, Hs, W + 2 * P), dtype=torch.int32,
                        device=extY.device)
     cpad = torch.empty((2, Hcs, W // 2 + 2 * P), dtype=torch.int32,

@@ -1,8 +1,7 @@
-"""K3 ``coarse_search``, K4 ``qpel_refine``, K5 ``inter_luma_tq`` and
-``inter_chroma_tq``, K6 ``deblock`` and K7 ``b_direct`` on the main path's
-inputs, on one CUDA card: per-call, per-shape and per-picture times, K6's
-chain and launch profile, and K1 on P and B pictures.  ``chip_smoke.py``
-times with the same functions.
+"""The main path's kernel entries on its inputs, on one CUDA card: one
+call a picture of each entry beside an empty launch of its grid, K4 per
+shape and per picture, K6's chain and launch profile, and K1 on P and B
+pictures.  ``chip_smoke.py`` times with the same functions.
 
     python -m h264_tpu_torch.tools.time_kernels [--out DIR]
     python h264_tpu_torch/tools/time_kernels.py --root DIR [--out DIR]
@@ -13,13 +12,15 @@ Encodes the bench configuration (IPB, one B picture between anchors, QP
 28, 5 references, search range 28, explicit WP; ``moving_frames``, 5
 frames) at CIF and 1280x720 with every P and B kernel entry recorded, and
 times on the second P and the second B picture's inputs:
-- ``coarse_search`` (P), ``inter_luma_tq`` and ``inter_chroma_tq`` (P and
-  B) and ``b_direct`` (B), one call a picture each: its device time queued
-  behind a spin of the card (the host's launch time excluded), and back to
-  back (CUDA events and the host's clock; the median of 5 rounds); for
-  ``inter_chroma_tq`` and ``b_direct`` also an empty kernel launched on
-  the grid of each of their two designs (``empty_launch_ms``: the floor of
-  a launch of that grid);
+- every ``ONE_CALL`` entry the picture calls (K3 ``coarse_search`` and
+  ``ssd_grid4``, K5 ``inter_luma_tq``, ``inter_chroma_tq`` and
+  ``i16_candidate``, K7 ``b_direct``, K2 ``ref_bank`` on the picture's
+  filtered planes, K6 ``strengths``, K4 ``mc_luma``, ``mc_chroma``,
+  ``mc_luma_win`` and ``mc_chroma_b``), one call: its device time queued
+  behind a spin of the card (the host's launch time excluded), back to
+  back (CUDA events and the host's clock; the median of 5 rounds), and an
+  empty kernel launched on the grid of each of its designs
+  (``empty_launch_ms``: the floor of a launch of that grid);
 - each ``qpel_refine`` call (one shape each) on the device, and the
   picture's calls on the device and back to back;
 - the ``deblock`` call, the same two ways;
@@ -37,17 +38,21 @@ before each release, beside K6 as it is (``trial_no_fence``), and K3
 with strips of 8, 4 and 2 MBs, its decimation alone, an empty launch of
 the decimation's grid and its search alone (``trial_coarse``).
 
-With ``--root`` the package is imported from the checkout DIR, so that an
-earlier version of the kernels is timed by the same script in the same
-call on the same card.  With ``--ab DIR`` the package of the checkout DIR
-is imported beside this one (as ``h264_tpu_torch_ab``), and the wrappers
-of ``b_direct`` and ``inter_chroma_tq`` of both run back to back on the
-same recorded inputs in turns, 15 rounds a b b a ... (``ab``): the host's
-speed wanders between processes and over seconds, so only calls taken
-in turns in one process compare their wrappers' host time; with it, the
-host time of each part of this ``b_direct`` wrapper (``parts_us``).  Prints the card's name and power limit and one
-JSON object (also written to DIR/time_kernels[-TAG].json with ``--out``).
-Needs a CUDA card.
+With ``--root`` the package is imported from the checkout DIR, so that
+an earlier version of the kernels is timed by the same script in the
+same call on the same card. With ``--ab DIR`` the package of the
+checkout DIR is imported beside this one (as ``h264_tpu_torch_ab``), and
+on the same recorded pictures both packages' strength step (the deblock
+stage's glue for the strengths and their kernel, the filter left out; on
+P pictures also with the colocated snapshot's planes, which
+``p_outputs`` builds in ``p_colocated`` and earlier versions built in
+``p_deblock``) and, as a control, both ``inter_chroma_tq`` wrappers
+run back to back in turns, 15 rounds a b b a ... (``ab``), with each
+strength step's count of torch operations: the host's speed wanders
+between processes and over seconds, so only calls taken in turns in one
+process compare their host time. Prints the card's name and power limit
+and one JSON object (also written to DIR/time_kernels[-TAG].json with
+``--out``). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -187,8 +192,10 @@ def by_picture(calls):
 
 def record_bench(size):
     """The bench configuration's recorded P and B pictures, in coding
-    order: {"P": [(calls, scan)], "B": [...]}, each picture's entry calls
-    and a copy of its K1 scan state taken before the scan."""
+    order: {"P": [(calls, scan)], "B": [...], "frames": {"P": [frame],
+    "B": [...]}}, each picture's entry calls, a copy of its K1 scan state
+    taken before the scan, and its ``PFrame`` / ``BFrame`` as the deblock
+    stage found it."""
     import torch
     from h264_tpu_torch.encoder import rd_b, rd_p
     from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
@@ -200,14 +207,31 @@ def record_bench(size):
                         weighted_pred=True)
     enc = H264Encoder(cfg, device="cuda")
     scans = {"P": [], "B": []}
+    frames = {"P": [], "B": []}
     pk, pcalls = rd_p.recording(rd_p.default_kernels())
     bk, bcalls = rd_b.recording(rd_b.default_kernels())
     enc._p_kernels = scan_recording(pk, scans["P"])
     enc._b_kernels = scan_recording(bk, scans["B"])
-    list(enc.encode_stream(moving_frames(5, *size, seed=SEED)))
+    stages = {"P": (rd_p, "P_STAGES"), "B": (rd_b, "B_STAGES")}
+    kept = {kind: getattr(m, n) for kind, (m, n) in stages.items()}
+    for kind, (mod, name) in stages.items():
+        *rest, deblock = kept[kind]
+
+        def hook(f, deblock=deblock, kind=kind):
+            frames[kind].append(f)
+            return deblock(f)
+
+        setattr(mod, name, (*rest, hook))
+    try:
+        list(enc.encode_stream(moving_frames(5, *size, seed=SEED)))
+    finally:
+        for kind, (mod, name) in stages.items():
+            setattr(mod, name, kept[kind])
     torch.cuda.synchronize()
-    return {kind: list(zip(by_picture(calls), scans[kind]))
-            for kind, calls in (("P", pcalls), ("B", bcalls))}
+    out = {kind: list(zip(by_picture(calls), scans[kind]))
+           for kind, calls in (("P", pcalls), ("B", bcalls))}
+    out["frames"] = frames
+    return out
 
 
 def _grid(warps: int):
@@ -217,10 +241,61 @@ def _grid(warps: int):
     return (warps + per - 1) // per, 32 * per
 
 
-# (blocks, threads) of the launches of inter_chroma_tq and b_direct for
-# n_mb MBs: this design's grid, then the first design's
-GRIDS = {"inter_chroma_tq": lambda n: [_grid((n + 1) // 2), ((n + 7) // 8, 64)],
-         "b_direct": lambda n: [_grid(n), (n, 256)]}
+def _cdiv(a: int, b: int) -> int:
+    return (a + b - 1) // b
+
+
+def _bank_blocks(H: int, W: int) -> int:
+    """Blocks of ref_bank's grid for an H x W picture: output tiles of
+    16 x 64, the chroma tiles in further rows of blocks."""
+    ntx = _cdiv(W + 64, 64)
+    tc = 2 * _cdiv(W // 2 + 64, 64) * _cdiv(H // 2 + 64, 16)
+    return ntx * (_cdiv(H + 64, 16) + _cdiv(tc, ntx))
+
+
+def _bank_grids(a):
+    """ref_bank's grid, then the first design's (a thread an output)."""
+    H, W = a[0].shape
+    n = 4 * (H + 64) * (W + 64) + 2 * (H // 2 + 64) * (W // 2 + 64)
+    return [(_bank_blocks(H, W), 256), (_cdiv(n, 256), 256)]
+
+
+def _strength_grids(a):
+    """strengths' grid (tiles of 4 rows of 32 blocks), then the first
+    design's (a thread a block, 256 a thread block); a call of the first
+    design (per-block planes first) has only the second."""
+    if not isinstance(a[0], int):
+        return [(_cdiv(a[0].numel(), 256), 256)]
+    H4, W4 = 4 * a[0], 4 * a[1]
+    return [(_cdiv(W4, 32) * _cdiv(H4, 4), 128), (_cdiv(H4 * W4, 256), 256)]
+
+
+# (blocks, threads) of the launches of each entry timed one call a
+# picture, from the call's arguments: this design's grid, then, where it
+# was redesigned, the first design's
+GRIDS = {
+    "inter_chroma_tq": lambda a: [_grid((a[0].shape[0] + 1) // 2),
+                                  ((a[0].shape[0] + 7) // 8, 64)],
+    "b_direct": lambda a: [_grid(a[2].numel() // 16),
+                           (a[2].numel() // 16, 256)],
+    "ref_bank": _bank_grids,
+    "strengths": _strength_grids,
+    "i16_candidate": lambda a: [(a[0].numel() // 256, 64)],
+    "ssd_grid4": lambda a: [(a[2].numel(), 256)],
+    "mc_luma": lambda a: [(_cdiv(a[1].numel() * a[7] * a[8], 256), 256)],
+    "mc_chroma": lambda a: [(_cdiv(a[1].shape[0] * 128, 256), 256)],
+    "mc_luma_win": lambda a: [(_cdiv(a[1].numel() * a[6] * a[7], 256), 256)],
+    "mc_chroma_b": lambda a: [(_cdiv(a[2].shape[0] * 128, 256), 256)],
+}
+# the entries timed one call a picture on the device, and their modules
+# under kernels/: the redesigned ones, then the ones that wait for a
+# redesign
+ONE_CALL = {"coarse_search": "search_grid", "inter_luma_tq": "inter_tq",
+            "inter_chroma_tq": "inter_tq", "b_direct": "b_direct",
+            "ref_bank": "ref_bank", "strengths": "deblock",
+            "i16_candidate": "inter_tq",
+            "ssd_grid4": "search_grid", "mc_luma_win": "qpel",
+            "mc_chroma_b": "qpel", "mc_luma": "qpel", "mc_chroma": "qpel"}
 
 
 def empty_launch_ms(blocks: int, threads: int, reps: int = 20) -> float:
@@ -326,79 +401,111 @@ def ab_times(fa, fb, reps: int = 20, rounds: int = 15) -> dict:
     return out
 
 
-def picture_ab(calls, other) -> dict:
-    """``ab_times`` of the ``b_direct`` and ``inter_chroma_tq`` calls of
-    one recorded picture: this package's wrappers against `other`'s."""
+def count_ops(fn) -> int:
+    """The torch operations (aten calls, views and allocations included)
+    one call of fn dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def strength_step(pkg: str, kind: str, frame, colocated: bool = False):
+    """The strength step of one recorded picture through the package
+    `pkg`'s deblock stage (``p_deblock`` / ``b_deblock``) with the filter
+    left out: every glue operation for the strengths and their kernel,
+    on a copy of the picture's frame; with `colocated`, also the P
+    picture's colocated planes where the package builds them apart from
+    that stage (``p_colocated``)."""
+    import copy
     import importlib
 
-    from h264_tpu_torch.kernels import b_direct as K7
+    mod = importlib.import_module(
+        f"{pkg}.encoder.{'rd_p' if kind == 'P' else 'rd_b'}")
+    g = copy.copy(frame)
+    g.k = dataclasses.replace(mod.default_kernels(),
+                              deblock=lambda *a: (None, None, None))
+    stage = mod.p_deblock if kind == "P" else mod.b_deblock
+    col = getattr(mod, "p_colocated", None) if colocated else None
+    if col is None:
+        return lambda: stage(g)
+    return lambda: (stage(g), col(g))
+
+
+def picture_ab(calls, kind: str, frame, other) -> dict:
+    """In turns in one process (``ab_times``) on one recorded picture: the
+    strength step of this package against `other`'s, with each one's count
+    of torch operations (on P pictures also with the colocated planes,
+    ``strength_step_colocated``); and, as a control of the host's speed,
+    the ``inter_chroma_tq`` wrapper, the same in both."""
+    import importlib
+
     from h264_tpu_torch.kernels import inter_tq as K5
 
-    theirs = {n: getattr(importlib.import_module(
-        f"{other.__name__}.kernels.{m}"), n)
-        for n, m in (("b_direct", "b_direct"), ("inter_chroma_tq", "inter_tq"))}
-    mine = {"b_direct": K7.b_direct, "inter_chroma_tq": K5.inter_chroma_tq}
     res = {}
-    for name in mine:
-        for a in [a for n, a in calls if n == name]:
-            res[name] = ab_times(lambda: mine[name](*a),
-                                 lambda: theirs[name](*a))
-            if name == "b_direct":
-                res[name]["parts_us"] = wrapper_parts(a)
+    steps = [("strength_step", False)]
+    if kind == "P":
+        steps.append(("strength_step_colocated", True))
+    for key, col in steps:
+        fa = strength_step("h264_tpu_torch", kind, frame, col)
+        fb = strength_step(other.__name__, kind, frame, col)
+        res[key] = {**ab_times(fa, fb), "ops_this": count_ops(fa),
+                    "ops_ab": count_ops(fb)}
+    theirs = importlib.import_module(
+        f"{other.__name__}.kernels.inter_tq").inter_chroma_tq
+    for a in [a for n, a in calls if n == "inter_chroma_tq"]:
+        res["inter_chroma_tq"] = ab_times(lambda: K5.inter_chroma_tq(*a),
+                                          lambda: theirs(*a))
     return res
 
 
-def wrapper_parts(a, n: int = 300) -> dict:
-    """Host µs a call of each part of the ``b_direct`` wrapper on its
-    inputs `a` (the mean of n calls on the host's clock): the combined
-    check, the allocation, the six views, the pointers, the stream, the
-    entry's lookup, the ctypes call with its launch, and the whole
-    wrapper.  n stays below the launch queue's depth, so that the host
-    never waits for the card."""
-    import torch
-    from h264_tpu_torch import device as D
-    from h264_tpu_torch.kernels import b_direct as K7
+def one_call_times(calls, reps: int = 20) -> dict:
+    """Each ``ONE_CALL`` entry the picture's recorded `calls` make (K2 on
+    the picture's filtered planes), one call: its device time queued
+    behind a spin of the card, back to back (the median of 5 rounds, on
+    the host's clock too), and an empty launch of each of its designs'
+    grids."""
+    import importlib
 
-    banks0 = a[0]
-    NR0, _, Hp, Wp = banks0.shape
-    n_mb = (Hp - 64) // 16 * ((Wp - 64) // 16)
-    sig = "p" * 8 + "iii" + "pp"
-    out = torch.empty((69, n_mb, 4), dtype=torch.int32, device=banks0.device)
-    fn = D.kernel_fn("b_direct", "b_direct", sig)
-    ptrs = [x.data_ptr() for x in a]
-    stream = D.stream_of(banks0)
-    parts = {
-        "check": lambda: K7._accepts(a),
-        "allocate": lambda: torch.empty((69, n_mb, 4), dtype=torch.int32,
-                                        device=banks0.device),
-        "views": lambda: (out[:64].view(n_mb, 16, 16), *out[64:].unbind()),
-        "pointers": lambda: [x.data_ptr() for x in a],
-        "stream": lambda: D.stream_of(banks0),
-        "lookup": lambda: D.kernel_fn("b_direct", "b_direct", sig),
-        "launch": lambda: fn(*ptrs, NR0, Hp, Wp, out.data_ptr(), stream),
-        "whole": lambda: K7.b_direct(*a)}
+    from h264_tpu_torch.kernels import deblock as K6
+
+    dbk = [a for n, a in calls if n == "deblock"][0]
+    K6.deblock(*dbk)  # built and warm before its output is kept
+    inputs = [*calls, ("ref_bank", K6.deblock(*dbk))]
     res = {}
-    for name, f in parts.items():
-        f()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            f()
-        res[name] = (time.perf_counter() - t0) / n * 1e6
-        torch.cuda.synchronize()
+    for name, mod in ONE_CALL.items():
+        fn = getattr(importlib.import_module(
+            f"h264_tpu_torch.kernels.{mod}"), name, None)
+        for a in [a for n, a in inputs if n == name]:
+            res[name] = {"device_ms": spin_ms(lambda: fn(*a), reps),
+                         **back_to_back(lambda: fn(*a), reps),
+                         "launches": 1}
+            if name == "b_direct":
+                nb = direct_sector_bytes(a)
+                res[name]["sector_bytes"] = nb
+                res[name]["sector_bound_ms"] = nb / HBM_BPS * 1e3
+            res[name]["empty_launch_ms"] = {
+                f"{b}x{t}": empty_launch_ms(b, t, reps)
+                for b, t in GRIDS.get(name, lambda a: [])(a)}
     return res
 
 
 def picture_times(calls, scan, reps: int = 20) -> dict:
-    """K3, K5's two entries and K7 one call each, K4 per shape and per
-    picture, K6 and K1 of one recorded picture: on the device, and back to back (the median of 5
-    rounds, each round's beside it, on the host's clock too)."""
-    from h264_tpu_torch.kernels import b_direct as K7
+    """The ``ONE_CALL`` entries one call each, K4 per shape and per
+    picture, K6 and K1 of one recorded picture: on the device, and back to
+    back (the median of 5 rounds, each round's beside it, on the host's
+    clock too)."""
     from h264_tpu_torch.kernels import deblock as K6
     from h264_tpu_torch.kernels import intra_commit as K1
-    from h264_tpu_torch.kernels import inter_tq as K5
     from h264_tpu_torch.kernels import qpel as K4
-    from h264_tpu_torch.kernels import search_grid as K3
 
     refine = [a for n, a in calls if n == "qpel_refine"]
     dbk = [a for n, a in calls if n == "deblock"][0]
@@ -410,27 +517,8 @@ def picture_times(calls, scan, reps: int = 20) -> dict:
     shapes = [[a[11], a[12], int(a[2].numel()),
                spin_ms(lambda a=a: K4.qpel_refine(*a), reps)] for a in refine]
     k1 = copy_scan(scan)
-    one_call = {}
-    for name, fn in (("coarse_search", K3.coarse_search),
-                     ("inter_luma_tq", K5.inter_luma_tq),
-                     ("inter_chroma_tq", K5.inter_chroma_tq),
-                     ("b_direct", K7.b_direct)):
-        for a in [a for n, a in calls if n == name]:
-            one_call[name] = {"device_ms": spin_ms(lambda: fn(*a), reps),
-                              **back_to_back(lambda: fn(*a), reps),
-                              "launches": 1}
-            if name == "b_direct":
-                nb = direct_sector_bytes(a)
-                one_call[name]["sector_bytes"] = nb
-                one_call[name]["sector_bound_ms"] = nb / HBM_BPS * 1e3
-            if name in GRIDS:
-                n_mb = (a[0].shape[0] if name == "inter_chroma_tq"
-                        else a[2].numel() // 16)
-                one_call[name]["empty_launch_ms"] = {
-                    f"{b}x{t}": empty_launch_ms(b, t, reps)
-                    for b, t in GRIDS[name](n_mb)}
     return {
-        **one_call,
+        **one_call_times(calls, reps),
         "qpel_refine": {
             "shapes": shapes,  # [h, w, units, device ms] of each call
             "device_ms": sum(x[3] for x in shapes),
@@ -677,8 +765,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", help="import h264_tpu_torch from this checkout")
     ap.add_argument("--out", help="directory for the JSON report")
     ap.add_argument("--tag", default="", help="suffix of the report's name")
-    ap.add_argument("--ab", help="also time the b_direct and inter_chroma_tq "
-                    "wrappers of this checkout in turns with these")
+    ap.add_argument("--ab", help="also time the strength step of this "
+                    "checkout in turns with this one's")
     ap.add_argument("--trial", action="store_true",
                     help="also time K6 without the fence before each "
                     "release, and K3 with other strips and its decimation "
@@ -698,7 +786,8 @@ def main(argv=None) -> int:
     card = power_line()
     print(card)
     D.build_cuda(STEMS)
-    for stem in ("search_grid", "qpel", "inter_tq", "deblock", "b_direct"):
+    for stem in ("ref_bank", "search_grid", "qpel", "inter_tq", "deblock",
+                 "b_direct"):
         for ln in D.build_log.get(stem, "").splitlines():
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 print(f"  ptxas {stem}: {ln.strip()}")
@@ -712,7 +801,8 @@ def main(argv=None) -> int:
         if other is not None:
             report.setdefault("ab", {"package": str(pathlib.Path(
                 other.__file__).parent)})[f"{size[0]}x{size[1]}"] = {
-                kind: picture_ab(pics[kind][1][0], other)
+                kind: picture_ab(pics[kind][1][0], kind,
+                                 pics["frames"][kind][1], other)
                 for kind in ("P", "B")}
     report["deblock_chain"] = deblock_chain()
     report["deblock_profile"] = deblock_profile()

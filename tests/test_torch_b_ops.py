@@ -24,8 +24,8 @@ from h264_tpu_torch.encoder import encoder as TE
 from h264_tpu_torch.encoder import fills as TFL
 from h264_tpu_torch.encoder import rd as TRD
 from h264_tpu_torch.encoder import rd_b as TB
-from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
-                                                  strengths_b_inputs)
+from h264_tpu_torch.encoder import strengths as TS
+from h264_tpu_torch.tools.strengths_cases import branches, strengths_inputs
 
 W, H, NR = 64, 48, 3
 Hp, Wp = H + 2 * TRD.PAD, W + 2 * TRD.PAD
@@ -184,46 +184,66 @@ def test_temporal_direct_matches_reference(rng):
     assert (l0x < 0).any() and (idx == 2).any() and (idx < 2).any()
 
 
+def strengths_b_reference(args):
+    """The reference's strengths_full_b on the per-4x4 planes its
+    rd_b_pipeline builds (rd.py:2487-2505) from the B fields `args` of
+    the port's one strengths function."""
+    (n_my, n_mx, coef, intra, idx0, m0x, m0y, _, _, pocs0, u0, m1x, m1y,
+     u1, poc1) = args
+
+    def R(x):
+        return TS.raster(x, n_my, n_mx, "field")[..., 0].numpy()
+
+    lev = coef.numpy()
+    nz4 = (lev != 0).any((-1, -2))
+    nz4 = nz4.reshape(n_my, n_mx, 4, 4).transpose(0, 2, 1, 3).reshape(
+        4 * n_my, 4 * n_mx)
+    intra4 = R(intra)
+    r0 = pocs0.numpy()[np.clip(R(idx0), 0, pocs0.numel() - 1)]
+    return JRD.strengths_full_b(*map(jnp.asarray, (
+        nz4, intra4, R(u0) & ~intra4, r0, R(m0x), R(m0y), R(u1) & ~intra4,
+        np.full_like(r0, poc1), R(m1x), R(m1y))))
+
+
 def test_strengths_b_matches_reference(rng):
-    H4, W4 = 24, 32
+    """Seeded B fields in rd_b's layout (per-MB intra, per-unit list-0
+    indices, mvs and list flags, the MBs' 4x4 levels), list 0 holding the
+    anchor's POC: the port's one strengths function equals the
+    reference's strengths_full_b on the planes its pipeline builds."""
+    n_my, n_mx = 6, 8
+    n_mb = n_my * n_mx
     pocs = np.asarray([0, 2, 4, 8], np.int32)
-    nz4 = rng.rand(H4, W4) < 0.15
-    intra4 = rng.rand(H4, W4) < 0.08
-    v0 = rng.rand(H4, W4) < 0.7
-    v1 = rng.rand(H4, W4) < 0.6
-    r0 = pocs[rng.randint(0, 4, (H4, W4))]
-    r1 = pocs[rng.randint(0, 4, (H4, W4))]
-    # crossed pairs (q's lists swap p's) and same-ref blocks on purpose
-    r0[::3, 1::2] = r1[::3, 0::2]
-    r1[::3, 1::2] = r0[::3, 0::2]
-    v0[::3] = v1[::3] = True
-    r1[1::4] = r0[1::4]
-    m = [rng.randint(-7, 8, (H4, W4)).astype(np.int32) for _ in range(4)]
-    args = (nz4, intra4, v0, r0, m[0], m[1], v1, r1, m[2], m[3])
-    want = JRD.strengths_full_b(*map(jnp.asarray, args))
-    got = TB.strengths_b_plain(*map(_t, args))
+    intra = rng.rand(n_mb) < 0.08
+    use = rng.randint(0, 3, (n_mb, 4))
+    u0 = (use != 1) & ~intra[:, None]
+    u1 = (use != 0) & ~intra[:, None]
+    idx = rng.randint(0, 5, (n_mb, 4)).astype(np.int32)  # 4: clamped
+    m = [rng.randint(-7, 8, (n_mb, 4)).astype(np.int32) for _ in range(4)]
+    lev = np.where(rng.rand(n_mb, 4, 4, 4, 4) < 0.01,
+                   rng.randint(-2, 3, (n_mb, 4, 4, 4, 4)), 0).astype(np.int32)
+    args = (n_my, n_mx, _t(lev), _t(intra), _t(idx), _t(m[0]), _t(m[1]),
+            None, None, _t(pocs), _t(u0), _t(m[2]), _t(m[3]), _t(u1), 8)
+    want = strengths_b_reference(args)
+    got = TS.strengths_plain(*args)
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
-    # the cases the rule separates all occur
-    rid0 = np.where(v0, r0, -10 ** 9)
-    rid1 = np.where(v1, r1, -10 ** 9)
-    q0, q1, p0, p1 = rid0[:, 1:], rid1[:, 1:], rid0[:, :-1], rid1[:, :-1]
-    assert ((q0 == p1) & (q1 == p0) & (q0 != q1)).any()  # crossed
-    assert ((q0 == q1) & (q0 == p0) & (p0 == p1)).any()  # same ref
     assert set(np.unique(np.asarray(want[0]))) == {0, 1, 2, 3, 4}
+    n = branches(args)
+    assert n["crossed_mv_small"] + n["crossed_mv_large"] > 0, n
+    assert n["same_ref_mv_small"] + n["same_ref_mv_large"] > 0, n
 
 
 @pytest.mark.parametrize("H4,W4", [(36, 44), (72, 88)])
 def test_strengths_b_built_inputs_reach_every_branch(H4, W4):
-    """The built inputs the card's check of strengths_b uses: the plain
+    """The built B inputs the card's check of strengths uses: the plain
     version equals the reference on them, and every branch of the pairing
     rule decides some edges (counted apart, then matched to the bS)."""
-    args = strengths_b_inputs(H4, W4, seed=H4 + W4, device="cpu")
-    want = JRD.strengths_full_b(*(jnp.asarray(a.numpy()) for a in args))
-    got = TB.strengths_b_plain(*args)
+    args = strengths_inputs(H4 // 4, W4 // 4, seed=H4 + W4, device="cpu")
+    want = strengths_b_reference(args)
+    got = TS.strengths_plain(*args)
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
-    n = strengths_b_branches(args)
+    n = branches(args)
     assert min(n.values()) > 0, n
     bs = np.concatenate([got[0][:, 1:].reshape(-1).numpy(),
                          got[1][1:, :].reshape(-1).numpy()])

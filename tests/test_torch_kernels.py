@@ -60,8 +60,7 @@ from h264_tpu_torch.tools.search_tq_cases import (COARSE_CONTENTS,
                                                   luma_case)
 from h264_tpu_torch.tools.slab_cases import CONTENTS as SLAB_CONTENTS
 from h264_tpu_torch.tools.slab_cases import built_slab
-from h264_tpu_torch.tools.strengths_cases import (strengths_b_branches,
-                                                  strengths_b_inputs)
+from h264_tpu_torch.tools.strengths_cases import branches, strengths_inputs
 from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
 from h264_tpu_torch.tools.t8_cases import built_cases as t8_cases
 
@@ -178,17 +177,34 @@ def test_intra_commit_patterns_repeated(cuda, W, H, pattern):
             assert torch.equal(g, w), name
 
 
-@pytest.mark.parametrize("W,H", [(16, 16), (64, 48), (352, 288),
-                                 (1280, 720)], ids=lambda v: str(v))
-def test_ref_bank_matches_plain(cuda, W, H):
+@pytest.mark.parametrize("content", ["random", "0_255"])
+@pytest.mark.parametrize("W,H", [(16, 16), (64, 48), (176, 144), (352, 288),
+                                 (1280, 720), (208, 96), (22, 18)],
+                         ids=lambda v: str(v))
+def test_ref_bank_matches_plain(cuda, W, H, content):
+    """K2's tiles (32 x 64 outputs) at sizes that are and are not whole
+    tiles (208 + 64 columns: 4.25 tiles; 22 + 64: rows that take no
+    16-byte stores), on random and 0/255 checkerboard planes (the 6-tap
+    sums' extremes)."""
     rng = np.random.RandomState(W)
-    Y, U, V = (torch.as_tensor(rng.randint(0, 256, s), dtype=torch.int32,
-                               device=cuda)
+
+    def plane(h, w):
+        if content == "random":
+            return rng.randint(0, 256, (h, w))
+        return (np.indices((h, w)).sum(0) % 2) * 255
+
+    Y, U, V = (torch.as_tensor(plane(*s), dtype=torch.int32, device=cuda)
                for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2)))
     before = K2.ref_bank.launches
     got = K2.ref_bank(Y, U, V)
     assert K2.ref_bank.launches == before + 1
     for g, w in zip(got, K2.ref_bank_plain(Y, U, V)):
+        assert torch.equal(g, w)
+    # a plane at an offset that is not 16-byte aligned takes the
+    # sample-a-thread staging
+    Y2 = torch.empty(H * W + 1, dtype=torch.int32, device=cuda)[1:].view(H, W)
+    Y2.copy_(Y)
+    for g, w in zip(K2.ref_bank(Y2, U, V), K2.ref_bank_plain(Y, U, V)):
         assert torch.equal(g, w)
 
 
@@ -290,9 +306,13 @@ def test_p_wrappers_reject_bad_input(cuda):
         K5.inter_luma_tq(pred, orig[:-1], qp, lam)
     with pytest.raises(ValueError):
         K5.inter_chroma_tq(*calls["inter_chroma_tq"][:2], 60, lam)
-    nz4, *rest = calls["strengths"]
-    with pytest.raises(ValueError):
-        K6.strengths(nz4.to(torch.int32), *rest)
+    a = calls["strengths"]
+    with pytest.raises(ValueError):  # levels as bool
+        K6.strengths(*a[:2], a[2] != 0, *a[3:])
+    with pytest.raises(ValueError):  # mvs of another picture
+        K6.strengths(*a[:5], a[5][:-1], *a[6:])
+    with pytest.raises(ValueError):  # one field on the host
+        K6.strengths(*a[:3], a[3].cpu(), *a[4:])
     y, u, v, bsv, bsh, qp, qpc = calls["deblock"]
     with pytest.raises(ValueError):
         K6.deblock(y, u, v.cpu(), bsv, bsh, qp, qpc)
@@ -702,8 +722,8 @@ def test_ippp_encoder_on_card_matches_cpu(cuda, wp):
 
 
 # ---------------------------------------------------------------------------
-# B picture kernels (K7, mc_luma_win, mc_chroma_b, strengths_b, and the
-# K3-K6 entries B pictures share) on the real tensors of B pictures
+# B picture kernels (K7, mc_luma_win, mc_chroma_b, and the K3-K6 entries
+# B pictures share) on the real tensors of B pictures
 # ---------------------------------------------------------------------------
 
 def _ipb_cfg(W, H, qp, hier=False):
@@ -785,14 +805,40 @@ def test_b_kernels_with_far_motion_match_plain(cuda):
                                 far(m1y), u0, u1))
 
 
-@pytest.mark.parametrize("H4,W4", [(72, 88), (180, 320)])
-def test_strengths_b_every_branch_matches_plain(cuda, H4, W4):
-    """strengths_b on built inputs that take every branch of the pairing
-    rule (crossed and same-ref pairs, which a real IPB stream never
-    has), at CIF and 1280x720."""
-    args = strengths_b_inputs(H4, W4, seed=H4 + W4, device=cuda)
-    assert min(strengths_b_branches(args).values()) > 0
-    _hold(rd_b.default_kernels(), "strengths_b", args)
+def _legacy_strengths(n_my, n_mx, seed, dev):
+    """Legacy-layout fields: 4x4 levels in raster (4 n_my, 4 n_mx, 4, 4),
+    per-MB mvs within +-6 of each other."""
+    rs = np.random.RandomState(seed)
+    lev = np.where(rs.rand(4 * n_my, 4 * n_mx, 4, 4) < 0.03,
+                   rs.randint(-2, 3, (4 * n_my, 4 * n_mx, 4, 4)), 0)
+    mv = [torch.as_tensor(rs.randint(-6, 7, n_my * n_mx), dtype=torch.int32,
+                          device=dev) for _ in range(2)]
+    return (n_my, n_mx, torch.as_tensor(lev, dtype=torch.int32, device=dev),
+            None, None, *mv)
+
+
+@pytest.mark.parametrize("layout", ["b", "p", "p_t8", "legacy"])
+@pytest.mark.parametrize("n_my,n_mx", [(18, 22), (45, 80)],
+                         ids=["cif", "720p"])
+def test_strengths_every_branch_matches_plain(cuda, n_my, n_mx, layout):
+    """The one strengths kernel in the B, P (4x4 and 8x8 transform) and
+    legacy layouts, on built inputs that take every branch of its rule
+    (crossed and same-ref pairs, which a real IPB stream never has; the
+    8x8 transform's odd edges), at CIF and 1280x720."""
+    if layout == "legacy":
+        args = _legacy_strengths(n_my, n_mx, n_my + n_mx, cuda)
+    else:
+        args = strengths_inputs(n_my, n_mx, n_my + n_mx, cuda,
+                                lists=2 if layout == "b" else 1,
+                                t8=layout == "p_t8")
+        n = branches(args)
+        assert min(v for k, v in n.items() if layout == "p_t8"
+                   or k != "t8_odd") > 0, n
+    before = K6.strengths.launches
+    got = K6.strengths(*args)
+    assert K6.strengths.launches == before + 1
+    for g, w in zip(got, K6.strengths_plain(*args)):
+        assert g.is_contiguous() and torch.equal(g, w)
 
 
 def test_b_wrappers_reject_bad_input(cuda):
@@ -810,9 +856,11 @@ def test_b_wrappers_reject_bad_input(cuda):
     c0, c1, idx0, *rest = first["mc_chroma_b"]
     with pytest.raises(ValueError):
         K4.mc_chroma_b(c0, c1, idx0[:-1], *(r[:-1] for r in rest))
-    args = first["strengths_b"]
-    with pytest.raises(ValueError):
-        K6.strengths_b(args[0].to(torch.int32), *args[1:])
+    a = first["strengths"]
+    with pytest.raises(ValueError):  # list 1 without its flags
+        K6.strengths(*a[:13], None, a[14])
+    with pytest.raises(ValueError):  # list flags as int32
+        K6.strengths(*a[:10], a[10].to(torch.int32), *a[11:])
 
 
 @pytest.mark.parametrize("hier", [False, True], ids=["ipb", "hier"])

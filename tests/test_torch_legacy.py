@@ -250,10 +250,19 @@ def recorded_strengths():
 
 @pytest.mark.parametrize("which", ["recorded", "built"])
 def test_strengths_device_p(which):
+    """The reference's legacy strengths against the port's one strengths
+    function on the legacy glue's fields: 4x4 levels in raster (4 n_my,
+    4 n_mx, 4, 4), the recorded picture's, or for the built one a level 1
+    in each block it flags; per-MB mvs."""
     args = recorded_strengths()[0] if which == "recorded" else (
         _built_strengths(3))
     want = JF.strengths_device_p(*map(jnp.asarray, args))
-    got = TF.strengths_device_p(*_t(args))
+    if which == "recorded":
+        coef = ref_core("seeded", 28)[0][2].reshape(H // 4, W // 4, 4, 4)
+    else:
+        coef = np.zeros((H // 4, W // 4, 4, 4), np.int32)
+        coef[..., 0, 0] = args[0]
+    got = TF.strengths_device_p(*_t((coef, *args[1:])))
     for a, b in zip(want, got):
         _eq(a, b, "bS")
     assert set(np.unique(_np(want[0]))) <= {0, 1, 2}

@@ -21,6 +21,8 @@ from h264_tpu.ops import transforms as JTR
 from h264_tpu.ops.exact import chroma_qp
 from h264_tpu_torch.encoder import rd as TRD
 from h264_tpu_torch.encoder import rd_p as TP
+from h264_tpu_torch.encoder import strengths as TS
+from h264_tpu_torch.tools.strengths_cases import levels_of, per_block
 
 QPS = [0, 28, 51]
 
@@ -177,19 +179,26 @@ def test_mc_chroma_unit(rng):
 
 @pytest.mark.parametrize("qp", QPS)
 def test_strengths_and_deblock(rng, qp):
-    """strengths_full and deblock_device_full at 64x48; the port filters
-    anti-diagonal by anti-diagonal, the reference in raster order."""
+    """strengths_full and deblock_device_full at 64x48; the port's one
+    strengths function takes the reference's planes in rd_p's layouts
+    (4x4 levels and per-block fields per MB, intra per MB); the port
+    filters anti-diagonal by anti-diagonal, the reference in raster
+    order."""
     H, W = 48, 64
     H4, W4 = H // 4, W // 4
     nz4 = rng.rand(H4, W4) < 0.3
     mvx = rng.randint(-6, 7, (H4, W4)).astype(np.int32)
     mvy = rng.randint(-6, 7, (H4, W4)).astype(np.int32)
     ref = rng.randint(0, 2, (H4, W4)).astype(np.int32)
-    intra = np.repeat(np.repeat(rng.rand(H // 16, W // 16) < 0.3, 4, 0), 4, 1)
+    intra_mb = rng.rand(H // 16, W // 16) < 0.3
+    intra = np.repeat(np.repeat(intra_mb, 4, 0), 4, 1)
     wv, wh = jax.jit(JRD.strengths_full)(*map(jnp.asarray,
                                               (nz4, mvx, mvy, ref, intra)))
-    bv, bh = TP.strengths_plain(_t(nz4, torch.bool), _t(mvx), _t(mvy),
-                                _t(ref), _t(intra, torch.bool))
+    n_my, n_mx = H // 16, W // 16
+    bv, bh = TS.strengths_plain(
+        n_my, n_mx, _t(levels_of(nz4, n_my, n_mx)),
+        _t(intra_mb.reshape(-1), torch.bool),
+        *(_t(per_block(a, n_my, n_mx)) for a in (ref, mvx, mvy)))
     _eq(bv, wv, "BSV")
     _eq(bh, wh, "BSH")
     # blocky content: flat 4x4 blocks a few levels apart, plus noise

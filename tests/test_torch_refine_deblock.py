@@ -26,6 +26,8 @@ from h264_tpu.encoder import rd as JRD
 from h264_tpu.ops.exact import chroma_qp
 from h264_tpu_torch.encoder import rd as TRD
 from h264_tpu_torch.encoder import rd_p as TP
+from h264_tpu_torch.encoder import strengths as TS
+from h264_tpu_torch.tools.strengths_cases import levels_of, per_block
 
 H, W = 48, 64
 N_MY, N_MX = H // 16, W // 16
@@ -45,9 +47,11 @@ def _deblock_case(qp: int):
     mvx = rng.randint(-6, 7, (H4, W4)).astype(np.int32)
     mvy = rng.randint(-6, 7, (H4, W4)).astype(np.int32)
     ref = rng.randint(0, 2, (H4, W4)).astype(np.int32)
-    intra = np.repeat(np.repeat(rng.rand(N_MY, N_MX) < 0.3, 4, 0), 4, 1)
-    bv, bh = TP.strengths_plain(_t(nz4, torch.bool), _t(mvx), _t(mvy),
-                                _t(ref), _t(intra, torch.bool))
+    intra = rng.rand(N_MY, N_MX) < 0.3
+    bv, bh = TS.strengths_plain(
+        N_MY, N_MX, _t(levels_of(nz4, N_MY, N_MX)),
+        _t(intra.reshape(-1), torch.bool),
+        *(_t(per_block(a, N_MY, N_MX)) for a in (ref, mvx, mvy)))
     base = np.repeat(np.repeat(rng.randint(100, 120, (H4, W4)), 4, 0), 4, 1)
     y = (base + rng.randint(-2, 3, (H, W))).astype(np.int32)
     u, v = (np.repeat(np.repeat(rng.randint(120, 130, (H4, W4)), 2, 0), 2,
