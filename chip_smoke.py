@@ -15,9 +15,10 @@
    reference frames and search range 28; times kernel and plain version
    per P picture at both sizes (QP 28, WP on), the K3 entries also beside
    their library route (``coarse_search`` by ``torch.cdist(p=1)`` on the
-   unfolded decimated windows, ``ssd_grid8`` and ``ssd_grid4`` by a
-   grouped ``conv2d`` in float32 with TF32 off and box-sum energies, each
-   held equal to the kernel); holds every entry of the
+   unfolded decimated windows, ``ssd_grid8`` by a grouped ``conv2d`` in
+   float32 with TF32 off and box-sum energies, ``sub8_search`` by the same
+   grids of its quadrants, then torch's pricing and argmins, each held
+   equal to the kernel); holds every entry of the
    tile-row path (``rd_rows``: the P entries but the coarse search, per
    row slab) against its plain version on the real inputs of P pictures
    in 3 rows (1 I + 2 P, CIF and 1280x720, QP 28, WP off, 5 reference
@@ -247,6 +248,10 @@ DP4A_MACS = 4
 # recon 4; SSD 2: difference, multiply-add); I4 adds its 3-tap prediction
 OPS_SATD, OPS_TQ = 7, 29
 OPS_I4 = OPS_TQ + 3
+# i16_candidate's Hadamard costs in 16-bit pairs: the residual (|d| <=
+# 255), the butterflies' sums (<= 16 x 255) and the absolute sum of a
+# block (<= 16 x 4080 < 2^16) all fit 16 bits, a half each
+OPS_SATD_16 = OPS_SATD / 2
 # per coefficient of csrc/inter_tq.cu: OPS_TQ plus RDOQ-lite's integer part
 # (two dequants, the decremented level, an inverse and a forward transform,
 # the residual's shift, two absolute values, two bit counts, the
@@ -302,6 +307,12 @@ OPS_P16_CAND = 4
 # three terms combined (2); p16_search adds the rate and the first minimum
 # (3)
 OPS_CELL = 2
+# per grid cell of sub8_search beside its 16 __dp4a: the four SSDs'
+# three terms combined (4 x OPS_CELL; the energies shared by the cells,
+# as for ssd_grid8), the four pair sums (4), the rate (the row's and
+# column's bits summed, lam_cost's two products, shift and sum: 5) and
+# eight first-minimum updates (8)
+OPS_SUB8_CELL = 4 * OPS_CELL + 4 + 5 + 8
 # per sample of csrc/decode_inter.cu: a luma prediction per list (two
 # reads' rounded mean), a chroma one per list (bilinear), and per inter
 # sample the weighting and select (5), dequant 2, two transform passes 5
@@ -316,8 +327,8 @@ SOURCES = {
                       "h264_tpu/encoder/rd.py:398"),
     "ssd_grid8": ("h264_tpu_torch/csrc/search_grid.cu",
                   "h264_tpu/encoder/rd.py:435"),
-    "ssd_grid4": ("h264_tpu_torch/csrc/search_grid.cu",
-                  "h264_tpu/encoder/rd.py:640"),
+    "sub8_search": ("h264_tpu_torch/csrc/search_grid.cu",
+                    "h264_tpu/encoder/rd.py:640, :666"),
     "qpel_refine": ("h264_tpu_torch/csrc/qpel.cu",
                     "h264_tpu/encoder/rd.py:551"),
     "mc_luma": ("h264_tpu_torch/csrc/qpel.cu", "h264_tpu/encoder/rd.py:145"),
@@ -513,10 +524,10 @@ def p_work(name: str, args):
         return sum(t.numel() * t.element_size() for t in ts
                    if isinstance(t, torch.Tensor))
 
-    if name in ("coarse_search", "ssd_grid8", "ssd_grid4", "qpel_refine"):
+    if name in ("coarse_search", "ssd_grid8", "sub8_search", "qpel_refine"):
         banks, cur_y = args[0], args[1]
         NR, _, Hp, Wp = banks.shape
-        wp = args[{"coarse_search": 2, "ssd_grid8": 4, "ssd_grid4": 5,
+        wp = args[{"coarse_search": 2, "ssd_grid8": 4, "sub8_search": 7,
                    "qpel_refine": 9}[name]]
         g_plane = NR * Hp * Wp * 4  # the G plane of every reference
         wpo = OPS_WP if wp is not None else 0
@@ -538,13 +549,16 @@ def p_work(name: str, args):
         return (g_plane + nb(cur_y, args[2], args[3]) + NR * n_b8 * D * D * 4,
                 NR * n_b8 * D * D * (64 // DP4A_MACS + OPS_CELL)
                 + min(NR * (n_b8 // 4) * (D + 15) ** 2, NR * Hp * Wp) * wpo)
-    if name == "ssd_grid4":
-        RS = args[6]
+    if name == "sub8_search":
+        # per cell the 64 MACs in __dp4a and OPS_SUB8_CELL; WP once on
+        # each sample the units' windows read (no more than the planes);
+        # out: 8 mvs a unit
+        RS = args[8]
         DS = 2 * RS + 1
         n = args[2].numel()
-        return (g_plane + nb(cur_y, *args[2:5]) + n * 4 * DS * DS * 4,
-                n * (4 * DS * DS * (16 // DP4A_MACS + OPS_CELL)
-                     + (DS + 7) ** 2 * wpo))
+        return (g_plane + nb(cur_y, *args[2:7]) + n * 16 * 4,
+                n * DS * DS * (64 // DP4A_MACS + OPS_SUB8_CELL)
+                + min(n * (DS + 7) ** 2, NR * Hp * Wp) * wpo)
     if name == "qpel_refine":
         h, w = args[11], args[12]
         n = args[2].numel()
@@ -578,7 +592,8 @@ def p_work(name: str, args):
     if name == "i16_candidate":
         cur_y = args[0]
         n_mb = cur_y.numel() // 256
-        return nb(cur_y) + n_mb * 258 * 4, n_mb * 256 * (4 * OPS_SATD + OPS_TQ)
+        return (nb(cur_y) + n_mb * 258 * 4,
+                int(n_mb * 256 * (4 * OPS_SATD_16 + OPS_TQ)))
     if name == "strengths":
         # the fields and levels read once, both bS planes written once
         a = (*args, *(None,) * (15 - len(args)))
@@ -782,12 +797,16 @@ def ssd_grid8_lib(banks, cur_y, cen_x, cen_y, wp, R: int):
                      cur8.repeat(NR, 1, 1)).reshape(NR, -1, D, D)
 
 
-def ssd_grid4_lib(banks, cur_y, u_ref, u_cy, u_cx, wp, RS: int):
-    """K3 ``ssd_grid4``'s function by the library route (windows as the
-    plain version gathers them, then ``grid_conv``); (nsb, 4, DS, DS)."""
+def sub8_search_lib(banks, cur_y, u_ref, u_cy, u_cx, u_px, u_py, wp,
+                    RS: int, lam_me: int):
+    """K3 ``sub8_search``'s function by the library route: the quadrant
+    grids by ``grid_conv`` on the windows the plain version gathers, then
+    the partition sums, the pricing and the first minima in torch;
+    (2, 8, nsb)."""
     import torch
 
     from h264_tpu_torch.encoder import rd_p
+    from h264_tpu_torch.encoder.rd import _lam_cost, _mv_bits
 
     _, _, Hp, Wp = banks.shape
     n_mx = cur_y.shape[1] // 16
@@ -807,8 +826,16 @@ def ssd_grid4_lib(banks, cur_y, u_ref, u_cy, u_cx, wp, RS: int):
     a4 = torch.arange(4, device=dev)
     cb = cur_y[(y0[..., None] + a4)[..., :, None],
                (x0[..., None] + a4)[..., None, :]]
-    return grid_conv(win.reshape(-1, Wn, Wn),
-                     cb.reshape(-1, 4, 4)).reshape(-1, 4, DS, DS)
+    s44 = grid_conv(win.reshape(-1, Wn, Wn),
+                    cb.reshape(-1, 4, 4)).reshape(-1, 4, DS, DS)
+    off = torch.arange(-RS, RS + 1, dtype=torch.int32, device=dev) * 4
+    by = _mv_bits(u_cy[:, None] * 4 + off - u_py[:, None])
+    bx = _mv_bits(u_cx[:, None] * 4 + off - u_px[:, None])
+    parts = torch.stack([s44[:, list(p)].sum(1, dtype=torch.int32)
+                         for p in rd_p.SUB8_PARTS])
+    k = (parts + _lam_cost(lam_me, by[:, :, None] + bx[:, None, :])).reshape(
+        8, u.shape[0], -1).argmin(-1).to(torch.int32)
+    return torch.stack([k % DS - RS + u_cx, k // DS - RS + u_cy])
 
 
 def coarse_search_lib(banks, cur_y, wp, lam_me: int):
@@ -853,7 +880,7 @@ def coarse_search_lib(banks, cur_y, wp, lam_me: int):
 
 # the library route of each K3 entry (library_ms), held equal to the kernel
 K3_LIB = {"coarse_search": coarse_search_lib, "ssd_grid8": ssd_grid8_lib,
-          "ssd_grid4": ssd_grid4_lib}
+          "sub8_search": sub8_search_lib}
 
 
 def digest(x) -> str:

@@ -6,10 +6,14 @@
 //                  (weighted) G plane, priced with lambda_me * mv bits;
 //   ssd_grid8      stage 1, `block_ssd` (rd.py:420-459): per (ref, 8x8
 //                  block) the (2R+1)^2 SSD grid around its MB's centre;
-//   ssd_grid4      `block_ssd4` (rd.py:640-665): per 8x8 unit and 4x4
-//                  quadrant the (2RS+1)^2 grid on the unit's reference.
+//   sub8_search    the sub-8x8 integer search, `block_ssd4` (rd.py:640-662)
+//                  and its pricing and argmins (`sub_argmin`, :666-677):
+//                  per 8x8 unit on its reference the (2RS+1)^2 grids of
+//                  its 4x4 quadrants, summed into the 8x4, 4x8 and 4x4
+//                  partitions, priced against the unit's PMV, and each
+//                  partition's first minimum: 8 integer mvs a unit.
 // Plain versions: h264_tpu_torch/encoder/rd_p.py `coarse_search_plain`,
-// `ssd_grid8_plain`, `ssd_grid4_plain`; wrapper kernels/search_grid.py.
+// `ssd_grid8_plain`, `sub8_search_plain`; wrapper kernels/search_grid.py.
 //
 // Design.  coarse_search: two kernels launched by its one C entry on the
 // caller's stream.  decimate_kernel writes every reference's weighted,
@@ -22,12 +26,10 @@
 // keep).  Nor is the second a programmatic dependent launch (its blocks
 // starting during the decimation, reading their source sums, waiting at
 // griddepcontrol.wait): tried, it was slower at CIF (PERF.md).
-// ssd_grid4: one block per unit; the block loads its search window
-// (weighted on the fly: wp_affine of the G sample) and its source block
-// into shared memory, then every thread computes whole grid cells
-// directly as sum (cur - ref)^2.  ssd_grid8: one block per
-// (ref, MB) over the union of its four blocks' windows, the cross term by
-// __dp4a on packed u8 (ssd8_kernel below).  The reference widens the
+// sub8_search: one kernel, two warps a unit, that prices its grids and
+// reduces them in registers (sub8_kernel below).  ssd_grid8: one block
+// per (ref, MB) over the union of its four blocks' windows, the cross
+// term by __dp4a on packed u8 (ssd8_kernel below).  The reference widens the
 // banks by 64 samples of edge replication first; a read clamped to the
 // unwidened bank is the same sample.  No window of this path starts
 // outside the widened bank, so the reference's dynamic_slice never clamps
@@ -71,13 +73,43 @@
 // CIF, where its window staging and box sums set the time; this simpler
 // one stays until the fused partition reduction (ROADMAP), which removes
 // the output's stores that both forms pay, chooses again.  The output's
-// bytes are the bound.  ssd_grid4 keeps its first version.
+// bytes are the bound.
+//
+// What held the sub-8x8 search back, and what this design does about it.
+// Its first kernel, ssd_grid4, ran a 256-thread block per unit over a
+// window staged as 32-bit samples, each grid cell a thread's 16 terms of
+// two shared-memory loads, a subtract and a multiply-add, and wrote every
+// unit's four quadrant grids, 4 x 21 x 21 int32 (7,056 B a unit: 11.2 MB
+// a CIF P picture, 101.6 MB at 1280x720); the glue then summed them into
+// the eight partition grids, priced each cell and took eight argmins in
+// 45 more device kernels (torch.profiler, PERF.md).  sub8_search keeps the
+// grids in registers and writes 64 B a unit: a window row read from
+// shared memory feeds 16 MACs of each of up to 8 cells by __dp4a, the
+// rate is computed once per cell, and the first minima are packed keys,
+// one IMNMX a partition and cell, reduced by redux.sync.  Its time is its
+// instruction count (PERF.md): about 1,000 SASS instructions a
+// thread at RS 10, the 7 cells' 500 split between the FMA pipe (__dp4a,
+// IMAD) and the ALU pipe, so a warp issues about one a clock.  What moved
+// it was occupancy: 111 registers (two blocks of 4 units an SM) took
+// 0.059 ms at 1280x720, 64 (8 blocks of 2 units) 0.039 (NVIDIA H100 80GB
+// HBM3, 700.00 W); neither blocks of 1, 2 or 4 units nor 16-byte staging
+// loads changed it.  At CIF the grid is one wave, 1.8-1.9x an empty
+// launch of it.
+// Bound.  sub8_search: per grid cell 64 MACs in __dp4a, the four SSDs'
+// terms combined, the four pair sums, one rate and eight first-minimum
+// updates (chip_smoke.py p_work: 41 operations a cell; the energies'
+// running boxes are this design's cost, not the function's), WP once per
+// window sample, the G planes read once: operations bound it, 32.3 M at
+// CIF (0.0019 ms at the 16.73 T/s of an NVIDIA H100 80GB HBM3 at 700 W)
+// and 287 M at 1280x720 (0.017 ms; NR 5, RS 10, WP).
 //
 // ptxas (sm_90a, nvcc -O3): decimate_kernel 32 registers; coarse_kernel
 // 32 registers, 4,928 B static shared memory; ssd8_kernel 147 registers (3 blocks of 128 threads an SM),
 // dynamic shared memory (8 ceil((2R+9)/8) + 7) rows x ceil((2R+20)/16) x
-// 16 B of window + 256 B (6.6 KB at R = 28); ssd4_kernel 32 registers,
-// (2RS+8)^2 + 64 ints (3.4 KB); no stack frames, no spills.
+// 16 B of window + 256 B (6.6 KB at R = 28); sub8_kernel<RS> 64
+// registers at RS 10 (the cap of 8 blocks an SM), 80 / 78 at RS 9 / 8,
+// 56-67 below, 816-2,256 B static shared memory; no stack frames, no
+// spills.
 
 #include <climits>
 
@@ -94,14 +126,6 @@ constexpr int kWinCols = 4 * kStrip + 28;  // staged window row, samples
 
 __device__ __forceinline__ int wp_or(int v, int use_wp, int w, int o) {
   return use_wp ? wp_affine(v, w, o) : v;
-}
-
-// sample (y, x) of the G plane of one reference, bank coordinates clamped,
-// weighted when use_wp
-__device__ __forceinline__ int g_sample(const int* G, int Hp, int Wp, int y,
-                                        int x, int use_wp, int w, int o) {
-  return wp_or(G[(size_t)clampi(y, Hp - 1) * Wp + clampi(x, Wp - 1)], use_wp,
-               w, o);
 }
 
 // Phase A: cell (Y, X) of reference r's decimated plane (Hl x Wl, u16)
@@ -363,42 +387,203 @@ ssd8_kernel(const int* __restrict__ banks, const int* __restrict__ cur_y,
   }
 }
 
-// Per 8x8 unit u (MB-major: u = 4 mb + b8): one window of (2RS+8)^2 at
-// bank coordinates (y0 + cy - RS + PAD, ...) covers the four quadrants'
-// windows, quadrant q's starting at (4 (q >> 1), 4 (q & 1)) inside it.
-__global__ void __launch_bounds__(256)
-ssd4_kernel(const int* __restrict__ banks, const int* __restrict__ cur_y,
+// Per 8x8 unit u (MB-major, u = 4 mb + b8): the unit's (2RS+8)^2 window
+// at bank coordinates (y0 + cy - RS + PAD, x0 + cx - RS + PAD) holds every
+// quadrant's window, quadrant q = (qy, qx) reading it from (4 qy, 4 qx) on.
+// So grid cell (i, j) of all four quadrants is one 8x8 block of the window
+// at (i, j), its quadrant q the source's quadrant q.  Two warps take a
+// unit, two units (an MB's top or bottom half) a block; the kernel is a
+// template on RS, so the strips' shape and every division are constants.
+// The window is staged as packed u8 words (WP clipped to 0..255 by one
+// VIMNMX.RELU), the source block as packed rows in registers.  Thread (s, j) takes grid column j and the strip of SH
+// rows from i0 = s SH on: it reads each of the SH + 7 window rows it needs
+// once (three aligned words, two __byte_perm give its 8 samples from j
+// on) and feeds the left word to quadrant column 0 and the right one to
+// column 1 of every cell whose 8x8 block holds that row, source rows 0-3
+// to quadrant row 0 and 4-7 to row 1 (__dp4a, 4 MACs an instruction).
+// __dp4a of each half row with itself, summed over 4 rows as a running
+// box down the column, gives each quadrant's sum ref^2, and SSD = sum
+// cur^2 + box - 2 cross, exact in int32 (16 * 255^2 < 2^20).  A cell is
+// priced as soon as its 8th row is in: the rate of cell (i, j) is
+// lam_cost(lam_me, by[i] + bx[j]), one per cell for all eight
+// partitions (lam_cost is not additive: its fraction is shifted after the
+// product), and each partition's cost joins its running first minimum as
+// the key cost * 512 + (i * DS + j): the smaller key is the smaller cost
+// and, on a tie, the lower raster index, as the reference's argmin takes
+// it.  The keys stay below 2^31: a partition's SSD is below 32 * 255^2 <
+// 2^21 and its rate below lam_me / 2^16 * 58 < 2^21 for every lam_me in
+// 0 .. 2^31 - 1 and every mv difference below 2^13 quarter-pels (mv_bits
+// is exact below 2^12, common.cuh).  A pair's key is the sum of its two
+// quadrants' keys less the cell's rate-and-index part, one IADD3.  Then
+// the minimum over each warp (redux.sync), over the unit's two warps in
+// shared memory, and 16 ints a unit written: no grid reaches global
+// memory.
+constexpr int kSubUnits = 2;     // units a block: an MB's top or bottom
+constexpr int kSubThreads = 64;  // threads a unit: two warps
+constexpr int kSubWs = 8;        // words a staged row
+constexpr int kParts = 8;        // 8x4 top, bottom; 4x8 left, right; 4x4
+
+// a unit's 64 threads hold floor(64 / DS) strips of sub8_sh(RS) rows
+__host__ __device__ constexpr int sub8_sh(int RS) {
+  return (2 * RS + 1 + kSubThreads / (2 * RS + 1) - 1) /
+         (kSubThreads / (2 * RS + 1));
+}
+
+// 8 blocks an SM (64 registers) for RS 10, the main path's, whose code
+// fits them without spills; 6 (80 registers) for the others, which spill
+// at 64
+template <int RS>
+__global__ void __launch_bounds__(kSubUnits * kSubThreads, RS == 10 ? 8 : 6)
+sub8_kernel(const int* __restrict__ banks, const int* __restrict__ cur_y,
             const int* __restrict__ u_ref, const int* __restrict__ u_cy,
-            const int* __restrict__ u_cx, const int* __restrict__ wp_w,
+            const int* __restrict__ u_cx, const int* __restrict__ u_px,
+            const int* __restrict__ u_py, const int* __restrict__ wp_w,
             const int* __restrict__ wp_o, int use_wp, int Hp, int Wp, int W,
-            int RS, int* out) {
-  extern __shared__ int sm[];
-  const int Wu = 2 * RS + 8, DS = 2 * RS + 1;
-  int* win = sm;
-  int* cur = sm + Wu * Wu;
-  const int tid = threadIdx.x, u = blockIdx.x;
-  const int n_mx = W / 16, mb = u >> 2, b8 = u & 3;
-  const int y0 = 16 * (mb / n_mx) + 8 * (b8 >> 1);
-  const int x0 = 16 * (mb % n_mx) + 8 * (b8 & 1);
-  const int r = u_ref[u];
+            int n_units, int lam_me, int* __restrict__ out) {
+  constexpr int DS = 2 * RS + 1, SH = sub8_sh(RS);
+  constexpr int NS = (DS + SH - 1) / SH;  // strips with cells in the grid
+  constexpr int kRows = NS * SH + 7;      // window rows the strips read
+  __shared__ unsigned win[kSubUnits][kRows * kSubWs];
+  __shared__ unsigned cw[kSubUnits][16];
+  __shared__ unsigned csq[kSubUnits][4];
+  __shared__ int by[kSubUnits][DS];
+  __shared__ int red[kSubUnits][2][kParts];
+  // grid (4 / kSubUnits x n_mx, n_my): block (x, y) holds MB (y, x /
+  // (4 / kSubUnits)) and its units b8 = (x % (4 / kSubUnits)) kSubUnits + su
+  constexpr int kPer = 4 / kSubUnits;
+  const int tid = threadIdx.x, su = tid / kSubThreads;
+  const int t = tid - su * kSubThreads;
+  const int mx = blockIdx.x / kPer, my = blockIdx.y;
+  const int b8 = (blockIdx.x % kPer) * kSubUnits + su;
+  const int u = 4 * (my * (W / 16) + mx) + b8;
+  const int y0 = 16 * my + 8 * (b8 >> 1), x0 = 16 * mx + 8 * (b8 & 1);
+  const int r = u_ref[u], cy = u_cy[u], cx = u_cx[u];
   const int* G = banks + (size_t)r * 4 * Hp * Wp;
+  // without WP, w 32 and o 0 leave every sample of 0..255 as it is
   const int w = use_wp ? wp_w[r] : 32, o = use_wp ? wp_o[r] : 0;
-  const int wy0 = y0 + u_cy[u] - RS + kPad, wx0 = x0 + u_cx[u] - RS + kPad;
-  for (int k = tid; k < Wu * Wu; k += blockDim.x)
-    win[k] = g_sample(G, Hp, Wp, wy0 + k / Wu, wx0 + k % Wu, use_wp, w, o);
-  if (tid < 64) cur[tid] = cur_y[(size_t)(y0 + (tid >> 3)) * W + x0 + (tid & 7)];
+  const int wy0 = y0 + cy - RS + kPad, wx0 = x0 + cx - RS + kPad;
+  // word (row, xw) packs samples 4 xw .. 4 xw + 3 of the window's row.
+  // Thread t stages word xw = t % 8 of rows t / 8, + 8, ...: the same four
+  // clamped columns each time.  Samples past the (2RS+8)^2 window are
+  // staged too (clamped reads of the bank): no cell of the grid reads
+  // them.
+  unsigned* wu = win[su];
+  {
+    const int xw = t % kSubWs;
+    const int* gc[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) gc[b] = G + clampi(wx0 + 4 * xw + b, Wp - 1);
+#pragma unroll
+    for (int m = 0; m * (kSubThreads / kSubWs) < kRows; ++m) {
+      const int row = t / kSubWs + m * (kSubThreads / kSubWs);
+      if (row >= kRows) break;
+      const int off = clampi(wy0 + row, Hp - 1) * Wp;
+      int v[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)  // wp_affine, clipped by one VIMNMX
+        v[b] = __vimin_s32_relu(((__ldg(gc[b] + off) * w + 16) >> 5) + o, 255);
+      wu[row * kSubWs + xw] = __byte_perm(__byte_perm(v[0], v[1], 0x0040),
+                                          __byte_perm(v[2], v[3], 0x0040),
+                                          0x5410);
+    }
+  }
+  if (t < 32) {
+    // the source's half rows (lane 2 y + h), and each quadrant's sum of
+    // squares over its 4 half rows (lanes 2 y + h, y = 4 qy .. 4 qy + 3)
+    unsigned c = 0;
+    if (t < 16) {
+      const int* src = cur_y + (size_t)(y0 + (t >> 1)) * W + x0 + 4 * (t & 1);
+      c = (unsigned)src[0] | (unsigned)src[1] << 8 |
+          (unsigned)src[2] << 16 | (unsigned)src[3] << 24;
+      cw[su][t] = c;
+    }
+    unsigned q = __dp4a(c, c, 0u);
+    q += __shfl_xor_sync(0xffffffffu, q, 2);
+    q += __shfl_xor_sync(0xffffffffu, q, 4);
+    if (t < 16 && (t & 6) == 0) csq[su][(t >> 3 << 1) | (t & 1)] = q;
+  }
+  if (t < DS) by[su][t] = mv_bits(4 * (cy + t - RS) - u_py[u]);
   __syncthreads();
-  int* dst = out + (size_t)u * 4 * DS * DS;
-  for (int k = tid; k < 4 * DS * DS; k += blockDim.x) {
-    int q = k / (DS * DS), cell = k % (DS * DS);
-    int oy = 4 * (q >> 1), ox = 4 * (q & 1);
-    int i = cell / DS, j = cell % DS, acc = 0;
-    for (int y = 0; y < 4; ++y)
-      for (int x = 0; x < 4; ++x) {
-        int d = cur[8 * (oy + y) + ox + x] - win[(oy + i + y) * Wu + ox + j + x];
-        acc += d * d;
+  int best[kParts];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) best[p] = INT_MAX;
+  const int s = t / DS, j = t - s * DS;
+  if (s < NS) {
+    unsigned c[8][2];
+#pragma unroll
+    for (int y = 0; y < 8; ++y) {
+      c[y][0] = cw[su][2 * y];
+      c[y][1] = cw[su][2 * y + 1];
+    }
+    const unsigned cs[4] = {csq[su][0], csq[su][1], csq[su][2], csq[su][3]};
+    const int i0 = s * SH;
+    const int bx = mv_bits(4 * (cx + j - RS) - u_px[u]);
+    const unsigned* wr = wu + i0 * kSubWs + (j >> 2);
+    const unsigned sel = 0x3210u + 0x1111u * (unsigned)(j & 3);
+    // acc[a][q]: cell i0 + a, quadrant q = 2 qy + qx; sq[h][row]: a half
+    // row's sum of squares; box[h][row]: its sum over rows row - 3 .. row
+    unsigned acc[SH][4], sq[2][SH + 7], box[2][SH + 7];
+#pragma unroll
+    for (int a = 0; a < SH; ++a)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[a][q] = 0u;
+#pragma unroll
+    for (int tr = 0; tr < SH + 7; ++tr) {
+      const unsigned* wt = wr + tr * kSubWs;
+      const unsigned a0 = wt[0], a1 = wt[1], a2 = wt[2];
+      const unsigned w0 = __byte_perm(a0, a1, sel);
+      const unsigned w1 = __byte_perm(a1, a2, sel);
+      sq[0][tr] = __dp4a(w0, w0, 0u);
+      sq[1][tr] = __dp4a(w1, w1, 0u);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (tr == 3)
+          box[h][3] = sq[h][0] + sq[h][1] + sq[h][2] + sq[h][3];
+        else if (tr > 3)
+          box[h][tr] = box[h][tr - 1] + sq[h][tr] - sq[h][tr - 4];
       }
-    dst[k] = acc;
+#pragma unroll
+      for (int a = 0; a < SH; ++a) {
+        const int y = tr - a;
+        if (y < 0 || y > 7) continue;
+        const int q = 2 * (y >> 2);
+        acc[a][q] = __dp4a(w0, c[y][0], acc[a][q]);
+        acc[a][q + 1] = __dp4a(w1, c[y][1], acc[a][q + 1]);
+      }
+      if (tr < 7) continue;
+      // cell i = i0 + a, a = tr - 7, is complete
+      const int a = tr - 7, i = i0 + a;
+      if (NS * SH > DS && i >= DS) continue;
+      const unsigned base =
+          (unsigned)lam_cost(lam_me, by[su][i] + bx) * 512u +
+          (unsigned)(i * DS + j);
+      unsigned kq[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned e = cs[q] + box[q & 1][a + 3 + 4 * (q >> 1)] -
+                           2u * acc[a][q];
+        kq[q] = e * 512u + base;
+      }
+      const unsigned key[kParts] = {
+          kq[0] + kq[1] - base, kq[2] + kq[3] - base, kq[0] + kq[2] - base,
+          kq[1] + kq[3] - base, kq[0], kq[1], kq[2], kq[3]};
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) best[p] = min(best[p], (int)key[p]);
+    }
+  }
+  // the unit's first minima: each warp's, then its two warps'
+  int* rw = red[su][t >> 5];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    const int m = __reduce_min_sync(0xffffffffu, best[p]);
+    if ((tid & 31) == 0) rw[p] = m;
+  }
+  __syncthreads();
+  if (t < kParts) {
+    const int k = min(red[su][0][t], red[su][1][t]) & 511;
+    const int i = k / DS;
+    out[t * n_units + u] = k - i * DS - RS + cx;
+    out[(kParts + t) * n_units + u] = i - RS + cy;
   }
 }
 
@@ -436,13 +621,37 @@ extern "C" int ssd_grid8(const int* banks, const int* cur_y, const int* cen_x,
   return (int)cudaGetLastError();
 }
 
-extern "C" int ssd_grid4(const int* banks, const int* cur_y, const int* u_ref,
-                         const int* u_cy, const int* u_cx, const int* wp_w,
-                         const int* wp_o, int use_wp, int n_units, int Hp,
-                         int Wp, int W, int RS, int* out, void* stream) {
-  int Wu = 2 * RS + 8;
-  size_t smem = (size_t)(Wu * Wu + 64) * sizeof(int);
-  ssd4_kernel<<<n_units, 256, smem, (cudaStream_t)stream>>>(
-      banks, cur_y, u_ref, u_cy, u_cx, wp_w, wp_o, use_wp, Hp, Wp, W, RS, out);
+extern "C" int sub8_search(const int* banks, const int* cur_y,
+                           const int* u_ref, const int* u_cy, const int* u_cx,
+                           const int* u_px, const int* u_py, const int* wp_w,
+                           const int* wp_o, int use_wp, int Hp, int Wp, int W,
+                           int n_units, int RS, int lam_me, int* out,
+                           void* stream) {
+  const dim3 grid(4 / kSubUnits * (W / 16), n_units / 4 / (W / 16));
+  const dim3 block(kSubUnits * kSubThreads);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define SUB8_CASE(K)                                                       \
+  case K:                                                                  \
+    sub8_kernel<K><<<grid, block, 0, st>>>(banks, cur_y, u_ref, u_cy,      \
+                                           u_cx, u_px, u_py, wp_w, wp_o,   \
+                                           use_wp, Hp, Wp, W, n_units,     \
+                                           lam_me, out);                   \
+    break;
+  switch (RS) {
+    SUB8_CASE(0)
+    SUB8_CASE(1)
+    SUB8_CASE(2)
+    SUB8_CASE(3)
+    SUB8_CASE(4)
+    SUB8_CASE(5)
+    SUB8_CASE(6)
+    SUB8_CASE(7)
+    SUB8_CASE(8)
+    SUB8_CASE(9)
+    SUB8_CASE(10)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SUB8_CASE
   return (int)cudaGetLastError();
 }

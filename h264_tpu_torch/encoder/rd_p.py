@@ -187,6 +187,31 @@ def ssd_grid4_plain(banks, cur_y, u_ref, u_cy, u_cx, wp, RS: int):
     return acc
 
 
+# the sub-8x8 partitions in refine_sub's order, each as the quadrants it
+# sums: 8x4 top and bottom, 4x8 left and right, then the four 4x4
+SUB8_PARTS = ((0, 1), (2, 3), (0, 2), (1, 3), (0,), (1,), (2,), (3,))
+
+
+def sub8_search_plain(banks, cur_y, u_ref, u_cy, u_cx, u_px, u_py, wp,
+                      RS: int, lam_me: int):
+    """The sub-8x8 integer search (rd.py:640-677): per 8x8 unit u the
+    quadrant grids of ``ssd_grid4_plain``, summed into the eight partition
+    grids of ``SUB8_PARTS``, each cell priced with lambda_me times the mv
+    rate of cell (i, j) against the unit's PMV (one ``_lam_cost`` of the
+    summed bits), and the first minimum over the raster index i * DS + j.
+    Returns (2, 8, nsb) int32: the winners' full-pel mvx, then mvy."""
+    s44 = ssd_grid4_plain(banks, cur_y, u_ref, u_cy, u_cx, wp, RS)
+    nsb, DS = s44.shape[0], 2 * RS + 1
+    dgrid = torch.arange(-RS, RS + 1, dtype=I32, device=banks.device) * 4
+    u_bx = _mv_bits(u_cx[:, None] * 4 + dgrid - u_px[:, None])
+    u_by = _mv_bits(u_cy[:, None] * 4 + dgrid - u_py[:, None])
+    rate = _lam_cost(lam_me, u_by[:, :, None] + u_bx[:, None, :])
+    parts = torch.stack([s44[:, list(p)].sum(1, dtype=I32)
+                         for p in SUB8_PARTS])
+    k = (parts + rate).reshape(8, nsb, -1).argmin(-1).to(I32)
+    return torch.stack([k % DS - RS + u_cx, k // DS - RS + u_cy])
+
+
 def _qpel(banks, ref, mvx, mvy, y0, x0, h: int, w: int):
     """Quarter-pel luma samples: ref/y0/x0 (n,), mvx/mvy (n, K) ->
     (n, K, h, w), the rounded mean of the two bank samples `_QTAB` picks
@@ -514,7 +539,7 @@ class PKernels:
 
     coarse_search: object
     ssd_grid8: object
-    ssd_grid4: object
+    sub8_search: object
     qpel_refine: object
     mc_luma: object
     mc_chroma: object
@@ -532,7 +557,7 @@ class PKernels:
 
 
 PLAIN = PKernels(
-    coarse_search_plain, ssd_grid8_plain, ssd_grid4_plain, qpel_refine_plain,
+    coarse_search_plain, ssd_grid8_plain, sub8_search_plain, qpel_refine_plain,
     mc_luma_plain, mc_chroma_plain, inter_luma_tq_plain,
     inter_chroma_tq_plain, i16_candidate_plain, strengths_plain,
     deblock_plain, RD._intra_scan, RD.ref_entry_plain, t8_decide_plain)
@@ -550,7 +575,7 @@ def default_kernels() -> PKernels:
     from ..kernels import t8 as K9
 
     return PKernels(
-        K3.coarse_search, K3.ssd_grid8, K3.ssd_grid4, K4.qpel_refine,
+        K3.coarse_search, K3.ssd_grid8, K3.sub8_search, K4.qpel_refine,
         K4.mc_luma, K4.mc_chroma, K5.inter_luma_tq, K5.inter_chroma_tq,
         K5.i16_candidate, K6.strengths, K6.deblock, K1.intra_commit_scan,
         K2.ref_bank, K9.t8_decide)
@@ -728,40 +753,29 @@ def p_sub8(f: PFrame) -> None:
     f.u_px = f.pmvx.reshape(-1)[u_mb]
     f.u_py = f.pmvy.reshape(-1)[u_mb]
     RS = min(f.R, 10)
-    DS = 2 * RS + 1
     # sub-block centres stay RS + 5 inside the (widened) padding
     CMAX = (PADW if f.use_cme else PAD) - RS - 5
     u_cy = (f.u_qy >> 2).clamp(-CMAX, CMAX)
     u_cx = (f.u_qx >> 2).clamp(-CMAX, CMAX)
-    s44 = f.k.ssd_grid4(f.banks, f.cur_y, f.u_ref, u_cy, u_cx, f.wp, RS)
-    dgrid = torch.arange(-RS, RS + 1, dtype=I32, device=dev) * 4
-    u_bx = _mv_bits(u_cx[:, None] * 4 + dgrid - f.u_px[:, None])
-    u_by = _mv_bits(u_cy[:, None] * 4 + dgrid - f.u_py[:, None])
-    u_mvb = u_by[:, :, None] + u_bx[:, None, :]
+    # each unit's eight integer winners, (2, 8, nsb): 8x4, 4x8, 4x4
+    mv = f.k.sub8_search(f.banks, f.cur_y, f.u_ref, u_cy, u_cx, f.u_px,
+                         f.u_py, f.wp, RS, f.lam_me)
 
-    def sub_argmin(grid):
-        k = (grid + _lam_cost(f.lam_me, u_mvb)).reshape(nsb, -1).argmin(-1)
-        k = k.to(I32)
-        return k % DS - RS + u_cx, k // DS - RS + u_cy
-
-    def refine_sub(grids, offs, h, w):
-        """Every unit's sub-blocks of one shape in one launch."""
-        n = len(grids)
-        ims = [sub_argmin(g) for g in grids]
+    def refine_sub(p0, offs, h, w):
+        """Every unit's sub-blocks of one shape (partitions p0 ...) in
+        one launch."""
+        n = len(offs)
         out = f.k.qpel_refine(
-            f.banks, f.cur_y, f.u_ref.repeat(n),
-            torch.cat([m[0] for m in ims]), torch.cat([m[1] for m in ims]),
+            f.banks, f.cur_y, f.u_ref.repeat(n), mv[0, p0:p0 + n].reshape(-1),
+            mv[1, p0:p0 + n].reshape(-1),
             torch.cat([u_y0 + oy for oy, _ in offs]),
             torch.cat([u_x0 + ox for _, ox in offs]),
             f.u_px.repeat(n), f.u_py.repeat(n), f.wp, f.lam_satd, h, w)
         return [tuple(t.chunk(n)[i] for t in out) for i in range(n)]
 
-    q84 = refine_sub([s44[:, 0] + s44[:, 1], s44[:, 2] + s44[:, 3]],
-                     [(0, 0), (4, 0)], 4, 8)
-    q48 = refine_sub([s44[:, 0] + s44[:, 2], s44[:, 1] + s44[:, 3]],
-                     [(0, 0), (0, 4)], 8, 4)
-    q44 = refine_sub([s44[:, q] for q in range(4)],
-                     [((q >> 1) * 4, (q & 1) * 4) for q in range(4)], 4, 4)
+    q84 = refine_sub(0, [(0, 0), (4, 0)], 4, 8)
+    q48 = refine_sub(2, [(0, 0), (0, 4)], 8, 4)
+    q44 = refine_sub(4, [((q >> 1) * 4, (q & 1) * 4) for q in range(4)], 4, 4)
     split_cost = torch.stack([
         q84[0][3] + q84[1][3] + _lam_cost(f.lam_satd, 3),
         q48[0][3] + q48[1][3] + _lam_cost(f.lam_satd, 3),
@@ -1111,7 +1125,7 @@ def rd_p_pipeline(cur_y, cur_u, cur_v, banks, cpads, H: int, W: int, R: int,
     return p_outputs(f)
 
 
-P_ENTRIES = ("coarse_search", "ssd_grid8", "ssd_grid4", "qpel_refine",
+P_ENTRIES = ("coarse_search", "ssd_grid8", "sub8_search", "qpel_refine",
              "mc_luma", "mc_chroma", "inter_luma_tq", "inter_chroma_tq",
              "i16_candidate", "strengths", "deblock", "t8_decide")
 

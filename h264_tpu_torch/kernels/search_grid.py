@@ -1,10 +1,11 @@
-"""K3 wrappers: the dense block-matching grids of a P picture.
+"""K3 wrappers: the dense block-matching searches of a P picture.
 
 Kernel: ``csrc/search_grid.cu`` (replaces the reference's
 ``encoder/rd.py:361-459`` coarse search and ``block_ssd``, and
-``:640-665`` ``block_ssd4``).  Plain versions: ``encoder.rd_p``
-``coarse_search_plain``, ``ssd_grid8_plain``, ``ssd_grid4_plain``.  CPU
-tensors run the plain version; CUDA tensors launch the kernel, or raise.
+``:640-677`` ``block_ssd4`` with the sub-8x8 pricing and argmins).  Plain
+versions: ``encoder.rd_p`` ``coarse_search_plain``, ``ssd_grid8_plain``,
+``sub8_search_plain``.  CPU tensors run the plain version; CUDA tensors
+launch the kernel, or raise.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from ..encoder import rd_p
 
 coarse_search_plain = rd_p.coarse_search_plain
 ssd_grid8_plain = rd_p.ssd_grid8_plain
-ssd_grid4_plain = rd_p.ssd_grid4_plain
+sub8_search_plain = rd_p.sub8_search_plain
 
 _I32 = torch.int32
 
@@ -84,29 +85,34 @@ def ssd_grid8(banks, cur_y, cen_x, cen_y, wp, R: int):
     return out
 
 
-def ssd_grid4(banks, cur_y, u_ref, u_cy, u_cx, wp, RS: int):
-    """(n_units, 4, 2RS+1, 2RS+1) int32 grids of every unit's 4x4
-    quadrants on the unit's reference."""
+def sub8_search(banks, cur_y, u_ref, u_cy, u_cx, u_px, u_py, wp, RS: int,
+                lam_me: int):
+    """(2, 8, n_units) int32: each unit's integer winners (mvx, then mvy)
+    of its 8x4, 4x8 and 4x4 partitions, searched +-RS around (u_cx, u_cy)
+    on reference u_ref and priced against the PMV (u_px, u_py)."""
     if banks.device.type == "cpu":
-        return ssd_grid4_plain(banks, cur_y, u_ref, u_cy, u_cx, wp, RS)
+        return sub8_search_plain(banks, cur_y, u_ref, u_cy, u_cx, u_px, u_py,
+                                 wp, RS, lam_me)
     NR, Hp, Wp, H, W, (pw, po, use_wp) = _check_common(
-        "ssd_grid4", banks, cur_y, wp)
+        "sub8_search", banks, cur_y, wp)
     n = 4 * (H // 16) * (W // 16)
-    for name, x in (("u_ref", u_ref), ("u_cy", u_cy), ("u_cx", u_cx)):
-        check_tensor("ssd_grid4", name, x, (n,), _I32, banks.device)
+    units = (u_ref, u_cy, u_cx, u_px, u_py)
+    for name, x in zip(("u_ref", "u_cy", "u_cx", "u_px", "u_py"), units):
+        check_tensor("sub8_search", name, x, (n,), _I32, banks.device)
     if not 0 <= RS <= 10:
-        raise ValueError(f"ssd_grid4: RS {RS} outside 0..10")
-    DS = 2 * RS + 1
-    out = torch.empty((n, 4, DS, DS), dtype=_I32, device=banks.device)
-    rc = kernel_fn("search_grid", "ssd_grid4", "ppppppp" + "i" * 6 + "pp")(
-        banks.data_ptr(), cur_y.data_ptr(), u_ref.data_ptr(), u_cy.data_ptr(),
-        u_cx.data_ptr(), pw, po, use_wp, n, Hp, Wp, W, RS, out.data_ptr(),
+        raise ValueError(f"sub8_search: RS {RS} outside 0..10")
+    if not 0 <= lam_me < 2 ** 31:
+        raise ValueError(f"sub8_search: lam_me {lam_me} outside 0..2^31-1")
+    out = torch.empty((2, 8, n), dtype=_I32, device=banks.device)
+    rc = kernel_fn("search_grid", "sub8_search", "p" * 9 + "i" * 7 + "pp")(
+        banks.data_ptr(), cur_y.data_ptr(), *(x.data_ptr() for x in units),
+        pw, po, use_wp, Hp, Wp, W, n, RS, int(lam_me), out.data_ptr(),
         stream_of(banks))
-    check_launch(rc, "ssd_grid4")
-    ssd_grid4.launches += 1
+    check_launch(rc, "sub8_search")
+    sub8_search.launches += 1
     return out
 
 
 coarse_search.launches = 0
 ssd_grid8.launches = 0
-ssd_grid4.launches = 0
+sub8_search.launches = 0

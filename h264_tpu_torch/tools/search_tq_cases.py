@@ -1,6 +1,6 @@
-"""Built inputs of K3 ``coarse_search``, K5 ``inter_luma_tq`` and
-``inter_chroma_tq`` and K7 ``b_direct``, beside the recorded ones of the P
-and B pictures.
+"""Built inputs of K3 ``coarse_search`` and ``sub8_search``, K5
+``inter_luma_tq`` and ``inter_chroma_tq`` and K7 ``b_direct``, beside the
+recorded ones of the P and B pictures.
 
 ``coarse_case(content, W, H, NR, wp, seed)`` returns (banks (NR, 4, H+64,
 W+64), cur_y (H, W), wp or None), int32 CPU tensors:
@@ -17,6 +17,19 @@ W+64), cur_y (H, W), wp or None), int32 CPU tensors:
 
 With ``wp`` the weights and offsets are the extremes -128 / 127 and random
 ones.
+
+``sub8_case(content, W, H, NR, RS, wp, seed)`` returns the inputs of
+``sub8_search`` but ``lam_me``: (banks (NR, 4, H+64, W+64), cur_y (H, W),
+u_ref, u_cy, u_cx, u_px, u_py (4 n_mb,), wp or None, RS), int32 CPU
+tensors.  The units' references are random, their centres random within
++-CMAX (``sub8_cmax``: the P pipeline's clamp with the coarse stage's
+widened bank) and the first four units' at the four corners (+-CMAX,
++-CMAX), so that their windows lie wholly in the clamped margin; the
+PMVs reach +-4 (CMAX + RS) quarter-pels.  Contents (``SUB8_CONTENTS``):
+``random``; ``flat`` (flat banks and source: every SSD of a partition
+ties, so the rate decides, and at lam_me 0 the first cell wins);
+``extreme`` (reference 0 all 0, the others 0/255 at random, the source
+255 but for a 0/255 right half: SSDs up to 16 x 255^2 a quadrant).
 
 ``luma_case(content, NC, n_mb, seed)`` returns (pred (NC, n_mb, 16, 16),
 orig (n_mb, 16, 16)), int32 CPU tensors:
@@ -54,10 +67,12 @@ import torch
 from ..decoder.mv import dist_scale_factor
 from ..encoder import rd as RD
 from ..encoder import rd_b as RB
+from ..encoder import rd_p as RP
 from ..ops import quant as Q
 from ..ops import transforms as TR
 
 COARSE_CONTENTS = ("random", "corners", "flat", "checker")
+SUB8_CONTENTS = ("random", "flat", "extreme")
 LUMA_CONTENTS = ("random", "extreme", "sparse")
 # the list-0 reference POCs of direct_case (the anchor, POC 8, second) and
 # the B picture's POC
@@ -227,3 +242,43 @@ def direct_kinds(args) -> dict:
             "negative": int(((l0x < 0) & ~eq & ~intra).sum()),
             "outside_l0": int(outside(y0, x0, l0y, l0x).sum()),
             "outside_l1": int(outside(y0, x0, l1y, l1x).sum())}
+
+
+def sub8_cmax(RS: int) -> int:
+    """The P pipeline's clamp of the sub-8x8 centres with the coarse
+    stage (rd_p.p_sub8: the widened padding less RS + 5)."""
+    return RP.PADW - RS - 5
+
+
+def sub8_case(content: str, W: int, H: int, NR: int, RS: int, wp: bool,
+              seed: int):
+    rs = np.random.RandomState(seed)
+    Hp, Wp = H + 64, W + 64
+    n = 4 * (H // 16) * (W // 16)
+    if content == "flat":
+        banks = np.full((NR, 4, Hp, Wp), 100)
+        cur = np.full((H, W), 90)
+    elif content == "extreme":
+        banks = rs.randint(0, 2, (NR, 4, Hp, Wp)) * 255
+        banks[0] = 0
+        cur = np.full((H, W), 255)
+        cur[:, W // 2:] = rs.randint(0, 2, (H, W - W // 2)) * 255
+    else:
+        banks = rs.randint(0, 256, (NR, 4, Hp, Wp))
+        cur = rs.randint(0, 256, (H, W))
+    cmax = sub8_cmax(RS)
+    cy, cx = (rs.randint(-cmax, cmax + 1, n) for _ in range(2))
+    k = min(4, n)
+    cy[:k] = np.asarray([-cmax, -cmax, cmax, cmax])[:k]
+    cx[:k] = np.asarray([-cmax, cmax, -cmax, cmax])[:k]
+    py, px = (rs.randint(-4 * (cmax + RS), 4 * (cmax + RS) + 1, n)
+              for _ in range(2))
+    wpt = None
+    if wp:
+        w, o = rs.randint(-128, 128, NR), rs.randint(-128, 128, NR)
+        w[0], o[0] = (127, -128) if content == "extreme" else (40, -7)
+        if NR > 1:
+            w[1], o[1] = -128, 127
+        wpt = (_t(w), _t(o))
+    return (_t(banks), _t(cur), _t(rs.randint(0, NR, n)), _t(cy), _t(cx),
+            _t(px), _t(py), wpt, RS)

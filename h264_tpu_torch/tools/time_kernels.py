@@ -5,7 +5,6 @@ pictures.  ``chip_smoke.py`` times with the same functions.
 
     python -m h264_tpu_torch.tools.time_kernels [--out DIR]
     python h264_tpu_torch/tools/time_kernels.py --root DIR [--out DIR]
-    python -m h264_tpu_torch.tools.time_kernels --trial [--out DIR]
     python -m h264_tpu_torch.tools.time_kernels --ab DIR [--out DIR]
 
 Encodes the bench configuration (IPB, one B picture between anchors, QP
@@ -13,14 +12,14 @@ Encodes the bench configuration (IPB, one B picture between anchors, QP
 frames) at CIF and 1280x720 with every P and B kernel entry recorded, and
 times on the second P and the second B picture's inputs:
 - every ``ONE_CALL`` entry the picture calls (K3 ``coarse_search`` and
-  ``ssd_grid4``, K5 ``inter_luma_tq``, ``inter_chroma_tq`` and
+  ``sub8_search``, K5 ``inter_luma_tq``, ``inter_chroma_tq`` and
   ``i16_candidate``, K7 ``b_direct``, K2 ``ref_bank`` on the picture's
   filtered planes, K6 ``strengths``, K4 ``mc_luma``, ``mc_chroma``,
-  ``mc_luma_win`` and ``mc_chroma_b``), one call: its device time queued
-  behind a spin of the card (the host's launch time excluded), back to
-  back (CUDA events and the host's clock; the median of 5 rounds), and an
-  empty kernel launched on the grid of each of its designs
-  (``empty_launch_ms``: the floor of a launch of that grid);
+  ``mc_luma_win`` and ``mc_chroma_b``), one call: its device time
+  queued behind a spin of the card (the host's launch time excluded),
+  back to back (CUDA events and the host's clock; the median of 5
+  rounds), and an empty kernel launched on the grid of each of its
+  designs (``empty_launch_ms``: the floor of a launch of that grid);
 - each ``qpel_refine`` call (one shape each) on the device, and the
   picture's calls on the device and back to back;
 - the ``deblock`` call, the same two ways;
@@ -33,26 +32,21 @@ Then K6's chain on built inputs: a 16x16 picture, an MB's step along a
 row (1280x16) and down a column (16x1088), CIF and 1280x720 pictures
 beside their chain (``deblock_chain``); and ``torch.profiler`` over one
 ``deblock`` call and over an I + P encode: the device kernels, copies and
-memsets each makes.  With ``--trial``, also K6 built without the fence
-before each release, beside K6 as it is (``trial_no_fence``), and K3
-with strips of 8, 4 and 2 MBs, its decimation alone, an empty launch of
-the decimation's grid and its search alone (``trial_coarse``).
+memsets each makes.
 
 With ``--root`` the package is imported from the checkout DIR, so that
 an earlier version of the kernels is timed by the same script in the
 same call on the same card. With ``--ab DIR`` the package of the
 checkout DIR is imported beside this one (as ``h264_tpu_torch_ab``), and
-on the same recorded pictures both packages' strength step (the deblock
-stage's glue for the strengths and their kernel, the filter left out; on
-P pictures also with the colocated snapshot's planes, which
-``p_outputs`` builds in ``p_colocated`` and earlier versions built in
-``p_deblock``) and, as a control, both ``inter_chroma_tq`` wrappers
-run back to back in turns, 15 rounds a b b a ... (``ab``), with each
-strength step's count of torch operations: the host's speed wanders
-between processes and over seconds, so only calls taken in turns in one
-process compare their host time. Prints the card's name and power limit
-and one JSON object (also written to DIR/time_kernels[-TAG].json with
-``--out``). Needs a CUDA card.
+on the same recorded P pictures both packages' sub-8x8 search step
+(``sub8_step``: from the units' centres to the winners each refinement
+launch takes; both checkouts need the ``sub8_search`` entry) and, as a control, both ``inter_chroma_tq`` wrappers run
+back to back in turns, 15 rounds a b b a ... (``ab``), with each step's
+count of torch operations and its device kernels by ``torch.profiler``:
+the host's speed wanders between processes and over seconds, so only
+calls taken in turns in one process compare their host time. Prints the
+card's name and power limit and one JSON object (also written to
+DIR/time_kernels[-TAG].json with ``--out``). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -192,10 +186,8 @@ def by_picture(calls):
 
 def record_bench(size):
     """The bench configuration's recorded P and B pictures, in coding
-    order: {"P": [(calls, scan)], "B": [...], "frames": {"P": [frame],
-    "B": [...]}}, each picture's entry calls, a copy of its K1 scan state
-    taken before the scan, and its ``PFrame`` / ``BFrame`` as the deblock
-    stage found it."""
+    order: {"P": [(calls, scan)], "B": [...]}, each picture's entry calls
+    and a copy of its K1 scan state taken before the scan."""
     import torch
     from h264_tpu_torch.encoder import rd_b, rd_p
     from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
@@ -207,31 +199,14 @@ def record_bench(size):
                         weighted_pred=True)
     enc = H264Encoder(cfg, device="cuda")
     scans = {"P": [], "B": []}
-    frames = {"P": [], "B": []}
     pk, pcalls = rd_p.recording(rd_p.default_kernels())
     bk, bcalls = rd_b.recording(rd_b.default_kernels())
     enc._p_kernels = scan_recording(pk, scans["P"])
     enc._b_kernels = scan_recording(bk, scans["B"])
-    stages = {"P": (rd_p, "P_STAGES"), "B": (rd_b, "B_STAGES")}
-    kept = {kind: getattr(m, n) for kind, (m, n) in stages.items()}
-    for kind, (mod, name) in stages.items():
-        *rest, deblock = kept[kind]
-
-        def hook(f, deblock=deblock, kind=kind):
-            frames[kind].append(f)
-            return deblock(f)
-
-        setattr(mod, name, (*rest, hook))
-    try:
-        list(enc.encode_stream(moving_frames(5, *size, seed=SEED)))
-    finally:
-        for kind, (mod, name) in stages.items():
-            setattr(mod, name, kept[kind])
+    list(enc.encode_stream(moving_frames(5, *size, seed=SEED)))
     torch.cuda.synchronize()
-    out = {kind: list(zip(by_picture(calls), scans[kind]))
-           for kind, calls in (("P", pcalls), ("B", bcalls))}
-    out["frames"] = frames
-    return out
+    return {kind: list(zip(by_picture(calls), scans[kind]))
+            for kind, calls in (("P", pcalls), ("B", bcalls))}
 
 
 def _grid(warps: int):
@@ -281,7 +256,7 @@ GRIDS = {
     "ref_bank": _bank_grids,
     "strengths": _strength_grids,
     "i16_candidate": lambda a: [(a[0].numel() // 256, 64)],
-    "ssd_grid4": lambda a: [(a[2].numel(), 256)],
+    "sub8_search": lambda a: [(a[2].numel() // 2, 128)],
     "mc_luma": lambda a: [(_cdiv(a[1].numel() * a[7] * a[8], 256), 256)],
     "mc_chroma": lambda a: [(_cdiv(a[1].shape[0] * 128, 256), 256)],
     "mc_luma_win": lambda a: [(_cdiv(a[1].numel() * a[6] * a[7], 256), 256)],
@@ -293,8 +268,8 @@ GRIDS = {
 ONE_CALL = {"coarse_search": "search_grid", "inter_luma_tq": "inter_tq",
             "inter_chroma_tq": "inter_tq", "b_direct": "b_direct",
             "ref_bank": "ref_bank", "strengths": "deblock",
-            "i16_candidate": "inter_tq",
-            "ssd_grid4": "search_grid", "mc_luma_win": "qpel",
+            "sub8_search": "search_grid", "i16_candidate": "inter_tq",
+            "mc_luma_win": "qpel",
             "mc_chroma_b": "qpel", "mc_luma": "qpel", "mc_chroma": "qpel"}
 
 
@@ -315,7 +290,7 @@ def empty_launch_ms(blocks: int, threads: int, reps: int = 20) -> float:
 
 @functools.lru_cache(maxsize=None)
 def _empty_lib():
-    return _trial_lib("empty", {"empty.cu": EMPTY_CU}, "empty_launch", "iip")
+    return _empty_lib_build()
 
 
 EMPTY_CU = """#include <cuda_runtime.h>
@@ -418,47 +393,49 @@ def count_ops(fn) -> int:
     return Count.n
 
 
-def strength_step(pkg: str, kind: str, frame, colocated: bool = False):
-    """The strength step of one recorded picture through the package
-    `pkg`'s deblock stage (``p_deblock`` / ``b_deblock``) with the filter
-    left out: every glue operation for the strengths and their kernel,
-    on a copy of the picture's frame; with `colocated`, also the P
-    picture's colocated planes where the package builds them apart from
-    that stage (``p_colocated``)."""
-    import copy
+# the partitions' winners as the three refinement launches take them:
+# (first partition, count) of the 8x4, 4x8 and 4x4 shapes
+_SUB8_SHAPES = ((0, 2), (2, 2), (4, 4))
+
+
+def sub8_step(pkg: str, args):
+    """The sub-8x8 search step of package `pkg` on one recorded
+    ``sub8_search`` call's inputs, from the centres to the winners'
+    (mvx, mvy) vectors of each shape that its refinement launches take:
+    the one call and six views of its output."""
     import importlib
 
-    mod = importlib.import_module(
-        f"{pkg}.encoder.{'rd_p' if kind == 'P' else 'rd_b'}")
-    g = copy.copy(frame)
-    g.k = dataclasses.replace(mod.default_kernels(),
-                              deblock=lambda *a: (None, None, None))
-    stage = mod.p_deblock if kind == "P" else mod.b_deblock
-    col = getattr(mod, "p_colocated", None) if colocated else None
-    if col is None:
-        return lambda: stage(g)
-    return lambda: (stage(g), col(g))
+    K3 = importlib.import_module(f"{pkg}.kernels.search_grid")
+
+    def step():
+        mv = K3.sub8_search(*args)
+        return [mv[c, p0:p0 + n].reshape(-1)
+                for p0, n in _SUB8_SHAPES for c in (0, 1)]
+    return step
 
 
-def picture_ab(calls, kind: str, frame, other) -> dict:
-    """In turns in one process (``ab_times``) on one recorded picture: the
-    strength step of this package against `other`'s, with each one's count
-    of torch operations (on P pictures also with the colocated planes,
-    ``strength_step_colocated``); and, as a control of the host's speed,
+def picture_ab(calls, other) -> dict:
+    """In turns in one process (``ab_times``) on one recorded P picture:
+    the sub-8x8 search step of this package against `other`'s, held
+    equal, with each one's count of torch operations and its device
+    kernels by ``torch.profiler``; and, as a control of the host's speed,
     the ``inter_chroma_tq`` wrapper, the same in both."""
     import importlib
 
+    import torch
     from h264_tpu_torch.kernels import inter_tq as K5
+    from h264_tpu_torch.tools.devprof import device_profile
 
     res = {}
-    steps = [("strength_step", False)]
-    if kind == "P":
-        steps.append(("strength_step_colocated", True))
-    for key, col in steps:
-        fa = strength_step("h264_tpu_torch", kind, frame, col)
-        fb = strength_step(other.__name__, kind, frame, col)
-        res[key] = {**ab_times(fa, fb), "ops_this": count_ops(fa),
-                    "ops_ab": count_ops(fb)}
+    for a in [a for n, a in calls if n == "sub8_search"]:
+        fa = sub8_step("h264_tpu_torch", a)
+        fb = sub8_step(other.__name__, a)
+        if not all(torch.equal(x, y) for x, y in zip(fa(), fb())):
+            raise RuntimeError("sub8 step: the two packages differ")
+        res["sub8_step"] = {
+            **ab_times(fa, fb), "ops_this": count_ops(fa),
+            "ops_ab": count_ops(fb), "profile_this": device_profile(fa, 20)[1],
+            "profile_ab": device_profile(fb, 20)[1]}
     theirs = importlib.import_module(
         f"{other.__name__}.kernels.inter_tq").inter_chroma_tq
     for a in [a for n, a in calls if n == "inter_chroma_tq"]:
@@ -582,134 +559,23 @@ def deblock_chain(reps: int = 20) -> dict:
             "pictures": pictures}
 
 
-def _trial_lib(name: str, sources: dict, entry: str, sig: str):
-    """The C entry `entry` of a trial library built from `sources` (file
-    name -> text) in build/.../trial."""
+def _empty_lib_build():
+    """The C entry ``empty_launch`` of EMPTY_CU, built with the package's
+    nvcc flags into build/.../empty."""
     import ctypes
 
     from h264_tpu_torch import device as D
 
-    trial = D.BUILD_DIR / "trial"
-    trial.mkdir(parents=True, exist_ok=True)
-    for fname, text in sources.items():
-        (trial / fname).write_text(text)
-    so = trial / f"lib{name}_sm90a.so"
-    main = next(f for f in sources if f.endswith(".cu"))
+    out = D.BUILD_DIR / "empty"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(EMPTY_CU)
+    so = out / "libempty_sm90a.so"
     subprocess.run([D._nvcc(), *D.NVCC_FLAGS, "-o", str(so),
-                    str(trial / main)], check=True, capture_output=True)
-    fn = getattr(ctypes.CDLL(str(so)), entry)
-    fn.argtypes = [D._CTYPES[c] for c in sig]
+                    str(out / "empty.cu")], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).empty_launch
+    fn.argtypes = [D._CTYPES[c] for c in "iip"]
     fn.restype = ctypes.c_int
     return fn
-
-
-def trial_no_fence(reps: int = 20) -> dict:
-    """A trial: K6 built from copies of csrc/deblock.cu and common.cuh
-    whose ``publish`` has no fence before the release, beside the kernel
-    as it is, on the same built inputs (16x16, the 16x1088 column, the
-    1280x16 row, CIF, 1280x720), each trial call held equal to the plain
-    version.  Device ms per call, with and without the fence."""
-    import ctypes
-
-    import torch
-    from h264_tpu_torch import device as D
-    from h264_tpu_torch.kernels import deblock as K6
-
-    fence = "    __threadfence();\n    st_release(p, v);"
-    common = (D.CSRC / "common.cuh").read_text()
-    if common.count(fence) != 1:
-        raise RuntimeError("trial: publish's fence in common.cuh moved")
-    fn = _trial_lib("deblock_nofence", {
-        "deblock.cu": (D.CSRC / "deblock.cu").read_text(),
-        "common.cuh": common.replace(fence, "    st_release(p, v);")},
-        "deblock", "pppppiipppppp")
-
-    def no_fence(y, u, v, bsv, bsh, qp, qp_c):
-        H, W = y.shape
-        thr = (ctypes.c_int * 12)(*K6._thresholds(qp), *K6._thresholds(qp_c))
-        out = [torch.empty_like(x) for x in (y, u, v)]
-        sync = torch.empty(H // 16 + 1, dtype=torch.int32, device=y.device)
-        rc = fn(*(x.data_ptr() for x in (y, u, v, bsv, bsh)), H, W,
-                ctypes.addressof(thr), *(x.data_ptr() for x in out),
-                sync.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"trial deblock: CUDA error {rc}")
-        return out
-
-    res = {}
-    for W, H in ((16, 16), (16, 1088), (1280, 16), CIF, HD):
-        case = deblock_case(W, H)
-        want = K6.deblock_plain(*case)
-        if not all(torch.equal(g, w) for g, w in zip(no_fence(*case), want)):
-            raise RuntimeError(f"trial deblock {W}x{H}: differs from plain")
-        res[f"{W}x{H}"] = {
-            "fence_ms": spin_ms(lambda: K6.deblock(*case), reps),
-            "no_fence_ms": spin_ms(lambda: no_fence(*case), reps)}
-    return res
-
-
-def trial_coarse(reps: int = 20) -> dict:
-    """A trial: K3 ``coarse_search`` built with strips of 8, 4 and 2 MBs a
-    search block, with the decimation alone (the entry returning after
-    its first launch), with that launch's grid doing no work (the floor
-    of a launch), and with the search alone, beside the kernel as it is,
-    on the bench configuration's second P picture at CIF and 1280x720;
-    each strip variant held equal to the kernel.  Device ms per call."""
-    import torch
-    from h264_tpu_torch import device as D
-    from h264_tpu_torch.kernels import search_grid as K3
-
-    src = (D.CSRC / "search_grid.cu").read_text()
-    common = (D.CSRC / "common.cuh").read_text()
-    strip = "constexpr int kStrip = 4;"
-    entry = "  const int n_mx = W / 16, n_strips"
-    body = "  const int cell = blockIdx.x * kDecThreads + threadIdx.x"
-    dec = "  decimate_kernel<<<"
-    if any(src.count(x) != 1 for x in (strip, entry, body, dec)):
-        raise RuntimeError("trial: coarse_search's source moved")
-    texts = {f"strip{k}": src.replace(strip, f"constexpr int kStrip = {k};")
-             for k in (8, 4, 2)}
-    texts["decimate_only"] = src.replace(entry, "  if (NR > 0) return 0;\n"
-                                         + entry)
-    # the decimation's grid with no work in it, and the search alone (on
-    # a plane left as it was)
-    texts["launch_floor"] = texts["decimate_only"].replace(
-        body, "  if (Hl > 0) return;\n" + body)
-    texts["search_only"] = src.replace(dec, "  if (NR < 0)\n" + dec)
-    fns = {n: _trial_lib(f"coarse_{n}", {f"coarse_{n}.cu": t,
-                                         "common.cuh": common},
-                         "coarse_search", "ppppiiiiiiipppp")
-           for n, t in texts.items()}
-
-    def call(fn, banks, cur_y, wp, lam):
-        NR, _, Hp, Wp = banks.shape
-        H, W = cur_y.shape
-        cen = [torch.empty((NR, H // 16, W // 16), dtype=torch.int32,
-                           device=banks.device) for _ in range(2)]
-        plane = torch.empty((NR, (Hp + 128) // 4, (Wp + 128) // 4),
-                            dtype=torch.int16, device=banks.device)
-        w = (wp[0].data_ptr(), wp[1].data_ptr(), 1) if wp else (None, None, 0)
-        rc = fn(banks.data_ptr(), cur_y.data_ptr(), *w, NR, Hp, Wp, H, W,
-                int(lam), plane.data_ptr(), cen[0].data_ptr(),
-                cen[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"trial coarse_search: CUDA error {rc}")
-        return cen
-
-    res = {}
-    for size in (CIF, HD):
-        calls, _ = record_bench(size)["P"][1]
-        a = [x for n, x in calls if n == "coarse_search"][0]
-        want = K3.coarse_search(*a)
-        out = {"kernel_ms": spin_ms(lambda: K3.coarse_search(*a), reps)}
-        for name, fn in fns.items():
-            if name.startswith("strip"):
-                got = call(fn, *a)
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    raise RuntimeError(f"trial {name} {size}: differs")
-            out[f"{name}_ms"] = spin_ms(lambda fn=fn: call(fn, *a), reps)
-        res[f"{size[0]}x{size[1]}"] = out
-    return res
 
 
 def device_ops(step) -> dict:
@@ -765,12 +631,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", help="import h264_tpu_torch from this checkout")
     ap.add_argument("--out", help="directory for the JSON report")
     ap.add_argument("--tag", default="", help="suffix of the report's name")
-    ap.add_argument("--ab", help="also time the strength step of this "
-                    "checkout in turns with this one's")
-    ap.add_argument("--trial", action="store_true",
-                    help="also time K6 without the fence before each "
-                    "release, and K3 with other strips and its decimation "
-                    "alone")
+    ap.add_argument("--ab", help="also time the sub-8x8 search step of "
+                    "this checkout in turns with this one's")
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
@@ -801,14 +663,9 @@ def main(argv=None) -> int:
         if other is not None:
             report.setdefault("ab", {"package": str(pathlib.Path(
                 other.__file__).parent)})[f"{size[0]}x{size[1]}"] = {
-                kind: picture_ab(pics[kind][1][0], kind,
-                                 pics["frames"][kind][1], other)
-                for kind in ("P", "B")}
+                "P": picture_ab(pics["P"][1][0], other)}
     report["deblock_chain"] = deblock_chain()
     report["deblock_profile"] = deblock_profile()
-    if args.trial:
-        report["trial_no_fence"] = trial_no_fence()
-        report["trial_coarse"] = trial_coarse()
     report["seconds"] = time.perf_counter() - t0
     line = json.dumps(report)
     if args.out:

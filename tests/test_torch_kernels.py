@@ -54,10 +54,11 @@ from h264_tpu_torch.tools.p16_cases import reached_sides as p16_reached
 from h264_tpu_torch.tools.rows_cases import edge_motion
 from h264_tpu_torch.tools.search_tq_cases import (COARSE_CONTENTS,
                                                   CORNER_CENTRES,
-                                                  LUMA_CONTENTS, chroma_case,
+                                                  LUMA_CONTENTS,
+                                                  SUB8_CONTENTS, chroma_case,
                                                   coarse_case, corner_mbs,
                                                   direct_case, direct_kinds,
-                                                  luma_case)
+                                                  luma_case, sub8_case)
 from h264_tpu_torch.tools.slab_cases import CONTENTS as SLAB_CONTENTS
 from h264_tpu_torch.tools.slab_cases import built_slab
 from h264_tpu_torch.tools.strengths_cases import branches, strengths_inputs
@@ -295,6 +296,13 @@ def test_p_wrappers_reject_bad_input(cuda):
         K3.coarse_search(banks, cur_y[:, :160], wp, lam_me)
     with pytest.raises(ValueError):
         K3.ssd_grid8(banks, cur_y, *calls["ssd_grid8"][2:5], 40)
+    a = calls["sub8_search"]
+    with pytest.raises(ValueError):  # centres as int64
+        K3.sub8_search(*a[:3], a[3].long(), *a[4:])
+    with pytest.raises(ValueError):  # PMVs a unit short
+        K3.sub8_search(*a[:5], a[5][:-1], *a[6:])
+    with pytest.raises(ValueError):
+        K3.sub8_search(*a[:8], 11, a[9])
     a = calls["qpel_refine"]
     with pytest.raises(ValueError):
         K4.qpel_refine(*a[:2], a[2][::2], *a[3:])
@@ -402,6 +410,37 @@ def test_coarse_search_matches_plain_built(cuda, W, H, NR, wp, content):
                 assert (int(got[0][0, my, mx]), int(got[1][0, my, mx])) == c
         if content == "flat" and lam_me == 0:
             assert bool((got[0] == -48).all() and (got[1] == -48).all())
+
+
+@pytest.mark.parametrize("content", SUB8_CONTENTS)
+@pytest.mark.parametrize("wp", [False, True], ids=["nowp", "wp"])
+@pytest.mark.parametrize("RS", [0, 1, 8, 10])
+@pytest.mark.parametrize("NR", [1, 5])
+@pytest.mark.parametrize("W,H", [(16, 16), (176, 144), (352, 288),
+                                 (1280, 720)], ids=lambda v: str(v))
+def test_sub8_search_matches_plain_built(cuda, W, H, NR, RS, wp, content):
+    """sub8_search at one MB, 176x144, CIF and 720p, NR 1 and 5, RS 0, 1,
+    8 and 10, WP off and at its extremes, on random, flat (every SSD of a
+    partition ties: the rate decides, and at lam_me 0 the first cell) and
+    0/255 content, the first four units' centres at the corners +-CMAX;
+    the lambdas of QP 28 (a fraction that makes lam_cost of a sum differ
+    from the sum of lam_costs) and 51, and 0; 5 launches each on unchanged
+    inputs."""
+    *a, wpt, RS = sub8_case(content, W, H, NR, RS, wp, seed=W + 7 * NR + RS)
+    a = [x.to(cuda) for x in a]
+    if wpt is not None:
+        wpt = tuple(x.to(cuda) for x in wpt)
+    for lam_me in (2 * _lam(28), 2 * _lam(51), 0):
+        want = K3.sub8_search_plain(*a, wpt, RS, lam_me)
+        before = K3.sub8_search.launches
+        for _ in range(5):
+            got = K3.sub8_search(*a, wpt, RS, lam_me)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want), lam_me
+        assert K3.sub8_search.launches == before + 5
+        if content == "flat" and lam_me == 0:
+            assert torch.equal(got, torch.stack([a[4] - RS, a[3] - RS])[
+                :, None].expand_as(got))
 
 
 @pytest.mark.parametrize("qp", [0, 28, 51])

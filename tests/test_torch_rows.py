@@ -114,8 +114,8 @@ def _windows(name, args):
         by, bx, mb = TP._b8_geometry(H, W, cur_y.device)
         cy, cx = cen_y.reshape(-1)[mb], cen_x.reshape(-1)[mb]
         return (by + cy - R + PAD, 2 * R + 8), (bx + cx - R + PAD, 2 * R + 8)
-    if name == "ssd_grid4":
-        banks, cur_y, u_ref, u_cy, u_cx, _, RS = args
+    if name == "sub8_search":
+        banks, cur_y, u_ref, u_cy, u_cx, _, _, _, RS, _ = args
         n_mx = cur_y.shape[1] // 16
         u = torch.arange(u_ref.shape[0])
         mb, b8 = u // 4, u % 4
@@ -175,7 +175,7 @@ def test_no_window_starts_outside_the_slab():
             if name == "qpel_refine":
                 seen["imv"] |= {int(args[4].min()), int(args[4].max()),
                                 int(args[3].min()), int(args[3].max())}
-            if name == "ssd_grid4":
+            if name == "sub8_search":
                 seen["u_c"] |= {int(args[3].min()), int(args[3].max())}
         assert {n for n, _ in log} == set(TP.entries_of(False)) - {
             "coarse_search"}
