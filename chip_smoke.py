@@ -2264,6 +2264,7 @@ def main(argv=None) -> int:
         for name in ("p16_search", "p16_refine"):
             fk, fp, a = getattr(lk, name), getattr(fast.PLAIN, name), mine[name]
             tm[name] = {"ms": cuda_ms(lambda: fk(*a), 20),
+                        "device_ms": device_ms(lambda: fk(*a), 10),
                         "plain_ms": cuda_ms(lambda: fp(*a), 3),
                         "launches_per_picture": 1,
                         "work": (p16_search_work(H, W, 28)
@@ -2301,8 +2302,10 @@ def main(argv=None) -> int:
             lib = (f", conv2d route {v['library_ms']:.3f} ms (float32, "
                    f"exact), {v['library_bf16_ms']} ms (bfloat16)"
                    if v.get("library_ms") is not None else "")
+            dev_t = (f", device {v['device_ms']:.4f} ms (queued behind a "
+                     "spin, mean of 10)" if "device_ms" in v else "")
             print(f"time {W}x{H} legacy {name} per P picture: "
-                  f"{v['ms']:.4f} ms (events, mean of 20), plain "
+                  f"{v['ms']:.4f} ms (events, mean of 20){dev_t}, plain "
                   f"{v['plain_ms']:.3f} ms, bound {b_ms:.5f} ms ({b_by}, "
                   f"{v['work'][0]} B, {v['work'][1]} ops){lib}")
     report["timing_legacy"] = {

@@ -12,8 +12,9 @@
 //                    inter offsets, RDOQ-lite on the AC, the JM chroma AC
 //                    drop at coeff_cost < 4, truncating DC dequant;
 //   i16_candidate    the I16 candidate from ORIGINAL neighbours
-//                    (`_i16_pred_all` + `_i16_tq`, :984-998), through the
-//                    same device code as the intra commit (common.cuh).
+//                    (`_i16_pred_all` + `_i16_tq`, :984-998): the function
+//                    of the intra commit's `i16_code` (common.cuh), in
+//                    this file's lane form.
 // Plain versions: h264_tpu_torch/encoder/rd_p.py `inter_luma_tq_plain`,
 // `inter_chroma_tq_plain`, `i16_candidate_plain`; wrapper kernels/inter_tq.py.
 //
@@ -29,7 +30,10 @@
 // form, 16 lanes per MB (2 planes x 4 blocks x 2 lanes), two MBs a warp,
 // as many warps a block (up to 4) as leave a block for each of the 132
 // SMs (CIF's 396 MBs: 198 blocks of one warp; 1280x720: 450 of four).
-// i16_candidate: 64 threads per MB, as in the intra commit.
+// i16_candidate: the same lane form, a warp an MB, as many MBs a block
+// from 2 up to 4 as leave a block for each SM (CIF: 132 blocks of 3;
+// 1280x720: 900 of 4; a trial of 2 to 8 found CIF flat and 1280x720
+// slower at 6 and 8).
 //
 // What held inter_luma_tq and inter_chroma_tq back, and what this design
 // does about it.  Their first versions gave each thread a whole 4x4 block
@@ -58,6 +62,27 @@
 // (tests/test_torch_search_tq.py and tests/test_torch_direct_chroma.py
 // hold this lane-by-lane form against the plain versions).
 //
+// What held i16_candidate back, and what this design does about it.
+// Its first kernel ran the intra commit's `i16_code` on 64 threads an MB
+// (396 two-warp blocks at CIF, about 6 warps an SM) over the source
+// staged as int32 in shared memory, through five barriers between serial
+// phases: 4 threads summed the mode costs, one thread ran the DC
+// Hadamard, its 16 quantizations, their bits, the inverse and the
+// dequant, 16 threads each coded a whole 4x4 block in int[16] arrays, and
+// thread 0 then summed the 16 SSDs and bit counts (2.0x an empty launch
+// of its grid at CIF, 0.0232 ms at 1280x720 on an NVIDIA H100 80GB HBM3
+// at 700.00 W; PERF.md).  Here every phase
+// runs on all 32 lanes: a lane's two rows come in by 16-byte loads and
+// the neighbours by the lanes that hold them; the DC value and PLANE
+// parameters are warp sums; each mode's cost is the lane pair's Hadamard
+// (one shuffle a column) and the 16 DC terms' Hadamard by four xor
+// butterflies (hadamard_dc), summed over the warp by redux.sync, an
+// unavailable mode priced from its zero neighbours so that no shuffle
+// sits behind a branch; the DC's quant, bits and inverse run on the DC
+// lanes by the same butterflies, the AC and recon in the lanes; the recon
+// leaves as 16-byte stores, D16 and cb16 as warp sums one lane writes.
+// No shared memory, no barrier, no per-thread array in local memory.
+//
 // Bound.  Bytes: pred and orig read, lev, rec, D8 and cb8 written once
 // (7.8 MB for a CIF P picture's six candidates, 0.0023 ms at 3.35 TB/s;
 // chroma 0.82 MB, 0.00025 ms).  Operations, by chip_smoke.py's rule
@@ -67,12 +92,19 @@
 // transform in 16-bit pairs, and 12 float32 ones for RDOQ's cost on the
 // FP32 pipe; below the bytes at every size.  A chroma call is far below a
 // launch: its device time is the launch and one pass of dependent
-// arithmetic.
+// arithmetic.  i16_candidate: the source read once, the recon and two
+// ints an MB written (0.81 MB at CIF); by OPS_SATD_16 and OPS_TQ the four
+// Hadamard costs in 16-bit pairs and the coding, 4.36 M operations at CIF
+// (0.00026 ms), 0.0024 ms at 1280x720.  That count is a bound, not a
+// design: packed 16-bit SIMD is emulated on sm_90a, and a DC Hadamard
+// term reaches 16 x 16 x 255 = 65280, past int16, so the sums run in
+// 32-bit lanes; the device time is the launch and one pass of dependent
+// shuffles (PERF.md).
 //
-// ptxas (sm_90a, nvcc -O3): luma_kernel 48 registers, no stack frame, no
-// shared memory; i16_kernel 64 registers, 4,056 B shared memory; no
-// spills; chroma_kernel: see PERF.md §6 (the build's report, printed by
-// chip_smoke.py and tools/time_kernels.py).
+// ptxas (sm_90a, nvcc -O3): luma_kernel 48 registers, i16_kernel 48
+// registers, no stack frame, no shared memory; no spills; chroma_kernel:
+// see PERF.md §6 (the build's report, printed by chip_smoke.py and
+// tools/time_kernels.py).
 
 #include <algorithm>
 
@@ -480,35 +512,234 @@ chroma_kernel(const int* __restrict__ pred, const int* __restrict__ orig,
   }
 }
 
-__global__ void __launch_bounds__(64)
-i16_kernel(const int* __restrict__ cur_y, int W, int n_mx, int qp,
-           int* out_rec, int* out_d, int* out_cb) {
-  __shared__ I16Smem s;
-  __shared__ int orig[256];
-  const int tid = threadIdx.x, i = blockIdx.x;
-  const int r = i / n_mx, c = i % n_mx;
-  const int au = r > 0, al = c > 0;
-  for (int k = tid; k < 256; k += 64)
-    orig[k] = cur_y[(size_t)(16 * r + (k >> 4)) * W + 16 * c + (k & 15)];
-  // original neighbours, zero outside the picture
-  if (tid < 16) {
-    s.up[tid] = au ? cur_y[(size_t)(16 * r - 1) * W + 16 * c + tid] : 0;
-    s.left[tid] = al ? cur_y[(size_t)(16 * r + tid) * W + 16 * c - 1] : 0;
+// ---------------------------------------------------------------------------
+// i16_candidate: a warp per MB, two lanes per 4x4 block
+// ---------------------------------------------------------------------------
+// Lane bits as in luma_kernel: 0 h, 1-2 bc, 3-4 br; lane 2 blk + h holds
+// rows 2h and 2h + 1 of block blk = 4 br + bc.  The 16 blocks' DC terms
+// (each on its h = 0 lane) are a 4 x 4 array over lane bits 1-4, whose
+// Hadamard is four xor-shuffle butterflies (hadamard_dc).
+constexpr int kI16MaxWarps = 4;  // MBs a block, at most
+
+// one row of hadamard4x4 (common.cuh)
+__device__ __forceinline__ void had_row(int (&v)[4]) {
+  const int e0 = v[0] + v[2], e1 = v[0] - v[2], e2 = v[1] - v[3],
+            e3 = v[1] + v[3];
+  v[0] = e0 + e3;
+  v[1] = e1 + e2;
+  v[2] = e1 - e2;
+  v[3] = e0 - e3;
+}
+
+// column pass of hadamard4x4: with rows w0..w3 and s = (first + second),
+// t = (first - second) of a lane's two rows, h = 0 keeps (w0 + w1) +- (w2
+// + w3), h = 1 keeps (w0 - w1) -+ (w2 - w3): one shuffle a column
+__device__ __forceinline__ void had_cols(int (&r0)[4], int (&r1)[4], int h) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int s = r0[x] + r1[x], t = r0[x] - r1[x];
+    const int p = __shfl_xor_sync(kFull, h ? s : t, 1);
+    r0[x] = h ? p - t : s + p;
+    r1[x] = h ? p + t : s - p;
   }
-  if (tid == 16) s.ul = au && al ? cur_y[(size_t)(16 * r - 1) * W + 16 * c - 1] : 0;
-  __syncthreads();
-  const int per = qp / 6, rem = qp % 6, off = 682 << (4 + per);
-  i16_code(s, orig, au, al, per, rem, off, tid);
-  __syncthreads();
-  for (int k = tid; k < 256; k += 64) out_rec[(size_t)i * 256 + k] = s.rec16[k];
-  if (tid == 0) {
-    int d = 0, cb = s.cbdc;
-    for (int k = 0; k < 16; ++k) {
-      d += s.d16[k];
-      cb += s.cb16[k];
+}
+
+// The 4 x 4 Hadamard of the values of the lanes that differ in bits 1-4,
+// in natural (Walsh) order: entry (u, v) to the lanes of block 4 u + v.
+// Its outputs are hadamard4x4's permuted in rows and columns alike, so a
+// sum of absolute values, an elementwise quant and a bit count over them
+// are the same; and the natural transform of the quantized natural
+// outputs is hadamard4x4 of the quantized hadamard4x4 outputs entry for
+// entry (hadamard4x4's rows are the natural rows 0, 2, 3, 1, and its
+// columns, permuted the same way, are the natural rows again).
+__device__ __forceinline__ int hadamard_dc(int v, int lane) {
+#pragma unroll
+  for (int b = 2; b <= 16; b <<= 1) {
+    const int p = __shfl_xor_sync(kFull, v, b);
+    v = (lane & b) ? p - v : v + p;
+  }
+  return v;
+}
+
+// The I16 candidate of one MB a warp, from original neighbours (zero
+// outside the picture): the Hadamard mode pick (first minimum of VERT,
+// HOR, DC, PLANE; unavailable modes cost kBig), then the chosen mode's
+// transform, DC Hadamard and quant, AC quant, dequant, inverse and recon
+// (common.cuh i16_code, which the intra commit keeps).  Writes the recon,
+// the MB's SSD and its coefficient bits (the DC levels' and the 16
+// blocks').
+__global__ void __launch_bounds__(32 * kI16MaxWarps)
+i16_kernel(const int* __restrict__ cur_y, int W, int n_mx, int n_mb, int qp,
+           int* __restrict__ out_rec, int* __restrict__ out_d,
+           int* __restrict__ out_cb) {
+  const int lane = threadIdx.x & 31;
+  const int mb = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (mb >= n_mb) return;  // the whole warp
+  const int h = lane & 1, br = lane >> 3, bc = (lane >> 1) & 3;
+  const int r = mb / n_mx, c = mb - r * n_mx;
+  const bool au = r > 0, al = c > 0;
+  // the lane's rows Y = 4 br + 2 h + j, columns X = 4 bc + x
+  const int Y0 = 4 * br + 2 * h, X0 = 4 * bc;
+  const int* src = cur_y + (16 * r + Y0) * W + 16 * c + X0;
+  int o[2][4], up[4] = {0, 0, 0, 0}, lf[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(src + j * W));
+    o[j][0] = v.x;
+    o[j][1] = v.y;
+    o[j][2] = v.z;
+    o[j][3] = v.w;
+    if (al) lf[j] = __ldg(src + j * W - X0 - 1);
+  }
+  if (au) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(src - (Y0 + 1) * W));
+    up[0] = v.x;
+    up[1] = v.y;
+    up[2] = v.z;
+    up[3] = v.w;
+  }
+  const int ul = au && al && lane == 0 ? __ldg(src - W - 1) : 0;
+  // DC and PLANE parameters (rd.py `_i16_pred_all`) by warp sums: the up
+  // row from lanes 0, 2, 4, 6 (br = h = 0), the left column from the
+  // lanes with bc = 0; H = sum (k - 7) up[k] - 8 ul, V likewise
+  int su = 0, sl = 0, hg = -8 * ul, vg = -8 * ul;
+  if ((lane & 0b11001) == 0) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      su += up[x];
+      hg += (X0 + x - 7) * up[x];
     }
-    out_d[i] = d;
-    out_cb[i] = cb;
+  }
+  if ((lane & 0b00110) == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      sl += lf[j];
+      vg += (Y0 + j - 7) * lf[j];
+    }
+  }
+  // up[15] on lane 6, left[15] on lane 25
+  const int corner = lane == 6 ? up[3] : lane == 25 ? lf[1] : 0;
+  su = __reduce_add_sync(kFull, su);
+  sl = __reduce_add_sync(kFull, sl);
+  hg = __reduce_add_sync(kFull, hg);
+  vg = __reduce_add_sync(kFull, vg);
+  const int pa = 16 * __reduce_add_sync(kFull, corner);
+  const int pb = (5 * hg + 32) >> 6, pc = (5 * vg + 32) >> 6;
+  const int dc = au && al ? (su + sl + 16) >> 5
+                 : au     ? (su + 8) >> 4
+                 : al     ? (sl + 8) >> 4
+                          : 128;
+  // prediction sample (Y0 + j, X0 + x) of mode m [VERT, HOR, DC, PLANE]
+  auto pred = [&](int m, int j, int x) {
+    return m == 0   ? up[x]
+           : m == 1 ? lf[j]
+           : m == 2 ? dc
+                    : clip255((pa + pb * (X0 + x - 7) + pc * (Y0 + j - 7) +
+                               16) >> 5);
+  };
+
+  // mode pick: (sum over blocks of the AC absolute sums + the absolute
+  // sum of the DC terms' Hadamard) >> 1 (JM find_sad_16x16); an
+  // unavailable mode is priced from its zero neighbours and costs kBig,
+  // so that the warp never branches around its shuffles
+  int cost[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const bool valid = m == 0 ? au : m == 1 ? al : m == 2 ? true : au && al;
+    int d[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) d[j][x] = o[j][x] - pred(m, j, x);
+      had_row(d[j]);
+    }
+    had_cols(d[0], d[1], h);
+    int s = 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) s += abs(d[j][x]);
+    // the DC term d[0][0] of lane h = 0 leaves the AC sum for the DC's own
+    const int hd = hadamard_dc(d[0][0], lane);
+    s += h ? 0 : abs(hd) - abs(d[0][0]);
+    s = __reduce_add_sync(kFull, s) >> 1;
+    cost[m] = valid ? s : kBig;
+  }
+  int mode = 0, best = cost[0];
+#pragma unroll
+  for (int m = 1; m < 4; ++m)
+    if (cost[m] < best) {
+      best = cost[m];
+      mode = m;
+    }
+
+  // coding of the chosen mode (rd.py `_i16_tq`)
+  const int per = qp / 6, rem = qp % 6, off = 682 << (4 + per),
+            qbits = 15 + per;
+  int pr[2][4], co[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      pr[j][x] = pred(mode, j, x);
+      co[j][x] = o[j][x] - pr[j][x];
+    }
+    fwd_row(co[j]);
+  }
+  fwd_cols(co[0], co[1], h);
+  // the DC: Hadamard >> 1, quant (twice the offset, shift 16 + per), the
+  // levels' bits, the Hadamard of the levels and its dequant; valid on
+  // the h = 0 lanes
+  const int dl = quant(hadamard_dc(co[0][0], lane) >> 1, kM4[rem][0], 2 * off,
+                       16 + per);
+  const int dla = h ? 0 : abs(dl);
+  const int dbits = __reduce_add_sync(
+      kFull, dla ? (2 * bitlen(dla) + 1) | 1 << 16 : 0);
+  const int cbdc = dbits ? (dbits & 0xffff) + (dbits >> 16) + 2 : 0;
+  const int dc_deq =
+      (shl(mul(hadamard_dc(dl, lane), kV4[rem][0] * 16), per) + 32) >> 6;
+
+  // the AC (the DC slot level 0): quant, bits, dequant, inverse
+  int lb = 0, nn = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int k = cls_of(j, x);
+      const bool is_dc = h == 0 && j == 0 && x == 0;
+      const int l = is_dc ? 0 : quant(co[j][x], kM4[rem][k], off, qbits);
+      const int a = abs(l);
+      if (a > 0) {
+        lb += 2 * bitlen(a) + 1;
+        ++nn;
+      }
+      co[j][x] = is_dc ? dc_deq
+                       : (shl(mul(l, kV4[rem][k] * 16), per) + 8) >> 4;
+    }
+    inv_row(co[j]);
+  }
+  inv_cols(co[0], co[1], h);
+  lb += __shfl_xor_sync(kFull, lb, 1);
+  nn += __shfl_xor_sync(kFull, nn, 1);
+  int4* rp = reinterpret_cast<int4*>(out_rec + (size_t)mb * 256 + 16 * Y0 +
+                                     X0);
+  int ssd = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    int rec[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      rec[x] = clip255((co[j][x] + shl(pr[j][x], 6) + 32) >> 6);
+      const int e = o[j][x] - rec[x];
+      ssd += e * e;
+    }
+    rp[4 * j] = make_int4(rec[0], rec[1], rec[2], rec[3]);
+  }
+  ssd = __reduce_add_sync(kFull, ssd);
+  const int cb = __reduce_add_sync(kFull, h == 0 && nn > 0 ? lb + nn + 2 : 0);
+  if (lane == 0) {
+    out_d[mb] = ssd;
+    out_cb[mb] = cb + cbdc;
   }
 }
 
@@ -537,7 +768,12 @@ extern "C" int inter_chroma_tq(const int* pred, const int* orig, int n_mb,
 
 extern "C" int i16_candidate(const int* cur_y, int H, int W, int qp, int* rec,
                              int* d, int* cb, void* stream) {
-  i16_kernel<<<(H / 16) * (W / 16), 64, 0, (cudaStream_t)stream>>>(
-      cur_y, W, W / 16, qp, rec, d, cb);
+  // as many MBs a block as leave a block for every SM, from 2 up to
+  // kI16MaxWarps
+  const int n_mx = W / 16, n_mb = (H / 16) * n_mx;
+  if (n_mb == 0) return 0;
+  const int warps = std::max(2, std::min(kI16MaxWarps, n_mb / kSMs));
+  i16_kernel<<<(n_mb + warps - 1) / warps, 32 * warps, 0,
+               (cudaStream_t)stream>>>(cur_y, W, n_mx, n_mb, qp, rec, d, cb);
   return (int)cudaGetLastError();
 }

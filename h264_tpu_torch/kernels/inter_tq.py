@@ -85,6 +85,9 @@ def i16_candidate(cur_y, qp: int):
     check_tensor("i16_candidate", "cur_y", cur_y, (H, W), _I32, dev)
     if H % 16 or W % 16:
         raise ValueError(f"i16_candidate: picture {W}x{H} is not whole MBs")
+    if cur_y.data_ptr() % 16:
+        raise ValueError("i16_candidate: cur_y must start on a 16-byte "
+                         "boundary (the kernel reads its rows as int4)")
     qp = _qp("i16_candidate", qp)
     n_mb = (H // 16) * (W // 16)
     rec = torch.empty((n_mb, 16, 16), dtype=_I32, device=dev)

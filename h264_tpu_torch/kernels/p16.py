@@ -44,6 +44,9 @@ def p16_search(cur_y, ref_pad, R: int, lambda_me: int):
     check_tensor("p16_search", "cur_y", cur_y, (H, W), _I32, dev)
     check_tensor("p16_search", "ref_pad", ref_pad, (H + 2 * _P, W + 2 * _P),
                  _I32, dev)
+    if cur_y.data_ptr() % 16:
+        raise ValueError("p16_search: cur_y must start on a 16-byte "
+                         "boundary (the kernel reads its rows as int4)")
     out = torch.empty((3, H // 16, W // 16), dtype=_I32, device=dev)
     rc = kernel_fn("p16_search", "p16_search", "ppiiiipppp")(
         cur_y.data_ptr(), ref_pad.data_ptr(), H, W, R, int(lambda_me),

@@ -57,6 +57,15 @@ intra blocks, units whose list-0 reference is the anchor (unscaled),
 indices NR and NR + 1 past the list (clamped to NR - 1 by the lookups),
 and mvs up to +-90 pel, so that scaled mvs are negative and windows start
 outside the padded banks (``direct_kinds`` counts each).
+
+``i16_case(content, W, H, seed)`` returns a source plane (H, W) for K5
+``i16_candidate``, an int32 CPU tensor (``I16_CONTENTS``): ``random``
+samples; ``checker``, a 0/255 checkerboard of single samples (residuals
+and Hadamard sums at their extremes); ``flat`` (every available mode
+predicts the source exactly, so the costs tie and the first available
+mode wins); ``gradient``, the ramp 20 + (3 x + 5 y) / 4 wrapped to
+20..235, on which PLANE predicts the MBs whose neighbours lie on one
+ramp.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ from ..ops import transforms as TR
 COARSE_CONTENTS = ("random", "corners", "flat", "checker")
 SUB8_CONTENTS = ("random", "flat", "extreme")
 LUMA_CONTENTS = ("random", "extreme", "sparse")
+I16_CONTENTS = ("random", "checker", "flat", "gradient")
 # the list-0 reference POCs of direct_case (the anchor, POC 8, second) and
 # the B picture's POC
 DIRECT_POCS, DIRECT_CUR, DIRECT_ANCHOR = (4, 8, 0), 6, 8
@@ -91,6 +101,21 @@ def corner_mbs(W: int, H: int):
     """(my, mx) of the four corner MBs, in CORNER_CENTRES' order."""
     n_my, n_mx = H // 16, W // 16
     return ((0, 0), (0, n_mx - 1), (n_my - 1, 0), (n_my - 1, n_mx - 1))
+
+
+def i16_case(content: str, W: int, H: int, seed: int):
+    y, x = np.mgrid[:H, :W]
+    if content == "random":
+        a = np.random.RandomState(seed).randint(0, 256, (H, W))
+    elif content == "checker":
+        a = ((x + y) & 1) * 255
+    elif content == "flat":
+        a = np.full((H, W), 128)
+    elif content == "gradient":
+        a = 20 + (3 * x + 5 * y) // 4 % 216
+    else:
+        raise KeyError(content)
+    return _t(a)
 
 
 def coarse_case(content: str, W: int, H: int, NR: int, wp: bool,

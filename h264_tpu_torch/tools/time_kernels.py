@@ -24,6 +24,11 @@ times on the second P and the second B picture's inputs:
   picture's calls on the device and back to back;
 - the ``deblock`` call, the same two ways;
 - K1 ``intra_commit_scan`` on the picture's scan state (its intra MBs);
+- the SASS of K5's and K12's kernels (``sass_report``): each kernel's
+  instructions, its ``__dp4a`` and each loop body's;
+- on the legacy path's second P picture (``rd=False``, IPPP, CAVLC, QP
+  28, search range 28), K12 ``p16_search`` one call the same ways,
+  beside an empty launch of each of its designs' grids (``legacy_P``);
 - for ``b_direct``, the distinct 32-byte sectors its gathers touch
   (``sector_bytes``, with the fields and outputs, and their time at
   3.35 TB/s, ``sector_bound_ms``): the least traffic of its reads at the
@@ -64,7 +69,7 @@ CIF, HD = (352, 288), (1280, 720)
 SEED = 20260717
 # the kernel sources the bench configuration's pictures run
 STEMS = ("intra_commit", "ref_bank", "search_grid", "qpel", "inter_tq",
-         "deblock", "b_direct")
+         "deblock", "b_direct", "p16_search")
 
 
 def power_line() -> str:
@@ -209,6 +214,52 @@ def record_bench(size):
             for kind, calls in (("P", pcalls), ("B", bcalls))}
 
 
+def _i16_grid(n_mb: int):
+    """(blocks, threads) of i16_candidate: a warp an MB, as many a block
+    (2 to 4) as leave a block for each of an H100's 132 SMs."""
+    per = max(2, min(4, n_mb // 132))
+    return (n_mb + per - 1) // per, 32 * per
+
+
+def _p16_threads(R: int) -> int:
+    """p16_search's threads a block: a tile of 4 x 8 cells each, whole
+    warps."""
+    D = 2 * R + 1
+    return 32 * _cdiv(_cdiv(D, 4) * _cdiv(D, 8), 32)
+
+
+def record_legacy(size):
+    """The legacy path's (``rd=False``: IPPP, CAVLC, QP 28, search range
+    28; ``moving_frames``, 4 frames) ``p16_search`` calls, one a P
+    picture, in coding order."""
+    import torch
+    from h264_tpu_torch.encoder import fast
+    from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
+    from h264_tpu_torch.tools.synthseq import moving_frames
+
+    cfg = EncoderConfig(width=size[0], height=size[1], qp=28, fast=True,
+                        rd=False, entropy="cavlc", search_range=28)
+    enc = H264Encoder(cfg, device="cuda")
+    enc._legacy_kernels, calls = fast.recording(fast.default_kernels())
+    list(enc.encode_stream(moving_frames(4, *size, seed=SEED)))
+    torch.cuda.synchronize()
+    return [a for n, a in calls if n == "p16_search"]
+
+
+def p16_times(args, reps: int = 20) -> dict:
+    """One ``p16_search`` call: its device time queued behind a spin, back
+    to back, and an empty launch of each of its designs' grids."""
+    from h264_tpu_torch.kernels import p16 as P16
+
+    def fn():
+        return P16.p16_search(*args)
+
+    return {"device_ms": spin_ms(fn, reps), **back_to_back(fn, reps),
+            "launches": 1, "empty_launch_ms": {
+                f"{b}x{t}": empty_launch_ms(b, t, reps)
+                for b, t in GRIDS["p16_search"](args)}}
+
+
 def _grid(warps: int):
     """(blocks, threads) of `warps` warps, as many a block (up to 4) as
     leave a block for each of an H100's 132 SMs."""
@@ -255,7 +306,10 @@ GRIDS = {
                            (a[2].numel() // 16, 256)],
     "ref_bank": _bank_grids,
     "strengths": _strength_grids,
-    "i16_candidate": lambda a: [(a[0].numel() // 256, 64)],
+    "i16_candidate": lambda a: [_i16_grid(a[0].numel() // 256),
+                                (a[0].numel() // 256, 64)],
+    "p16_search": lambda a: [(a[0].numel() // 256, _p16_threads(a[2])),
+                             (a[0].numel() // 256, 256)],
     "sub8_search": lambda a: [(a[2].numel() // 2, 128)],
     "mc_luma": lambda a: [(_cdiv(a[1].numel() * a[7] * a[8], 256), 256)],
     "mc_chroma": lambda a: [(_cdiv(a[1].shape[0] * 128, 256), 256)],
@@ -578,6 +632,39 @@ def _empty_lib_build():
     return fn
 
 
+def sass_report(stems) -> dict:
+    """Per kernel of the built libraries of `stems` (``cuobjdump -sass``):
+    its SASS instructions, how many of them are ``IDP`` (``__dp4a``), and
+    each loop's body (a backward branch's span): {stem: {kernel: {"n",
+    "idp", "loops": [[instructions, idp], ...]}}}."""
+    import re
+
+    from h264_tpu_torch import device as D
+
+    tool = pathlib.Path(D._nvcc()).with_name("cuobjdump")
+    out = {}
+    for stem in stems:
+        text = subprocess.run([str(tool), "-sass", str(D._cuda_so(stem))],
+                              capture_output=True, text=True).stdout
+        for part in re.split(r"\n\s*Function : ", text)[1:]:
+            name = part.split("\n", 1)[0].strip()
+            ins = [(int(a, 16), op) for a, op in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+            loops = []
+            for a, op in ins:
+                t = re.search(r"BRA\b.*?0x([0-9a-f]+)", op)
+                if t and int(t.group(1), 16) < a:
+                    body = [o for b, o in ins if int(t.group(1), 16) <= b <= a]
+                    loops.append([len(body), sum("IDP" in o for o in body)])
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)  # mangled length
+            short = (name[m.end():m.end() + int(m.group(1))] if m
+                     else name)
+            out.setdefault(stem, {})[short] = {
+                "n": len(ins), "idp": sum("IDP" in o for _, o in ins),
+                "loops": loops}
+    return out
+
+
 def device_ops(step) -> dict:
     """torch.profiler over one step: its device kernels by name, and its
     copies and memsets."""
@@ -648,18 +735,25 @@ def main(argv=None) -> int:
     card = power_line()
     print(card)
     D.build_cuda(STEMS)
-    for stem in ("ref_bank", "search_grid", "qpel", "inter_tq", "deblock",
-                 "b_direct"):
+    for stem in STEMS[1:]:
         for ln in D.build_log.get(stem, "").splitlines():
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 print(f"  ptxas {stem}: {ln.strip()}")
     report = {"package": str(pathlib.Path(h264_tpu_torch.__file__).parent),
-              "device": torch.cuda.get_device_name(0), "card": card}
+              "device": torch.cuda.get_device_name(0), "card": card,
+              "sass": sass_report(("inter_tq", "p16_search"))}
+    for stem, kernels in report["sass"].items():
+        for name, v in kernels.items():
+            print(f"  sass {stem} {name}: {v['n']} instructions, {v['idp']} "
+                  f"IDP, loops (instructions, IDP) {v['loops']}")
     other = load_ab(args.ab) if args.ab else None
     for size in (CIF, HD):
         pics = record_bench(size)
         report[f"{size[0]}x{size[1]}"] = {
             kind: picture_times(*pics[kind][1]) for kind in ("P", "B")}
+        # the legacy path's second P picture
+        report[f"{size[0]}x{size[1]}"]["legacy_P"] = {
+            "p16_search": p16_times(record_legacy(size)[1])}
         if other is not None:
             report.setdefault("ab", {"package": str(pathlib.Path(
                 other.__file__).parent)})[f"{size[0]}x{size[1]}"] = {

@@ -54,11 +54,13 @@ from h264_tpu_torch.tools.p16_cases import reached_sides as p16_reached
 from h264_tpu_torch.tools.rows_cases import edge_motion
 from h264_tpu_torch.tools.search_tq_cases import (COARSE_CONTENTS,
                                                   CORNER_CENTRES,
+                                                  I16_CONTENTS,
                                                   LUMA_CONTENTS,
                                                   SUB8_CONTENTS, chroma_case,
                                                   coarse_case, corner_mbs,
                                                   direct_case, direct_kinds,
-                                                  luma_case, sub8_case)
+                                                  i16_case, luma_case,
+                                                  sub8_case)
 from h264_tpu_torch.tools.slab_cases import CONTENTS as SLAB_CONTENTS
 from h264_tpu_torch.tools.slab_cases import built_slab
 from h264_tpu_torch.tools.strengths_cases import branches, strengths_inputs
@@ -441,6 +443,27 @@ def test_sub8_search_matches_plain_built(cuda, W, H, NR, RS, wp, content):
         if content == "flat" and lam_me == 0:
             assert torch.equal(got, torch.stack([a[4] - RS, a[3] - RS])[
                 :, None].expand_as(got))
+
+
+@pytest.mark.parametrize("content", I16_CONTENTS)
+@pytest.mark.parametrize("qp", [0, 28, 51])
+@pytest.mark.parametrize("W,H", [(16, 16), (16, 1088), (1280, 16),
+                                 (176, 144), (352, 288), (1280, 720)],
+                         ids=lambda v: str(v))
+def test_i16_candidate_matches_plain_built(cuda, W, H, qp, content):
+    """i16_candidate (a warp an MB) at one MB, one MB column and row,
+    QCIF, CIF and 720p, QP 0, 28 and 51, on random, 0/255 checkerboard,
+    flat (every available mode ties: the first wins) and gradient (PLANE
+    wins) content; three launches each on unchanged inputs."""
+    cur = i16_case(content, W, H, seed=W + H + qp).to(cuda)
+    want = K5.i16_candidate_plain(cur, qp)
+    before = K5.i16_candidate.launches
+    for _ in range(3):
+        got = K5.i16_candidate(cur, qp)
+        torch.cuda.synchronize()
+        for name, g, x in zip(("rec16", "D16", "cb16"), got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), name
+    assert K5.i16_candidate.launches == before + 3
 
 
 @pytest.mark.parametrize("qp", [0, 28, 51])
@@ -1262,6 +1285,40 @@ def test_p16_kernels_match_plain(cuda, W, H, R, case, qp):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert (P16.p16_search.launches, P16.p16_refine.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("case", ["seeded", *P16_CASES])
+@pytest.mark.parametrize("R", [0, 1, 8, 16, 28, 32])
+@pytest.mark.parametrize("W,H", [(16, 16), (64, 48), (176, 144), (352, 288),
+                                 (1280, 720)], ids=lambda v: str(v))
+def test_p16_search_matches_plain_built(cuda, W, H, R, case):
+    """p16_search (packed u8 windows, __dp4a) at one MB, 64x48, QCIF, CIF
+    and 720p, R 0 (one cell), 1, 8, 16, 28 and 32 (tiles that do not
+    divide 2R + 1), on a seeded picture and tools/p16_cases.py's 0/255,
+    255/0, flat (every SSD ties: the rate or the first p decides) and
+    edge-motion cases, at lambdas 0 and of QP 28 and 51; two launches
+    each on unchanged inputs."""
+    if case == "seeded":  # two moving frames, cut to W x H
+        fr = [[np.asarray(p, np.int32)[:H >> k, :W >> k]
+               for k, p in zip((0, 1, 1), f)]
+              for f in moving_frames(2, max(W, 64), max(H, 64), seed=W + R)]
+        ref = fast.ref_resources(*fr[0], device=cuda)[0]
+        cur = torch.as_tensor(fr[1][0], device=cuda)
+    else:
+        cur, ref = p16_built_case(case, H, W, R, seed=R + 11)
+        cur = torch.as_tensor(cur[0], device=cuda)
+        ref = torch.as_tensor(np.ascontiguousarray(ref[0]), device=cuda)
+    for lam in (0, _lam(28), _lam(51)):
+        want = P16.search_plain(cur, ref, R, lam)
+        before = P16.p16_search.launches
+        for _ in range(2):
+            got = P16.p16_search(cur, ref, R, lam)
+            torch.cuda.synchronize()
+            for name, g, x in zip(("mvx", "mvy", "grid0"), got, want):
+                assert g.dtype == x.dtype and torch.equal(g, x), (name, lam)
+        assert P16.p16_search.launches == before + 2
+        if case == "flat" and lam == 0:
+            assert bool((got[0] == -R).all() and (got[1] == -R).all())
 
 
 def test_p16_kernels_reject_bad_input(cuda):
