@@ -299,10 +299,12 @@ OPS_BANK = 29
 # lost-picture add and the square (integer), the conversion and the
 # float32 addition (FP32 pipe)
 OPS_DRIFT, FOPS_DRIFT = 3, 2
-# per candidate sample of csrc/p16_refine.cu: the two window samples'
-# rounded mean, the error and its square added; per chroma sample a
-# bilinear prediction
-OPS_P16_CAND = 4
+# per MB of p16_refine beside the coding: the 49 candidates' 256 squared
+# errors of u8 samples and the 40 averaging candidates' 256 rounded byte
+# means, a quarter each (__dp4a, __vavgu4: 4 u8 samples), and per
+# candidate its rate and first-minimum step (OPS_CELL + 3, as a cell of
+# p16_search)
+P16_CANDS, P16_MEANS = 49, 40
 # per grid cell of the dense searches (p16_search, ssd_grid8): the SSD's
 # three terms combined (2); p16_search adds the rate and the first minimum
 # (3)
@@ -698,15 +700,18 @@ def p16_refine_work(H: int, W: int):
     """(bytes, int32 ops) of one K13 call: the current planes, the integer
     vectors, and the windows the candidates read (per MB at most 18 x 18
     samples of each of G, b, h and j and 9 x 9 of each chroma pad; no more
-    than the planes), the outputs written once; per MB 49 candidates of
-    256 samples, the luma and chroma coding per sample."""
+    than the planes), the outputs written once; per MB the candidates'
+    squared errors and byte means of u8 samples, a quarter each, each
+    candidate's rate and first minimum, the luma and chroma coding per
+    sample."""
     n_mb = (H // 16) * (W // 16)
     Hp, Wp = H + 64, W + 64
     luma = min(n_mb * 4 * 18 * 18, Hp * Wp + 3 * (Hp - 5) * (Wp - 5))
     chroma = min(n_mb * 2 * 81, 2 * (H // 2 + 64) * (W // 2 + 64))
     inputs = H * W * 3 // 2 + 2 * n_mb + luma + chroma
     outputs = 2 * n_mb + 2 * H * W + 2 * (H * W // 2) + 8 * n_mb
-    ops = n_mb * (49 * 256 * OPS_P16_CAND + 256 * OPS_TQ
+    ops = n_mb * ((P16_CANDS + P16_MEANS) * 256 // DP4A_MACS
+                  + P16_CANDS * (OPS_CELL + 3) + 256 * OPS_TQ
                   + 128 * (OPS_BILIN + OPS_TQ))
     return (inputs + outputs) * 4, ops
 
@@ -1135,7 +1140,7 @@ def main(argv=None) -> int:
     from h264_tpu_torch.tools.profile_decode import mean_by_type, timed_decode
     from h264_tpu_torch.tools.p16_cases import CASES as P16_CASES
     from h264_tpu_torch.tools.p16_cases import built_case as p16_case
-    from h264_tpu_torch.tools.p16_cases import reached_sides
+    from h264_tpu_torch.tools.p16_cases import moved_vectors, reached_sides
     from h264_tpu_torch.parallel import dryrun as DRY
     from h264_tpu_torch.parallel.mesh import Mesh
     from h264_tpu_torch.parallel.sharded import rd_gop_rows_sharded
@@ -2118,12 +2123,15 @@ def main(argv=None) -> int:
         tm = timing.setdefault(size, {})
         tm["sad_grid_16x16"] = {
             "ms": cuda_ms(lambda: K10.sad_grid_16x16(*cargs), 20),
+            "device_ms": device_ms(lambda: K10.sad_grid_16x16(*cargs), 10),
             "plain_ms": cuda_ms(lambda: K10.sad_grid_16x16_plain(*cargs), 3),
             "library_ms": cuda_ms(lambda: sad_cdist(*cargs), 3),
             "launches_per_picture": "1 (P), 2 (B)",
             "work": sad_work(H, W, cargs[2])}
         print(f"time {W}x{H} R 16 sad_grid_16x16 per call: "
               f"{tm['sad_grid_16x16']['ms']:.4f} ms (events, mean of 20), "
+              f"device {tm['sad_grid_16x16']['device_ms']:.4f} ms (queued "
+              "behind a spin, mean of 10), "
               f"plain {tm['sad_grid_16x16']['plain_ms']:.3f} ms, torch.cdist "
               f"{tm['sad_grid_16x16']['library_ms']:.3f} ms, bound "
               f"{bound_ms(*tm['sad_grid_16x16']['work'])[0]:.5f} ms "
@@ -2249,10 +2257,18 @@ def main(argv=None) -> int:
                 hold_l("p16_refine", (*cur, *ref, mx, my, qp, qp,
                                       lam_fx(qp)), what)
                 n_built += 1
+            # vectors whose windows move: the corners at +-29, the others
+            # beyond the pad and at the int32 extremes
+            mx, my = (torch.as_tensor(v, device=dev)
+                      for v in moved_vectors(H, W, 28, seed=SEED + W))
+            hold_l("p16_refine", (*cur, *ref, mx, my, 28, 28, lam_fx(28)),
+                   f"built {W}x{H} {case} moved windows")
+            n_built += 1
     print(f"check legacy path: {len(legacy_calls)} recorded calls of "
           f"{', '.join(LEGACY)} (legacy IPPP, CIF and 1280x720, QP 0/28/51) "
           f"and {n_built} built inputs of p16_search and p16_refine (0/255, "
-          "flat, motion to +-28 at every edge; QP 0/28/51) equal to the "
+          "flat, motion to +-28 at every edge; QP 0/28/51; p16_refine also "
+          "on vectors whose windows wrap and clamp) equal to the "
           "plain versions (tolerance 0: bit-exact)")
     timing_l = {}  # K2 and K6 on the legacy path's inputs
     for size in (CIF, HD):

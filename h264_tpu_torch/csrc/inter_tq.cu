@@ -109,6 +109,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "tq_lanes.cuh"
 
 namespace {
 
@@ -120,71 +121,18 @@ __device__ __forceinline__ int rdoq_bits(int a) {
 // inter_luma_tq: a warp per (candidate, MB), two lanes per 4x4 block
 // ---------------------------------------------------------------------------
 // Lane 2 blk + h of a warp holds rows 2h and 2h + 1 of block blk = 4 br +
-// bc in registers.  Row passes run in the lane; a column pass needs the
-// partner's two rows only as two partial sums a column (lane ^ 1), because
-// every output of a 4-point pass is a sum of a term from rows 0-1 and one
-// from rows 2-3, the >> 1 of the inverse applying to single inputs.
-// Within a lane a row's parity is static, so quant, dequant and RDOQ
-// constants are too; only the zig-zag position depends on h.  Lane bits:
+// bc in registers, in the lane form of tq_lanes.cuh; the RDOQ constants of
+// a position are static too, and only the zig-zag position depends on h.
+// Lane bits:
 // 0 h, 1-2 bc, 3-4 br, so an 8x8 unit's blocks differ in bits 1 and 3 and
 // the MB's units in bits 2 and 4.
 constexpr int kLumaWarps = 8;  // problems a block
-constexpr unsigned kFull = 0xffffffffu;
 
 // zig-zag index of raster position k = 4 y + x (inverse of the 4x4
 // zig-zag scan), nibble k
 constexpr unsigned long long kZzOf = 0xFEA9DB83C7426510ULL;
 __device__ __forceinline__ constexpr int zz_of(int k) {
   return (int)((kZzOf >> (4 * k)) & 15);
-}
-__device__ __forceinline__ constexpr int cls_of(int j, int x) {
-  return ((j | x) & 1) == 0 ? 0 : ((j & x) & 1) ? 1 : 2;
-}
-
-__device__ __forceinline__ void fwd_row(int (&v)[4]) {
-  const int t0 = v[0] + v[3], t1 = v[1] + v[2], t2 = v[1] - v[2],
-            t3 = v[0] - v[3];
-  v[0] = t0 + t1;
-  v[1] = shl(t3, 1) + t2;
-  v[2] = t0 - t1;
-  v[3] = t3 - shl(t2, 1);
-}
-
-__device__ __forceinline__ void inv_row(int (&v)[4]) {
-  const int e0 = v[0] + v[2], e1 = v[0] - v[2], e2 = (v[1] >> 1) - v[3],
-            e3 = v[1] + (v[3] >> 1);
-  v[0] = e0 + e3;
-  v[1] = e1 + e2;
-  v[2] = e1 - e2;
-  v[3] = e0 - e3;
-}
-
-// column pass of forward4x4: with rows p0..p3, lane h = 0 keeps b0 = (p0 +
-// p1) + (p2 + p3), b1 = (2 p0 + p1) + (-p2 - 2 p3); lane h = 1 keeps b2 =
-// (p0 - p1) + (p3 - p2), b3 = (p0 - 2 p1) + (2 p2 - p3)
-__device__ __forceinline__ void fwd_cols(int (&r0)[4], int (&r1)[4], int h) {
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int a = r0[x], b = r1[x];
-    const int k0 = h ? b - a : a + b, k1 = h ? shl(a, 1) - b : shl(a, 1) + b;
-    const int s0 = h ? a + b : a - b, s1 = h ? -a - shl(b, 1) : a - shl(b, 1);
-    r0[x] = k0 + __shfl_xor_sync(kFull, s0, 1);
-    r1[x] = k1 + __shfl_xor_sync(kFull, s1, 1);
-  }
-}
-
-// column pass of inverse4x4: with rows w0..w3, h = 0 keeps (w0 + w1) + (w2
-// + (w3 >> 1)), (w0 + (w1 >> 1)) + (-w2 - w3); h = 1 keeps (w0 - (w1 >>
-// 1)) + (w3 - w2), (w0 - w1) + (w2 - (w3 >> 1))
-__device__ __forceinline__ void inv_cols(int (&r0)[4], int (&r1)[4], int h) {
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int a = r0[x], b = r1[x], hb = b >> 1;
-    const int k0 = h ? b - a : a + b, k1 = h ? a - hb : a + hb;
-    const int s0 = h ? a + hb : a - hb, s1 = h ? -a - b : a - b;
-    r0[x] = k0 + __shfl_xor_sync(kFull, s0, 1);
-    r1[x] = k1 + __shfl_xor_sync(kFull, s1, 1);
-  }
 }
 
 // JM coeff_cost from the block's nonzero mask M and |level| > 1 mask B in
@@ -357,15 +305,6 @@ luma_kernel(const int* __restrict__ pred, const int* __restrict__ orig,
 // its own block's entry; so do the cost sum of JM's AC drop.
 constexpr int kChromaWarps = 4;  // warps (two MBs each) a block, at most
 constexpr int kSMs = 132;        // an H100's SMs
-
-// the 2x2 Hadamard of the values of the lanes that differ in bits 1 and 2
-// (blocks cb = 0..3 of a plane), entry cb to block cb's lanes
-__device__ __forceinline__ int hadamard_blocks(int v, int cb) {
-  int p = __shfl_xor_sync(kFull, v, 2);
-  v = (cb & 1) ? p - v : v + p;
-  p = __shfl_xor_sync(kFull, v, 4);
-  return (cb & 2) ? p - v : v + p;
-}
 
 __global__ void __launch_bounds__(32 * kChromaWarps)
 chroma_kernel(const int* __restrict__ pred, const int* __restrict__ orig,

@@ -96,6 +96,10 @@ def p16_refine(cur_y, cur_u, cur_v, ref_pad, bpl, hpl, jpl, ref_u_pad,
                            ("int_mvx", int_mvx, (n_my, n_mx)),
                            ("int_mvy", int_mvy, (n_my, n_mx))):
         check_tensor("p16_refine", name, x, shape, _I32, dev)
+    for name, x in (("cur_y", cur_y), ("cur_u", cur_u), ("cur_v", cur_v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"p16_refine: {name} must start on a 16-byte "
+                             "boundary (the kernel reads its rows as int4)")
     lp, hp = (H + 2 * _P, W + 2 * _P), (H + 2 * _P - 5, W + 2 * _P - 5)
     cp = (Hc + 2 * _P, Wc + 2 * _P)
     ptrs, dims = [], []

@@ -34,6 +34,9 @@ def sad_grid_16x16(cur, ref_padded, search_range: int):
     check_tensor("sad_grid_16x16", "cur", cur, (H, W), _I32, dev)
     check_tensor("sad_grid_16x16", "ref_padded", ref_padded,
                  (H + 2 * R, W + 2 * R), _I32, dev)
+    if cur.data_ptr() % 16:
+        raise ValueError("sad_grid_16x16: cur must start on a 16-byte "
+                         "boundary (the kernel reads its rows as int4)")
     D = 2 * R + 1
     out = torch.empty((D, D, H // 16, W // 16), dtype=_I32, device=dev)
     rc = kernel_fn("sad_grid", "sad_grid_16x16", "ppiiipp")(

@@ -17,7 +17,9 @@
 ``built_case(name, H, W, R, seed)`` returns the current planes (Y, U, V)
 and the reference state (Ypad, b, h, j, Upad, Vpad) as int32 numpy
 arrays; ``reached_sides`` counts the MBs whose search vector lies at +-R
-on each side.
+on each side; ``moved_vectors`` gives integer vectors for K13 whose
+windows move (wrap or clamp) as the reference's ``dynamic_slice`` places
+them.
 """
 
 from __future__ import annotations
@@ -90,3 +92,22 @@ def reached_sides(int_mvx, int_mvy, R: int) -> dict:
             "right": int((mx[:, -1] == R).sum()),
             "top": int((my[0, :] == -R).sum()),
             "bottom": int((my[-1, :] == R).sum())}
+
+
+# integer vectors past the search range: one beyond R 32, beyond the pad
+# of 32, and at the int32 extremes (the products and sums wrap)
+FAR = (33, -33, 40, -40, 200, -200, 2 ** 30, -2 ** 31)
+
+
+def moved_vectors(H: int, W: int, R: int, seed: int):
+    """Integer vectors (n_my, n_mx) x 2, int32, whose refinement windows
+    move: the top-left MB at -(R + 1) and the bottom-right one at R + 1 on
+    both axes (its b window a row past the bottom, G wrapping at the top
+    at R 32), the others drawn from ``FAR``."""
+    rs = np.random.RandomState(seed)
+    n_my, n_mx = H // 16, W // 16
+    mx, my = (rs.choice(np.array(FAR, np.int64), (n_my, n_mx))
+              for _ in range(2))
+    mx[0, 0] = my[0, 0] = -(R + 1)
+    mx[-1, -1] = my[-1, -1] = R + 1
+    return mx.astype(np.int32), my.astype(np.int32)

@@ -24,11 +24,16 @@ times on the second P and the second B picture's inputs:
   picture's calls on the device and back to back;
 - the ``deblock`` call, the same two ways;
 - K1 ``intra_commit_scan`` on the picture's scan state (its intra MBs);
-- the SASS of K5's and K12's kernels (``sass_report``): each kernel's
-  instructions, its ``__dp4a`` and each loop body's;
+- the SASS of K5's, K10's, K12's and K13's kernels (``sass_report``):
+  each kernel's instructions, its ``__dp4a`` and each loop body's;
 - on the legacy path's second P picture (``rd=False``, IPPP, CAVLC, QP
-  28, search range 28), K12 ``p16_search`` one call the same ways,
-  beside an empty launch of each of its designs' grids (``legacy_P``);
+  28, search range 28), K12 ``p16_search`` and K13 ``p16_refine`` one
+  call each the same ways, beside an empty launch of each of their
+  designs' grids (``legacy_P``);
+- K10 ``sad_grid_16x16`` one call the same ways at search range 16 on a
+  seeded ``moving_frames`` pair, the reference edge-padded as
+  ``me.compute_sad_grids`` pads it (``sad_grid``; the host path's own
+  calls come one an MB loop of a picture, too slow to record at 720p);
 - for ``b_direct``, the distinct 32-byte sectors its gathers touch
   (``sector_bytes``, with the fields and outputs, and their time at
   3.35 TB/s, ``sector_bound_ms``): the least traffic of its reads at the
@@ -69,7 +74,7 @@ CIF, HD = (352, 288), (1280, 720)
 SEED = 20260717
 # the kernel sources the bench configuration's pictures run
 STEMS = ("intra_commit", "ref_bank", "search_grid", "qpel", "inter_tq",
-         "deblock", "b_direct", "p16_search")
+         "deblock", "b_direct", "p16_search", "p16_refine", "sad_grid")
 
 
 def power_line() -> str:
@@ -230,8 +235,8 @@ def _p16_threads(R: int) -> int:
 
 def record_legacy(size):
     """The legacy path's (``rd=False``: IPPP, CAVLC, QP 28, search range
-    28; ``moving_frames``, 4 frames) ``p16_search`` calls, one a P
-    picture, in coding order."""
+    28; ``moving_frames``, 4 frames) ``p16_search`` and ``p16_refine``
+    calls, one each a P picture, in coding order: {name: [args, ...]}."""
     import torch
     from h264_tpu_torch.encoder import fast
     from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
@@ -243,21 +248,36 @@ def record_legacy(size):
     enc._legacy_kernels, calls = fast.recording(fast.default_kernels())
     list(enc.encode_stream(moving_frames(4, *size, seed=SEED)))
     torch.cuda.synchronize()
-    return [a for n, a in calls if n == "p16_search"]
+    return {name: [a for n, a in calls if n == name]
+            for name in ("p16_search", "p16_refine")}
 
 
-def p16_times(args, reps: int = 20) -> dict:
-    """One ``p16_search`` call: its device time queued behind a spin, back
-    to back, and an empty launch of each of its designs' grids."""
-    from h264_tpu_torch.kernels import p16 as P16
+def sad_case(size, R: int = 16):
+    """K10's arguments on a seeded ``moving_frames`` pair: the second
+    picture's luma against the first's, edge-padded by R on the host as
+    ``me.compute_sad_grids`` pads it."""
+    import numpy as np
+    import torch
+    from h264_tpu_torch.tools.synthseq import moving_frames
 
-    def fn():
-        return P16.p16_search(*args)
+    fr = moving_frames(2, *size, seed=SEED)
+    ref = np.pad(np.asarray(fr[0][0], np.int32), R, mode="edge")
+    return (torch.as_tensor(np.asarray(fr[1][0], np.int32), device="cuda"),
+            torch.as_tensor(ref, device="cuda"), R)
 
-    return {"device_ms": spin_ms(fn, reps), **back_to_back(fn, reps),
+
+def one_entry_times(name: str, fn, args, reps: int = 20) -> dict:
+    """One call of the entry `fn` (``GRIDS[name]`` its grids): its device
+    time queued behind a spin, back to back, and an empty launch of each
+    of its designs' grids."""
+
+    def call():
+        return fn(*args)
+
+    return {"device_ms": spin_ms(call, reps), **back_to_back(call, reps),
             "launches": 1, "empty_launch_ms": {
                 f"{b}x{t}": empty_launch_ms(b, t, reps)
-                for b, t in GRIDS["p16_search"](args)}}
+                for b, t in GRIDS[name](args)}}
 
 
 def _grid(warps: int):
@@ -269,6 +289,35 @@ def _grid(warps: int):
 
 def _cdiv(a: int, b: int) -> int:
     return (a + b - 1) // b
+
+
+def _p16_refine_grids(a):
+    """p16_refine's grid (a warp an MB, 2 to 4 MBs a block as leave a
+    block for each SM), then the first design's (256 threads an MB)."""
+    n_mb = a[0].numel() // 256
+    return [_i16_grid(n_mb), (n_mb, 256)]
+
+
+def _sad_grids(a):
+    """sad_grid_16x16's grid (blocks of 128 threads: runs of 8 MBs of a row
+    by strips of at most 16 quads by groups of 16 tiles of 4 dx x 3 dy),
+    then the first design's (an MB by tiles of up to 256 positions, a
+    thread a position)."""
+    import importlib.util
+
+    # this checkout's geometry: under --root the package is another's
+    path = pathlib.Path(__file__).resolve().parents[1] / "kernels"
+    spec = importlib.util.spec_from_file_location(
+        "sad_geometry", path / "sad_geometry.py")
+    geo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(geo)
+    H, W = a[0].shape
+    D = 2 * a[2] + 1
+    x, y, z = geo.geometry(a[2]).blocks(H, W)
+    dxt = min(D, 256)
+    dyt = min(256 // dxt, D)
+    return [(x * y * z, 32 * geo.WARPS),
+            (H // 16 * (W // 16) * _cdiv(D, dyt) * _cdiv(D, dxt), 256)]
 
 
 def _bank_blocks(H: int, W: int) -> int:
@@ -310,6 +359,8 @@ GRIDS = {
                                 (a[0].numel() // 256, 64)],
     "p16_search": lambda a: [(a[0].numel() // 256, _p16_threads(a[2])),
                              (a[0].numel() // 256, 256)],
+    "p16_refine": _p16_refine_grids,
+    "sad_grid_16x16": _sad_grids,
     "sub8_search": lambda a: [(a[2].numel() // 2, 128)],
     "mc_luma": lambda a: [(_cdiv(a[1].numel() * a[7] * a[8], 256), 256)],
     "mc_chroma": lambda a: [(_cdiv(a[1].shape[0] * 128, 256), 256)],
@@ -730,6 +781,8 @@ def main(argv=None) -> int:
         return 2
     import h264_tpu_torch
     from h264_tpu_torch import device as D
+    from h264_tpu_torch.kernels import p16 as P16
+    from h264_tpu_torch.kernels import sad_grid as K10
 
     t0 = time.perf_counter()
     card = power_line()
@@ -741,7 +794,8 @@ def main(argv=None) -> int:
                 print(f"  ptxas {stem}: {ln.strip()}")
     report = {"package": str(pathlib.Path(h264_tpu_torch.__file__).parent),
               "device": torch.cuda.get_device_name(0), "card": card,
-              "sass": sass_report(("inter_tq", "p16_search"))}
+              "sass": sass_report(("inter_tq", "p16_search", "p16_refine",
+                                   "sad_grid"))}
     for stem, kernels in report["sass"].items():
         for name, v in kernels.items():
             print(f"  sass {stem} {name}: {v['n']} instructions, {v['idp']} "
@@ -752,8 +806,13 @@ def main(argv=None) -> int:
         report[f"{size[0]}x{size[1]}"] = {
             kind: picture_times(*pics[kind][1]) for kind in ("P", "B")}
         # the legacy path's second P picture
+        legacy = record_legacy(size)
         report[f"{size[0]}x{size[1]}"]["legacy_P"] = {
-            "p16_search": p16_times(record_legacy(size)[1])}
+            name: one_entry_times(name, getattr(P16, name), legacy[name][1])
+            for name in ("p16_search", "p16_refine")}
+        report[f"{size[0]}x{size[1]}"]["sad_grid"] = {
+            "sad_grid_16x16": one_entry_times(
+                "sad_grid_16x16", K10.sad_grid_16x16, sad_case(size))}
         if other is not None:
             report.setdefault("ab", {"package": str(pathlib.Path(
                 other.__file__).parent)})[f"{size[0]}x{size[1]}"] = {

@@ -50,6 +50,7 @@ from h264_tpu_torch.tools.drift_cases import CASES as DRIFT_CASES
 from h264_tpu_torch.tools.drift_cases import built_case as drift_case
 from h264_tpu_torch.tools.p16_cases import CASES as P16_CASES
 from h264_tpu_torch.tools.p16_cases import built_case as p16_built_case
+from h264_tpu_torch.tools.p16_cases import moved_vectors as p16_moved_vectors
 from h264_tpu_torch.tools.p16_cases import reached_sides as p16_reached
 from h264_tpu_torch.tools.rows_cases import edge_motion
 from h264_tpu_torch.tools.search_tq_cases import (COARSE_CONTENTS,
@@ -1054,6 +1055,48 @@ def test_sad_grid_matches_plain(cuda, W, H, R, content):
         assert int(got.min()) == int(got.max()) == 255 * 256
 
 
+# (W, H, R): every size at R 0, 1, 16, 33 and 64; then ranges whose quads
+# make several strips where a cut into strips of 16 would leave a narrow
+# last one (R 120 and 121: 13 quads; R 1000: 5), whose blocks span the
+# most tile rows
+SAD_BUILT = [(W, H, R) for W, H in ((16, 16), (48, 32), (1280, 16),
+                                    (176, 144), (352, 288), (1280, 720))
+             for R in (0, 1, 16, 33, 64)] + [
+    (16, 16, 120), (16, 16, 121), (16, 16, 1000), (48, 32, 120),
+    (176, 144, 121)]
+
+
+@pytest.mark.parametrize("content", ["random", "flat", "0_255", "padded"])
+@pytest.mark.parametrize("W,H,R", SAD_BUILT, ids=lambda v: str(v))
+def test_sad_grid_matches_plain_built(cuda, W, H, R, content):
+    """sad_grid_16x16 (packed u8 windows, tiles of 4 x 3 cells, runs of 8
+    MBs a block) at one MB, 48x32 (a run cut to 3 MBs), one MB row of
+    1280x16 (ten runs), QCIF (runs of 8 and 3), CIF and 720p, R 0, 1,
+    16, 33 and 64 (tiles that do not divide 2R + 1; R 33 and 64 split the
+    grid over blocks), and at R 120, 121 and 1000 (four to 32 strips), on
+    random, flat, 0/255 and edge-padded content (a seeded moving_frames
+    pair padded as me.compute_sad_grids pads it); two launches on
+    unchanged inputs."""
+    if content == "padded":
+        fr = moving_frames(2, max(W, 64), max(H, 64), seed=W + R)
+        cur = torch.as_tensor(np.ascontiguousarray(
+            np.asarray(fr[1][0], np.int32)[:H, :W]), device=cuda)
+        ref = torch.as_tensor(np.pad(np.asarray(fr[0][0], np.int32)[:H, :W],
+                                     R, mode="edge"), device=cuda)
+    else:
+        cur, ref = _sad_inputs(content, W, H, R, seed=W + R, device=cuda)
+    want = K10.sad_grid_16x16_plain(cur, ref, R)
+    before = K10.sad_grid_16x16.launches
+    for _ in range(2):
+        got = K10.sad_grid_16x16(cur, ref, R)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want)
+    assert K10.sad_grid_16x16.launches == before + 2
+    if content == "0_255":
+        assert int(got.min()) == int(got.max()) == 255 * 256
+
+
 def test_sad_grid_rejects_bad_input(cuda):
     cur, ref = _sad_inputs("random", 48, 32, 4, seed=1, device=cuda)
     with pytest.raises(ValueError, match="ref_padded"):
@@ -1319,6 +1362,44 @@ def test_p16_search_matches_plain_built(cuda, W, H, R, case):
         assert P16.p16_search.launches == before + 2
         if case == "flat" and lam == 0:
             assert bool((got[0] == -R).all() and (got[1] == -R).all())
+
+
+@pytest.mark.parametrize("case", ["seeded", *P16_CASES])
+@pytest.mark.parametrize("R", [0, 8, 28, 32])
+@pytest.mark.parametrize("W,H", [(16, 16), (48, 32), (176, 144), (352, 288),
+                                 (1280, 720)], ids=lambda v: str(v))
+def test_p16_refine_matches_plain_built(cuda, W, H, R, case):
+    """p16_refine (a warp an MB on packed u8 windows) at one MB, 48x32,
+    QCIF, CIF and 720p, on a seeded picture against the previous one's K2
+    bank and on tools/p16_cases.py's built ones, at QP 0, 28 and 51: from
+    the plain search's vectors at R 0, 8, 28 and 32 (the edges case's
+    windows wrap and clamp at R 32), and from vectors whose windows move
+    (p16_cases.moved_vectors: the corner MBs at +-(R + 1), vectors beyond
+    the pad and at the int32 extremes); two launches each on unchanged
+    inputs."""
+    if case == "seeded":  # two moving frames, cut to W x H
+        fr = [[np.ascontiguousarray(np.asarray(p, np.int32)[:H >> k, :W >> k])
+               for k, p in zip((0, 1, 1), f)]
+              for f in moving_frames(2, max(W, 64), max(H, 64), seed=W + R)]
+        ref = fast.ref_resources(*fr[0], device=cuda)
+        cur = tuple(torch.as_tensor(p, device=cuda) for p in fr[1])
+    else:
+        cur, ref = _legacy_inputs(case, W, H, R, cuda)
+    moved = tuple(torch.as_tensor(v, device=cuda)
+                  for v in p16_moved_vectors(H, W, R, seed=W + R))
+    for qp in (0, 28, 51):
+        lam = _lam(qp)
+        searched = P16.search_plain(cur[0], ref[0], R, lam)[:2]
+        for what, (mx, my) in (("searched", searched), ("moved", moved)):
+            want = P16.refine_tq_plain(*cur, *ref, mx, my, qp, qp, lam)
+            before = P16.p16_refine.launches
+            for _ in range(2):
+                got = P16.p16_refine(*cur, *ref, mx, my, qp, qp, lam)
+                torch.cuda.synchronize()
+                for i, (g, x) in enumerate(zip(got, want)):
+                    assert g.dtype == x.dtype and torch.equal(g, x), (
+                        what, qp, i)
+            assert P16.p16_refine.launches == before + 2
 
 
 def test_p16_kernels_reject_bad_input(cuda):
