@@ -28,8 +28,10 @@
    the 8x8-transform decision) against its plain version on the real
    inputs of P pictures with the 8x8 transform (1 I + 2 P, CIF and
    1280x720, QP 28 and 51, WP on) and on built inputs (QP 0 with +-255
-   residuals, zero residuals that tie, every winner class;
-   tools/t8_cases.py), and times both per CIF and 720p P picture; times
+   residuals, zero residuals that tie, every winner class; 1, 5, 397 and
+   3600 MBs, which leave the last block of MBs short, at QP 0, 28 and 51;
+   tools/t8_cases.py), and times both per CIF and 720p P picture (events,
+   and on the device queued behind a spin); times
    K4's ``qpel_refine`` per shape and per picture, K6's ``deblock`` and K1
    on the P and B pictures on the device (each call queued behind a spin
    of the card) beside every kernel's time back to back, and K6's chain on
@@ -94,9 +96,12 @@
    decoders' drift step) against its plain version on every step of the
    error-resilient encodes (CIF, 1280x720) and on the built inputs of
    tools/drift_cases.py (|drift| to 4095 and 60000, all / none lost, all
-   intra, gathers clipped on every side; K 1, 3 and 30; CIF, 1280x720),
-   and times both per P picture at CIF and 1280x720 with K 30 (events,
-   mean of 20); holds K12 (``p16_search``) and K13 (``p16_refine``) against
+   intra, gathers clipped on every side, MB totals at 2^24 - 1, 2^24 and
+   2^24 + 1; K 1, 3 and 30 at CIF and 1280x720, 33 and 64 at CIF),
+   prints the share of MBs on its ordered route (from the plain version's
+   terms) for each recorded path and built case, and times both per P
+   picture at CIF and 1280x720 with K 30 (events, mean of 20; the kernel
+   also on the device, queued behind a spin); holds K12 (``p16_search``) and K13 (``p16_refine``) against
    their plain versions on every call of the legacy encodes (QP 28, and 1
    I + 2 P at QP 0 and 51, CIF and 1280x720) and on the built inputs of
    tools/p16_cases.py (0/255 and flat planes, motion to +-28 at every
@@ -296,9 +301,10 @@ OPS_T8 = 37
 # shared along the row, the 6-tap over them, shift, clamp)
 OPS_BANK = 29
 # per sample and decoder of csrc/propagate_drift.cu: the select, the
-# lost-picture add and the square (integer), the conversion and the
-# float32 addition (FP32 pipe)
-OPS_DRIFT, FOPS_DRIFT = 3, 2
+# lost-picture add, the square and its exact sum (integer); on the MBs
+# whose float32 sum can round, the conversion and the float32 addition
+# (FP32 pipe)
+OPS_DRIFT, FOPS_DRIFT = 4, 2
 # per MB of p16_refine beside the coding: the 49 candidates' 256 squared
 # errors of u8 samples and the 40 averaging candidates' 256 rounded byte
 # means, a quarter each (__dp4a, __vavgu4: 4 u8 samples), and per
@@ -675,14 +681,17 @@ def sad_cdist(cur, ref_p, R: int):
     return d.reshape(n_my, n_mx, D, D).permute(2, 3, 0, 1)
 
 
-def drift_work(K: int, H: int, W: int):
+def drift_work(K: int, H: int, W: int, ordered: float = 1.0):
     """(bytes, int32 operations, float32 operations) of one K11 call: the
     drift read and the new drift written, the delta, mv4, intra and lost
-    read once, the penalty written."""
+    read once, the penalty written; the float32 sum only on the share
+    `ordered` of the MBs that need the reference's order (the others'
+    exact integer total gives it)."""
     n4 = (H // 4) * (W // 4)
     nbytes = (2 * K + 1) * H * W * 4 + n4 * (8 + 1) + K + (H // 16) * (
         W // 16) * 4
-    return nbytes, OPS_DRIFT * K * H * W, FOPS_DRIFT * K * H * W
+    return (nbytes, OPS_DRIFT * K * H * W,
+            round(FOPS_DRIFT * K * H * W * ordered))
 
 
 def p16_search_work(H: int, W: int, R: int):
@@ -1136,6 +1145,7 @@ def main(argv=None) -> int:
     from h264_tpu_torch.tools.drift_cases import CASES as DRIFT_CASES
     from h264_tpu_torch.tools.drift_cases import built_case as drift_case
     from h264_tpu_torch.tools.drift_cases import clipped_sides
+    from h264_tpu_torch.tools.drift_cases import ordered_route
     from h264_tpu_torch.syntax.slice_header import parse_slice_header
     from h264_tpu_torch.tools.profile_decode import mean_by_type, timed_decode
     from h264_tpu_torch.tools.p16_cases import CASES as P16_CASES
@@ -1151,7 +1161,9 @@ def main(argv=None) -> int:
         strengths_branches
     from h264_tpu_torch.tools.strengths_cases import strengths_inputs
     from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
+    from h264_tpu_torch.tools.t8_cases import MB_COUNTS as T8_MB_COUNTS
     from h264_tpu_torch.tools.t8_cases import built_cases as t8_cases
+    from h264_tpu_torch.tools.t8_cases import sized_case as t8_sized_case
     from h264_tpu_torch.tools import time_kernels as TK
 
     dev = torch.device("cuda")
@@ -1575,12 +1587,16 @@ def main(argv=None) -> int:
                 tm = timing.setdefault(size, {})
                 tm["t8_decide"] = {
                     "ms": cuda_ms(lambda a=k9[1]: K9.t8_decide(*a), 20),
+                    "device_ms": device_ms(
+                        lambda a=k9[1]: K9.t8_decide(*a), 10),
                     "plain_ms": cuda_ms(
                         lambda a=k9[1]: K9.t8_decide_plain(*a), 5),
                     "launches_per_picture": 1,
                     "work": p_work("t8_decide", k9[1])}
                 print(f"time {size[0]}x{size[1]} t8_decide per P picture: "
-                      f"{tm['t8_decide']['ms']:.4f} ms, plain "
+                      f"{tm['t8_decide']['ms']:.4f} ms (events, mean of "
+                      f"20), device {tm['t8_decide']['device_ms']:.4f} ms "
+                      "(queued behind a spin, mean of 10), plain "
                       f"{tm['t8_decide']['plain_ms']:.3f} ms, bound "
                       f"{bound_ms(*tm['t8_decide']['work'])[0]:.5f} ms")
     n_mb_cif = (CIF[0] // 16) * (CIF[1] // 16)
@@ -1591,9 +1607,17 @@ def main(argv=None) -> int:
             fail("t8_decide: a tie chose the 8x8 transform")
         if name == "qp0_bound" and int(got[1].abs().max()) != 3264:
             fail("t8_decide: the QP 0 bound case misses level 3264")
+    for n_mb in T8_MB_COUNTS:  # blocks of 1 to 4 MBs, the last one short
+        for qp in (0, 28, 51):
+            name, arrs, qp, lam = t8_sized_case(n_mb, SEED, qp)
+            got = hold_k9(tuple(torch.as_tensor(a, device=dev)
+                                for a in arrs) + (qp, lam), f"built {name}")
+            if n_mb >= 397 and (got[0].all() or not got[0].any()):
+                fail(f"t8_decide built {name}: one transform won everywhere")
     print("check t8_decide built inputs (QP 0 +-255 residuals at the level "
-          "bound 3264, ties, every winner class at QP 28 and 51): equal to "
-          "the plain version (tolerance 0: bit-exact)")
+          "bound 3264, ties, every winner class at QP 28 and 51; "
+          f"{', '.join(map(str, T8_MB_COUNTS))} MBs at QP 0, 28 and 51): "
+          "equal to the plain version (tolerance 0: bit-exact)")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
 
@@ -2141,7 +2165,11 @@ def main(argv=None) -> int:
     # K11 against its plain version on every recorded and built input
     max_drift = {}  # path -> the largest |drift| its decoders reached
 
-    def hold_k11(cargs, what):
+    # the share of MBs on K11's ordered route, from the plain version's
+    # terms: (MBs ordered, MBs) per recorded path and size, per built case
+    ordered_mbs = {}
+
+    def hold_k11(cargs, what, key):
         got = K11.propagate_drift(*cargs)
         want = propagate_drift_plain(*cargs)
         for g, w, part in zip(got, want, ("drift", "pen")):
@@ -2154,14 +2182,19 @@ def main(argv=None) -> int:
                 fail(f"propagate_drift {what}: {part} differs from its plain "
                      f"version ({int((d > 0).sum())} elements, first max at "
                      f"{idx}: kernel {int(g[idx])} plain {int(w[idx])})")
+        route = ordered_route(want[0])
+        n = ordered_mbs.setdefault(key, [0, 0])
+        n[0] += int(route.sum())
+        n[1] += route.numel()
         return got
 
     for tag, size, cargs in k11_calls:
-        new, _ = hold_k11(cargs, f"recorded {tag} {size}")
+        new, _ = hold_k11(cargs, f"recorded {tag} {size}",
+                          f"recorded {tag} {size[1]}x{size[0]}")
         max_drift[tag] = max(max_drift.get(tag, 0), int(new.abs().max()))
     n_built = 0
     for (W, H) in (CIF, HD):
-        for K in (1, 3, 30):
+        for K in (1, 3, 30, 33, 64) if (W, H) == CIF else (1, 3, 30):
             for case in DRIFT_CASES:
                 arrs = drift_case(case, H, W, K, seed=SEED)
                 if case == "edges" and min(clipped_sides(
@@ -2169,29 +2202,42 @@ def main(argv=None) -> int:
                     fail(f"propagate_drift built {W}x{H}: a side is not "
                          "clipped")
                 hold_k11(tuple(torch.as_tensor(a, device=dev) for a in arrs),
-                         f"built {W}x{H} K {K} {case}")
+                         f"built {W}x{H} K {K} {case}", f"built {case}")
                 n_built += 1
+    if not 0 < ordered_mbs["built threshold"][0] < ordered_mbs[
+            "built threshold"][1]:
+        fail("propagate_drift built threshold: one route took every MB")
     print(f"check propagate_drift: {len(k11_calls)} recorded steps of the "
           f"error-resilient encodes (CIF, 1280x720) and {n_built} built "
           "inputs (|drift| to 4095 and 60000, all / none lost, all intra, "
-          "gathers clipped on every side; K 1/3/30) equal to the plain "
-          "version (tolerance 0: bit-exact); largest |drift| reached: "
-          f"{max_drift}")
+          "gathers clipped on every side, MB totals about 2^24; K 1/3/30, "
+          "at CIF also 33/64) equal to the plain version (tolerance 0: "
+          f"bit-exact); largest |drift| reached: {max_drift}")
+    print("propagate_drift MBs on the ordered route (a square wrapped "
+          "negative or an exact total above 2^24; from the plain terms): "
+          + ", ".join(f"{k} {a}/{b} ({a / b:.4f})"
+                      for k, (a, b) in ordered_mbs.items()))
     report["max_abs_drift"] = max_drift
+    report["drift_ordered_mbs"] = ordered_mbs
     for size in (CIF, HD):
         W, H = size
         cargs = next(a for t, s, a in k11_calls
                      if t == "IPB-ER" and s == (H, W))
         K = cargs[0].shape[0]
         tm = timing.setdefault(size, {})
+        new = propagate_drift_plain(*cargs)[0]
         tm["propagate_drift"] = {
             "ms": cuda_ms(lambda: K11.propagate_drift(*cargs), 20),
+            "device_ms": device_ms(lambda: K11.propagate_drift(*cargs), 10),
             "plain_ms": cuda_ms(lambda: propagate_drift_plain(*cargs), 20),
             "launches_per_picture": "1 (RD P)",
-            "work": drift_work(K, H, W)}
+            "work": drift_work(K, H, W, float(
+                ordered_route(new).float().mean()))}
         b_ms, b_by = bound_ms(*tm["propagate_drift"]["work"])
         print(f"time {W}x{H} K {K} propagate_drift per P picture: "
               f"{tm['propagate_drift']['ms']:.4f} ms (events, mean of 20), "
+              f"device {tm['propagate_drift']['device_ms']:.4f} ms (queued "
+              "behind a spin, mean of 10), "
               f"plain {tm['propagate_drift']['plain_ms']:.3f} ms (mean of "
               f"20), bound {b_ms:.5f} ms ({b_by}, "
               f"{tm['propagate_drift']['work'][0]} B); no single PyTorch "

@@ -154,6 +154,14 @@ def stream_of(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def check_aligned(fn: str, name: str, x, nbytes: int = 16) -> None:
+    """Raise unless tensor x starts on an `nbytes` boundary (the kernels
+    that read or write it in 16-byte accesses need it)."""
+    if x.data_ptr() % nbytes:
+        raise ValueError(f"{fn}: {name} must start on a {nbytes}-byte "
+                         f"boundary (a view at an offset does not)")
+
+
 def check_launch(rc: int, name: str) -> None:
     """Raise when a kernel's C entry returned a CUDA error code."""
     if rc != 0:

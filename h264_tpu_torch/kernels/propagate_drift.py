@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from ..device import check_launch, check_tensor, kernel_fn, stream_of
+from ..device import (check_aligned, check_launch, check_tensor, kernel_fn,
+                      stream_of)
 from ..encoder.lossaware import propagate_drift_plain
 
 _I32 = torch.int32
@@ -35,6 +36,9 @@ def propagate_drift(drift, frame_delta, mv4, intra4, lost):
     check_tensor(fn, "mv4", mv4, (H // 4, W // 4, 2), _I32, dev)
     check_tensor(fn, "intra4", intra4, (H // 4, W // 4), torch.bool, dev)
     check_tensor(fn, "lost", lost, (K,), torch.bool, dev)
+    for name, x in (("drift", drift), ("frame_delta", frame_delta),
+                    ("mv4", mv4)):  # read in 16- and 8-byte loads
+        check_aligned(fn, name, x)
     new = torch.empty_like(drift)
     pen = torch.empty((H // 16) * (W // 16), dtype=_I32, device=dev)
     rc = kernel_fn("propagate_drift", "propagate_drift", "pppppiiippp")(

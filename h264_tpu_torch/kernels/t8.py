@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ..device import check_launch, check_tensor, kernel_fn, stream_of
+from ..device import (check_aligned, check_launch, check_tensor, kernel_fn,
+                      stream_of)
 from ..encoder import rd_p
 
 t8_decide_plain = rd_p.t8_decide_plain
@@ -36,6 +37,8 @@ def t8_decide(orig_mb, w_pred, w_rec, w_lev, win, w_sub, is_intra, qp: int,
             ("win", win, (n_mb,), _I32), ("w_sub", w_sub, (n_mb, 4), _I32),
             ("is_intra", is_intra, (n_mb,), torch.bool)):
         check_tensor("t8_decide", name, x, shape, dt, dev)
+        if dt == _I32 and name != "win":  # read in 16-byte loads
+            check_aligned("t8_decide", name, x)
     if not 0 <= int(qp) <= 51:
         raise ValueError(f"t8_decide: qp {qp} outside 0..51")
     t8 = torch.empty(n_mb, dtype=_I32, device=dev)

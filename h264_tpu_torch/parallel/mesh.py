@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import os
 import tempfile
+import time
 from dataclasses import dataclass
 from datetime import timedelta
 
@@ -34,6 +35,9 @@ BACKENDS = ("nccl", "gloo")
 # a rank that waits longer than this for the rendezvous or a neighbour's
 # halo raises, and so fails the run instead of hanging it
 TIMEOUT = timedelta(seconds=300)
+# a launch whose ranks have not all ended after this many seconds stops
+# them and raises, so that no caller waits on a rank for ever
+LAUNCH_LIMIT = 1200.0
 
 
 @dataclass(frozen=True)
@@ -121,18 +125,46 @@ def _rank_main(i: int, mesh: Mesh, tmp: str, fn) -> None:
     dist.destroy_process_group()
 
 
+def _join(ctx, limit: float) -> None:
+    """Wait for every rank of the spawn context `ctx`, at most `limit`
+    seconds; then, ended or not, stop and reap each process still there.
+    Raises TimeoutError past the limit, and what ``ctx.join`` raises when
+    a rank fails."""
+    deadline = time.monotonic() + limit
+    try:
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"mesh launch: ranks still running after "
+                                   f"{limit:.0f} s")
+            if ctx.join(timeout=min(left, 5.0)):
+                return
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        for p in ctx.processes:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
 def launch(mesh: Mesh, fn, *args) -> list:
     """Run fn(Rank, *args) on every rank of `mesh` and return what each
     returned, by rank.  `fn` is a function of this package and `args`
     are picklable (numpy arrays, numbers).  The spawned ranks import the
     caller's main script, so a script that calls this keeps its work under
-    ``if __name__ == "__main__"``.  Raises when a rank raises."""
+    ``if __name__ == "__main__"``.  Raises when a rank raises, and (after
+    stopping every rank) when they have not all ended within
+    ``LAUNCH_LIMIT`` seconds."""
     with tempfile.TemporaryDirectory(prefix="h264_mesh_") as tmp:
         # through a file, not the spawn pipe: a process's arguments larger
         # than the pipe's buffer hold its start until the one before has
         # imported its modules, so the ranks would start one by one
         torch.save(args, os.path.join(tmp, "args.pt"))
-        mp.spawn(_rank_main, args=(mesh, tmp, fn), nprocs=mesh.size,
-                 join=True, start_method="spawn")
+        _join(mp.start_processes(_rank_main, args=(mesh, tmp, fn),
+                                 nprocs=mesh.size, join=False,
+                                 start_method="spawn"), LAUNCH_LIMIT)
         return [torch.load(os.path.join(tmp, f"rank{i}.pt"),
                            weights_only=False) for i in range(mesh.size)]

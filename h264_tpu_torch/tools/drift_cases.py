@@ -14,7 +14,12 @@ Each case is (drift (K, H, W) int32, frame_delta (H, W) int32, mv4
   int32, every picture lost (the large values kept);
 - ``edges``: motion of up to 3 pictures' size, every 4x4 block's gather
   clipped, on every side of the picture;
-- ``all_lost``, ``none_lost``, ``all_intra``: the three branches alone.
+- ``all_lost``, ``none_lost``, ``all_intra``: the three branches alone;
+- ``threshold``: each MB's total over the K decoders of the new drift's
+  squares set exactly (``THRESHOLD_TOTALS``, in turn): 2^24 - 1, 2^24 and
+  2^24 + 1, and beside them, so that the kernel's order-free route (exact
+  totals up to 2^24) and its ordered one both run in one call; no motion,
+  no intra, a zero delta, so the new drift is the drift.
 """
 
 from __future__ import annotations
@@ -22,7 +27,33 @@ from __future__ import annotations
 import numpy as np
 
 CASES = ("seeded", "large", "wrap", "edges", "all_lost", "none_lost",
-         "all_intra")
+         "all_intra", "threshold")
+# the ``threshold`` case's MB totals, MB m taking entry m % 9
+THRESHOLD_TOTALS = tuple(2 ** 24 + d for d in (-1, 0, 1, -2, 2, -100, 100)) + (
+    2 ** 23, 2 ** 25)
+
+
+def _threshold_drift(rng, H: int, W: int, K: int):
+    """Drift (K, H, W) whose MB m has sum of squares THRESHOLD_TOTALS[m % 9]:
+    `cap` (at most 4095, at least what fits the MB's K x 256 samples) as
+    often as it fits, then greedy squares, at random samples with random
+    signs."""
+    n_my, n_mx = H // 16, W // 16
+    mbs = np.zeros((n_my * n_mx, K * 256), np.int64)
+    for m in range(n_my * n_mx):
+        rem = THRESHOLD_TOTALS[m % len(THRESHOLD_TOTALS)]
+        cap = int(rng.integers(int(np.sqrt(rem // (K * 256 - 16))) + 1, 4096))
+        vals = [cap] * (rem // (cap * cap))
+        rem -= len(vals) * cap * cap
+        while rem:
+            v = int(np.sqrt(rem))
+            v -= v * v > rem
+            vals.append(v)
+            rem -= v * v
+        at = rng.choice(K * 256, len(vals), replace=False)
+        mbs[m, at] = np.array(vals) * rng.choice([-1, 1], len(vals))
+    return mbs.reshape(n_my, n_mx, K, 16, 16).transpose(2, 0, 3, 1, 4).reshape(
+        K, H, W).astype(np.int32)
 
 
 def built_case(name: str, H: int, W: int, K: int, seed: int = 0):
@@ -33,6 +64,11 @@ def built_case(name: str, H: int, W: int, K: int, seed: int = 0):
     drift = (rng.integers(-amp, amp + 1, (K, H, W))
              * (rng.random((K, H, W)) < dens)).astype(np.int32)
     delta = rng.integers(-255, 256, (H, W)).astype(np.int32)
+    if name == "threshold":
+        lost = rng.random(K) < 0.4
+        return (_threshold_drift(rng, H, W, K), np.zeros((H, W), np.int32),
+                np.zeros((H // 4, W // 4, 2), np.int32),
+                np.zeros((H // 4, W // 4), bool), lost)
     if name == "edges":  # quarter-pel, far past every side
         mv4 = rng.integers(-12 * max(H, W), 12 * max(H, W) + 1,
                            (H // 4, W // 4, 2)).astype(np.int32)
@@ -46,6 +82,22 @@ def built_case(name: str, H: int, W: int, K: int, seed: int = 0):
     elif name in ("none_lost", "all_intra", "edges"):
         lost[:] = False
     return drift, delta, mv4, intra4, lost
+
+
+def ordered_route(new):
+    """(n_mb,) bool: the MBs of new drift `new` (K, H, W; numpy or a torch
+    tensor on any device) that K11 sends on its ordered route: a square
+    that wraps negative as int32, or an exact total of the squares over
+    the K decoders above 2^24.  Numpy in, numpy out."""
+    import torch
+
+    K, H, W = new.shape
+    x = torch.as_tensor(new).to(torch.int64)
+    e = (x * x + 2 ** 31) % 2 ** 32 - 2 ** 31  # the int32 square
+    e = e.reshape(K, H // 16, 16, W // 16, 16).permute(1, 3, 0, 2, 4)
+    e = e.reshape((H // 16) * (W // 16), -1)
+    out = (e < 0).any(1) | (e.clamp(min=0).sum(1) > 2 ** 24)
+    return out.numpy() if isinstance(new, np.ndarray) else out
 
 
 def clipped_sides(mv4, H: int, W: int) -> dict:

@@ -15,6 +15,9 @@ cases a recorded picture may not reach.
 ``built_cases(n_mb, seed)`` returns [(name, (orig_mb, w_pred, w_rec,
 w_lev, win, w_sub, is_intra), qp, lam)] as numpy arrays (int32, is_intra
 bool); ``n_mb`` (at least 16) sets the size of the last two cases.
+``sized_case(n_mb, seed, qp)`` is one seeded case of any number of MBs
+(``MB_COUNTS``: counts that are not a multiple of the kernel's MBs a
+block, and 1280x720's 3600), where both transforms win.
 """
 
 from __future__ import annotations
@@ -41,6 +44,33 @@ def basis_signs() -> np.ndarray:
     eye = torch.eye(64, dtype=torch.int32).reshape(64, 8, 8) * 64
     basis = TR.forward8x8(eye).numpy().reshape(64, 64)  # [input, output]
     return np.where(basis.T > 0, 1, -1).reshape(64, 8, 8)
+
+
+# MB counts of ``sized_case``: one MB, a block's MBs and more, CIF's 396
+# and one, 1280x720's
+MB_COUNTS = (1, 5, 397, 3600)
+
+
+def sized_case(n_mb: int, seed: int, qp: int = 28):
+    """(name, arrays, qp, lam) of n_mb seeded MBs: every winner class,
+    sub-8x8 units on some P8x8 ones, residuals of +-2 to +-40, and a 4x4
+    recon and levels of their own error and density per MB, so that the
+    8x8 transform wins on some eligible MBs and loses on others."""
+    rng = np.random.RandomState([seed, n_mb, qp])
+    orig = rng.randint(0, 256, (n_mb, 16, 16))
+    amp = rng.randint(2, 41, (n_mb, 1, 1))
+    pred = np.clip(orig + rng.randint(-40, 41, orig.shape) * amp // 40,
+                   0, 255)
+    err = rng.randint(0, 13, (n_mb, 1, 1))
+    rec = np.clip(orig + rng.randint(-12, 13, orig.shape) * err // 12, 0, 255)
+    dens = rng.random_sample((n_mb, 1, 1, 1, 1))
+    lev = rng.randint(-3, 4, (n_mb, 4, 4, 4, 4)) * (
+        rng.random_sample((n_mb, 4, 4, 4, 4)) < dens)
+    win = rng.randint(0, 8, n_mb)  # C_P16x16 .. C_I4
+    sub = rng.randint(0, 4, (n_mb, 4)) * (rng.random_sample((n_mb, 4)) < 0.3)
+    intra = (win == rd_p.C_I16) | (win == rd_p.C_I4)
+    return (f"sized_{n_mb}", (_i32(orig), _i32(pred), _i32(rec), _i32(lev),
+                              _i32(win), _i32(sub), intra), qp, _lam(qp))
 
 
 def built_cases(n_mb: int, seed: int):

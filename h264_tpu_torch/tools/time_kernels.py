@@ -3,7 +3,7 @@ call a picture of each entry beside an empty launch of its grid, K4 per
 shape and per picture, K6's chain and launch profile, and K1 on P and B
 pictures.  ``chip_smoke.py`` times with the same functions.
 
-    python -m h264_tpu_torch.tools.time_kernels [--out DIR]
+    python -m h264_tpu_torch.tools.time_kernels [--out DIR] [--only t8,drift]
     python h264_tpu_torch/tools/time_kernels.py --root DIR [--out DIR]
     python -m h264_tpu_torch.tools.time_kernels --ab DIR [--out DIR]
 
@@ -24,7 +24,8 @@ times on the second P and the second B picture's inputs:
   picture's calls on the device and back to back;
 - the ``deblock`` call, the same two ways;
 - K1 ``intra_commit_scan`` on the picture's scan state (its intra MBs);
-- the SASS of K5's, K10's, K12's and K13's kernels (``sass_report``):
+- the SASS of K5's, K9's, K10's, K11's, K12's and K13's kernels
+  (``sass_report``):
   each kernel's instructions, its ``__dp4a`` and each loop body's;
 - on the legacy path's second P picture (``rd=False``, IPPP, CAVLC, QP
   28, search range 28), K12 ``p16_search`` and K13 ``p16_refine`` one
@@ -34,6 +35,16 @@ times on the second P and the second B picture's inputs:
   seeded ``moving_frames`` pair, the reference edge-padded as
   ``me.compute_sad_grids`` pads it (``sad_grid``; the host path's own
   calls come one an MB loop of a picture, too slow to record at 720p);
+- K9 ``t8_decide`` on the second P picture of the bench configuration
+  with the 8x8 transform (IPB-T8, ``t8_P``) and K11 ``propagate_drift`` on
+  the second P picture of the error-resilient one (IPB-ER: 30 decoders,
+  10 % loss, 22 refreshed MBs; ``er_P``), one call each the same ways,
+  beside an empty launch of each of their designs' grids; at 1280x720
+  also K11 on the built ``large`` and ``wrap`` inputs of
+  ``tools/drift_cases.py`` at K 30 (``drift_large``, ``drift_wrap``: every
+  MB on its ordered route);
+- each kernel's registers, stack frame, shared and local (spill) bytes
+  (``cuobjdump -res-usage``, ``res_usage``) beside its SASS;
 - for ``b_direct``, the distinct 32-byte sectors its gathers touch
   (``sector_bytes``, with the fields and outputs, and their time at
   3.35 TB/s, ``sector_bound_ms``): the least traffic of its reads at the
@@ -46,7 +57,9 @@ memsets each makes.
 
 With ``--root`` the package is imported from the checkout DIR, so that
 an earlier version of the kernels is timed by the same script in the
-same call on the same card. With ``--ab DIR`` the package of the
+same call on the same card. ``--only`` picks parts of the report
+(``bench``, ``legacy``, ``sad``, ``t8``, ``drift``, ``deblock``). With
+``--ab DIR`` the package of the
 checkout DIR is imported beside this one (as ``h264_tpu_torch_ab``), and
 on the same recorded P pictures both packages' sub-8x8 search step
 (``sub8_step``: from the units' centres to the winners each refinement
@@ -74,7 +87,10 @@ CIF, HD = (352, 288), (1280, 720)
 SEED = 20260717
 # the kernel sources the bench configuration's pictures run
 STEMS = ("intra_commit", "ref_bank", "search_grid", "qpel", "inter_tq",
-         "deblock", "b_direct", "p16_search", "p16_refine", "sad_grid")
+         "deblock", "b_direct", "p16_search", "p16_refine", "sad_grid", "t8",
+         "propagate_drift")
+# the parts of the report ``--only`` may pick
+SECTIONS = ("bench", "legacy", "sad", "t8", "drift", "deblock")
 
 
 def power_line() -> str:
@@ -194,20 +210,27 @@ def by_picture(calls):
     return pics[:-1]
 
 
+def bench_cfg(size, **kw):
+    """The bench configuration (IPB, QP 28, 5 references, search range 28,
+    explicit WP) at `size`, with the options `kw`."""
+    from h264_tpu_torch.encoder.encoder import EncoderConfig
+
+    return EncoderConfig(width=size[0], height=size[1], qp=28, fast=True,
+                         rd=True, entropy="cabac", b_frames=1,
+                         num_ref_frames=5, search_range=28,
+                         weighted_pred=True, **kw)
+
+
 def record_bench(size):
     """The bench configuration's recorded P and B pictures, in coding
     order: {"P": [(calls, scan)], "B": [...]}, each picture's entry calls
     and a copy of its K1 scan state taken before the scan."""
     import torch
     from h264_tpu_torch.encoder import rd_b, rd_p
-    from h264_tpu_torch.encoder.encoder import EncoderConfig, H264Encoder
+    from h264_tpu_torch.encoder.encoder import H264Encoder
     from h264_tpu_torch.tools.synthseq import moving_frames
 
-    cfg = EncoderConfig(width=size[0], height=size[1], qp=28, fast=True,
-                        rd=True, entropy="cabac", b_frames=1,
-                        num_ref_frames=5, search_range=28,
-                        weighted_pred=True)
-    enc = H264Encoder(cfg, device="cuda")
+    enc = H264Encoder(bench_cfg(size), device="cuda")
     scans = {"P": [], "B": []}
     pk, pcalls = rd_p.recording(rd_p.default_kernels())
     bk, bcalls = rd_b.recording(rd_b.default_kernels())
@@ -250,6 +273,59 @@ def record_legacy(size):
     torch.cuda.synchronize()
     return {name: [a for n, a in calls if n == name]
             for name in ("p16_search", "p16_refine")}
+
+
+def record_t8(size):
+    """K9 ``t8_decide``'s calls on the bench configuration with the 8x8
+    transform (IPB-T8; ``moving_frames``, 5 frames), one a P picture, in
+    coding order."""
+    import torch
+    from h264_tpu_torch.encoder import rd_p
+    from h264_tpu_torch.encoder.encoder import H264Encoder
+    from h264_tpu_torch.tools.synthseq import moving_frames
+
+    enc = H264Encoder(bench_cfg(size, transform8x8=True), device="cuda")
+    enc._p_kernels, calls = rd_p.recording(rd_p.default_kernels())
+    list(enc.encode_stream(moving_frames(5, *size, seed=SEED)))
+    torch.cuda.synchronize()
+    return [a for n, a in calls if n == "t8_decide"]
+
+
+# the error-resilient bench configuration (chip_smoke.ER): 30 simulated
+# decoders, 10 % loss, 22 refreshed MBs a picture
+ER = dict(loss_aware_k=30, loss_rate=0.1, intra_refresh=22)
+
+
+def record_drift(size):
+    """K11 ``propagate_drift``'s calls on the error-resilient bench
+    configuration (IPB-ER; ``moving_frames``, 5 frames), one a P picture,
+    in coding order."""
+    import torch
+    from h264_tpu_torch.encoder.encoder import H264Encoder
+    from h264_tpu_torch.kernels import propagate_drift as K11
+    from h264_tpu_torch.tools.synthseq import moving_frames
+
+    calls = []
+
+    class Recording(H264Encoder):
+        @staticmethod
+        def _propagate_drift(*a):
+            calls.append(a)
+            return K11.propagate_drift(*a)
+
+    list(Recording(bench_cfg(size, **ER), device="cuda").encode_stream(
+        moving_frames(5, *size, seed=SEED)))
+    torch.cuda.synchronize()
+    return calls
+
+
+def drift_built(name: str, size, K: int = 30):
+    """K11's arguments on the built case `name` of tools/drift_cases.py."""
+    import torch
+    from h264_tpu_torch.tools.drift_cases import built_case
+
+    return tuple(torch.as_tensor(a, device="cuda")
+                 for a in built_case(name, size[1], size[0], K, seed=SEED))
 
 
 def sad_case(size, R: int = 16):
@@ -298,19 +374,31 @@ def _p16_refine_grids(a):
     return [_i16_grid(n_mb), (n_mb, 256)]
 
 
+def _local_module(name: str):
+    """This checkout's ``kernels/<name>.py`` loaded by path (under
+    ``--root`` the package imported is another checkout's)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "kernels"
+    spec = importlib.util.spec_from_file_location(name, path / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _t8_grids(a):
+    """t8_decide's grid (a warp an MB, 1 to 4 MBs a block as leave a block
+    for each SM), then the first design's (256 threads an MB)."""
+    n_mb = a[0].shape[0]
+    return [_local_module("t8_geometry").grid(n_mb), (n_mb, 256)]
+
+
 def _sad_grids(a):
     """sad_grid_16x16's grid (blocks of 128 threads: runs of 8 MBs of a row
     by strips of at most 16 quads by groups of 16 tiles of 4 dx x 3 dy),
     then the first design's (an MB by tiles of up to 256 positions, a
     thread a position)."""
-    import importlib.util
-
-    # this checkout's geometry: under --root the package is another's
-    path = pathlib.Path(__file__).resolve().parents[1] / "kernels"
-    spec = importlib.util.spec_from_file_location(
-        "sad_geometry", path / "sad_geometry.py")
-    geo = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(geo)
+    geo = _local_module("sad_geometry")
     H, W = a[0].shape
     D = 2 * a[2] + 1
     x, y, z = geo.geometry(a[2]).blocks(H, W)
@@ -362,6 +450,9 @@ GRIDS = {
     "p16_refine": _p16_refine_grids,
     "sad_grid_16x16": _sad_grids,
     "sub8_search": lambda a: [(a[2].numel() // 2, 128)],
+    "t8_decide": _t8_grids,
+    "propagate_drift": lambda a: [
+        (a[0].shape[1] // 16 * (a[0].shape[2] // 16), 256)],
     "mc_luma": lambda a: [(_cdiv(a[1].numel() * a[7] * a[8], 256), 256)],
     "mc_chroma": lambda a: [(_cdiv(a[1].shape[0] * 128, 256), 256)],
     "mc_luma_win": lambda a: [(_cdiv(a[1].numel() * a[6] * a[7], 256), 256)],
@@ -716,6 +807,32 @@ def sass_report(stems) -> dict:
     return out
 
 
+def res_usage(stems) -> dict:
+    """Per kernel of the built libraries of `stems` (``cuobjdump
+    -res-usage``): its registers, stack frame, shared and local bytes
+    (local memory is where spills go): {stem: {kernel: {"REG", "STACK",
+    "SHARED", "LOCAL"}}}."""
+    import re
+
+    from h264_tpu_torch import device as D
+
+    tool = pathlib.Path(D._nvcc()).with_name("cuobjdump")
+    out = {}
+    for stem in stems:
+        text = subprocess.run([str(tool), "-res-usage",
+                               str(D._cuda_so(stem))],
+                              capture_output=True, text=True).stdout
+        for name, use in re.findall(r"Function ([^:\s]+):\s*\n\s*(.*)",
+                                    text):
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)  # mangled length
+            short = (name[m.end():m.end() + int(m.group(1))] if m
+                     else name)
+            out.setdefault(stem, {})[short] = {
+                k: int(v) for k, v in re.findall(r"(\w+):(\d+)", use)
+                if k in ("REG", "STACK", "SHARED", "LOCAL")}
+    return out
+
+
 def device_ops(step) -> dict:
     """torch.profiler over one step: its device kernels by name, and its
     copies and memsets."""
@@ -771,7 +888,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="suffix of the report's name")
     ap.add_argument("--ab", help="also time the sub-8x8 search step of "
                     "this checkout in turns with this one's")
+    ap.add_argument("--only", help="comma-separated parts of the report "
+                    f"(of {', '.join(SECTIONS)}; default all)")
     args = ap.parse_args(argv)
+    only = set(args.only.split(",")) if args.only else set(SECTIONS)
+    if only - set(SECTIONS):
+        ap.error(f"--only: unknown parts {sorted(only - set(SECTIONS))}")
     if args.root:
         sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
     import torch
@@ -782,7 +904,9 @@ def main(argv=None) -> int:
     import h264_tpu_torch
     from h264_tpu_torch import device as D
     from h264_tpu_torch.kernels import p16 as P16
+    from h264_tpu_torch.kernels import propagate_drift as K11
     from h264_tpu_torch.kernels import sad_grid as K10
+    from h264_tpu_torch.kernels import t8 as K9
 
     t0 = time.perf_counter()
     card = power_line()
@@ -792,33 +916,53 @@ def main(argv=None) -> int:
         for ln in D.build_log.get(stem, "").splitlines():
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 print(f"  ptxas {stem}: {ln.strip()}")
+    sass_stems = ("inter_tq", "p16_search", "p16_refine", "sad_grid", "t8",
+                  "propagate_drift")
     report = {"package": str(pathlib.Path(h264_tpu_torch.__file__).parent),
               "device": torch.cuda.get_device_name(0), "card": card,
-              "sass": sass_report(("inter_tq", "p16_search", "p16_refine",
-                                   "sad_grid"))}
+              "sections": sorted(only), "sass": sass_report(sass_stems),
+              "res_usage": res_usage(sass_stems)}
     for stem, kernels in report["sass"].items():
         for name, v in kernels.items():
             print(f"  sass {stem} {name}: {v['n']} instructions, {v['idp']} "
-                  f"IDP, loops (instructions, IDP) {v['loops']}")
+                  f"IDP, loops (instructions, IDP) {v['loops']}; "
+                  f"{report['res_usage'].get(stem, {}).get(name)}")
     other = load_ab(args.ab) if args.ab else None
     for size in (CIF, HD):
-        pics = record_bench(size)
-        report[f"{size[0]}x{size[1]}"] = {
-            kind: picture_times(*pics[kind][1]) for kind in ("P", "B")}
-        # the legacy path's second P picture
-        legacy = record_legacy(size)
-        report[f"{size[0]}x{size[1]}"]["legacy_P"] = {
-            name: one_entry_times(name, getattr(P16, name), legacy[name][1])
-            for name in ("p16_search", "p16_refine")}
-        report[f"{size[0]}x{size[1]}"]["sad_grid"] = {
-            "sad_grid_16x16": one_entry_times(
+        at = report.setdefault(f"{size[0]}x{size[1]}", {})
+        if "bench" in only:
+            pics = record_bench(size)
+            at.update({kind: picture_times(*pics[kind][1])
+                       for kind in ("P", "B")})
+            if other is not None:
+                report.setdefault("ab", {"package": str(pathlib.Path(
+                    other.__file__).parent)})[f"{size[0]}x{size[1]}"] = {
+                    "P": picture_ab(pics["P"][1][0], other)}
+        if "legacy" in only:  # the legacy path's second P picture
+            legacy = record_legacy(size)
+            at["legacy_P"] = {
+                name: one_entry_times(name, getattr(P16, name),
+                                      legacy[name][1])
+                for name in ("p16_search", "p16_refine")}
+        if "sad" in only:
+            at["sad_grid"] = {"sad_grid_16x16": one_entry_times(
                 "sad_grid_16x16", K10.sad_grid_16x16, sad_case(size))}
-        if other is not None:
-            report.setdefault("ab", {"package": str(pathlib.Path(
-                other.__file__).parent)})[f"{size[0]}x{size[1]}"] = {
-                "P": picture_ab(pics["P"][1][0], other)}
-    report["deblock_chain"] = deblock_chain()
-    report["deblock_profile"] = deblock_profile()
+        if "t8" in only:  # IPB-T8's second P picture
+            at["t8_P"] = {"t8_decide": one_entry_times(
+                "t8_decide", K9.t8_decide, record_t8(size)[1])}
+        if "drift" in only:  # IPB-ER's second P picture; built inputs
+            at["er_P"] = {"propagate_drift": one_entry_times(
+                "propagate_drift", K11.propagate_drift,
+                record_drift(size)[1])}
+            if size == HD:
+                for case in ("large", "wrap"):
+                    at[f"drift_{case}"] = {"propagate_drift": one_entry_times(
+                        "propagate_drift", K11.propagate_drift,
+                        drift_built(case, size))}
+        torch.cuda.empty_cache()
+    if "deblock" in only:
+        report["deblock_chain"] = deblock_chain()
+        report["deblock_profile"] = deblock_profile()
     report["seconds"] = time.perf_counter() - t0
     line = json.dumps(report)
     if args.out:

@@ -48,6 +48,7 @@ from h264_tpu_torch.tools.decode_cases import NS as DEC_NS
 from h264_tpu_torch.tools.decode_cases import built_cases
 from h264_tpu_torch.tools.drift_cases import CASES as DRIFT_CASES
 from h264_tpu_torch.tools.drift_cases import built_case as drift_case
+from h264_tpu_torch.tools.drift_cases import ordered_route as drift_ordered_route
 from h264_tpu_torch.tools.p16_cases import CASES as P16_CASES
 from h264_tpu_torch.tools.p16_cases import built_case as p16_built_case
 from h264_tpu_torch.tools.p16_cases import moved_vectors as p16_moved_vectors
@@ -66,7 +67,9 @@ from h264_tpu_torch.tools.slab_cases import CONTENTS as SLAB_CONTENTS
 from h264_tpu_torch.tools.slab_cases import built_slab
 from h264_tpu_torch.tools.strengths_cases import branches, strengths_inputs
 from h264_tpu_torch.tools.synthseq import moving_frames, synthetic_frames
+from h264_tpu_torch.tools.t8_cases import MB_COUNTS as T8_MB_COUNTS
 from h264_tpu_torch.tools.t8_cases import built_cases as t8_cases
+from h264_tpu_torch.tools.t8_cases import sized_case as t8_sized_case
 
 pytestmark = pytest.mark.gpu
 
@@ -742,6 +745,23 @@ def test_t8_decide_matches_plain_built(cuda, case):
         assert int(got[1].abs().max()) == 3264
 
 
+@pytest.mark.parametrize("qp", [0, 28, 51])
+@pytest.mark.parametrize("n_mb", T8_MB_COUNTS)
+def test_t8_decide_matches_plain_sized(cuda, n_mb, qp):
+    """A warp an MB at MB counts that do not fill the last block (1, 5,
+    397) and at 1280x720's 3600, where both transforms win."""
+    name, arrs, qp, lam = t8_sized_case(n_mb, seed=9, qp=qp)
+    args = tuple(torch.as_tensor(a, device=cuda) for a in arrs)
+    before = K9.t8_decide.launches
+    got = K9.t8_decide(*args, qp, lam)
+    assert K9.t8_decide.launches == before + 1
+    want = K9.t8_decide_plain(*args, qp, lam)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    if n_mb >= 397:
+        assert got[0].any() and not got[0].all()
+
+
 def test_t8_wrapper_rejects_bad_input(cuda):
     _, arrs, qp, lam = t8_cases(16, seed=1)[1]
     args = [torch.as_tensor(a, device=cuda) for a in arrs]
@@ -751,6 +771,11 @@ def test_t8_wrapper_rejects_bad_input(cuda):
         K9.t8_decide(*args[:3], args[3][:-1], *args[4:], qp, lam)
     with pytest.raises(ValueError, match="qp"):
         K9.t8_decide(*args, 52, lam)
+    # a view one word in: contiguous, but off the 16-byte loads' boundary
+    off = torch.empty(16 * 256 + 1, dtype=torch.int32, device=cuda)[1:]
+    off = off.view(16, 16, 16).copy_(args[0])
+    with pytest.raises(ValueError, match="orig_mb.*16-byte"):
+        K9.t8_decide(off, *args[1:], qp, lam)
 
 
 @pytest.mark.parametrize("kw", [
@@ -1223,11 +1248,14 @@ def _hold_k11(args):
 
 
 @pytest.mark.parametrize("case", DRIFT_CASES)
-@pytest.mark.parametrize("K", [1, 3, 30])
+@pytest.mark.parametrize("K", [1, 3, 30, 33, 64])
 @pytest.mark.parametrize("W,H", [(176, 144), (352, 288)], ids=lambda v: str(v))
 def test_propagate_drift_matches_plain_built(cuda, W, H, K, case):
-    _hold_k11(tuple(torch.as_tensor(a, device=cuda)
-                    for a in drift_case(case, H, W, K, seed=11)))
+    args = drift_case(case, H, W, K, seed=11)
+    _hold_k11(tuple(torch.as_tensor(a, device=cuda) for a in args))
+    if case == "threshold":  # both of the kernel's routes ran
+        ordered = drift_ordered_route(args[0])  # the new drift is the drift
+        assert ordered.any() and not ordered.all()
 
 
 def test_propagate_drift_matches_plain_recorded(cuda):
@@ -1257,6 +1285,10 @@ def test_propagate_drift_rejects_bad_input(cuda):
            (1, args[1][:16]), (2, args[2][..., :1]),
            (3, args[3].to(torch.int32)), (4, args[4][:1]),
            (2, args[2].transpose(0, 1))]
+    # a view one word in: contiguous, but off the 16-byte loads' boundary
+    off = torch.empty(args[0].numel() + 1, dtype=torch.int32,
+                      device=cuda)[1:]
+    bad.append((0, off.view(args[0].shape).copy_(args[0])))
     for i, x in bad:
         with pytest.raises(ValueError, match="propagate_drift"):
             K11.propagate_drift(*args[:i], x, *args[i + 1:])

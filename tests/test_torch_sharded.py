@@ -17,6 +17,8 @@ rank that raises, and no rank holding JAX or the JAX package."""
 
 import functools
 import hashlib
+import multiprocessing
+import time
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +35,7 @@ from h264_tpu_torch.kernels import ref_bank as K2
 from h264_tpu_torch.ops.exact import chroma_qp
 from h264_tpu_torch.parallel import dryrun as DR
 from h264_tpu_torch.parallel import sharded as SH
+from h264_tpu_torch.parallel import mesh as MESH
 from h264_tpu_torch.parallel.mesh import Mesh
 from h264_tpu_torch.tools.slab_cases import CONTENTS, built_slab
 
@@ -201,3 +204,18 @@ def test_a_rank_that_raises_fails_the_run():
 
     with pytest.raises(mp.ProcessRaisedException, match="not a lambda"):
         step(*map(rows, (cy, cu, cv, y0, u0, v0)))
+
+
+def _sleeping_rank(rank, seconds):
+    time.sleep(seconds)
+
+
+def test_a_rank_that_hangs_is_stopped(monkeypatch):
+    """A launch whose ranks outlive its limit stops and reaps them all and
+    raises, instead of waiting for ever."""
+    monkeypatch.setattr(MESH, "LAUNCH_LIMIT", 10.0)
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="still running after 10 s"):
+        MESH.launch(cpu_mesh(1, 2), _sleeping_rank, 3600)
+    assert time.monotonic() - t0 < 60
+    assert not multiprocessing.active_children()
